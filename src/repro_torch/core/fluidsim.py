@@ -1,0 +1,567 @@
+"""Fluid cluster simulator in PyTorch (port of ``repro/core/jaxsim.py``).
+
+A fixed-timestep, batched approximation of the Ada-SRSF dynamics: a
+struct-of-arrays state over jobs plus per-server occupancy, advanced tick by
+tick with branchless masks.  The reference's ``vmap`` over lanes (seeds)
+becomes a lane axis written out in every tensor, and its ``lax.scan`` over
+ticks a Python loop; the host syncs once per chunk of ``chunk_steps`` ticks,
+as the reference does, to retire finished lanes and compact the batch.
+
+Every executed tick calls the fluid step core once for all lanes
+(:mod:`repro_torch.kernels.fluidstep`: the CUDA kernel on the card, its
+plain version on the CPU).  The tick is the reference's tick: same
+operations in the same order, float32 throughout, Python-float
+coefficients taken as float32, first-index ``argmin`` ties, and the same
+next-event skip, live freeze and lane/job compaction, so the finished mask
+and every finish tick match the reference.
+
+The slice ported so far: monolithic traces (``fusion="all"``), the
+threshold gating policies (``ada``, ``srsfN``), the deterministic gang
+placements (``consolidate``/``first_fit``/``least_loaded``/``rack_pack``),
+any static fabric.  WFBP bucket streams, ``gating="rounds"``, exact k-way
+policies and the ``random`` placement raise ``NotImplementedError`` (see
+ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import netmodel
+from repro_torch.core.contention import ContentionParams
+from repro_torch.core.topology import Topology, nic_topology
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fluidstep import FLUID_KERNEL_IMPLS, fluid_step_core
+
+# job phases
+QUEUED, COMPUTE, COMM, DONE = 0, 1, 2, 3
+
+#: Safety margin (in ticks) for float tick-count conversions:
+#: ``floor(x/dt - margin) + 1`` never overestimates ``ceil(x/dt)``.
+_TICK_MARGIN = 1e-2
+
+#: "No event" sentinel for per-job tick caps (far above any max_steps).
+_BIG_TICKS = 1 << 30
+
+_F32 = torch.float32
+_I32 = torch.int32
+
+#: State leaves that carry the job axis (second axis), compacted with it.
+_JOB_LEAVES = ("phase", "loads", "iters_left", "rem", "servers", "finish", "started")
+
+_NOT_PORTED = "not ported yet; see ROADMAP.md queue 1"
+
+
+@dataclasses.dataclass(frozen=True)
+class FluidSimConfig:
+    """The reference's ``JaxSimConfig`` fields and defaults, plus
+    ``device`` (None = CUDA, see :func:`repro_torch.device.resolve_device`).
+    ``kernel`` picks the step core: "" lets the device decide (CUDA kernel
+    on the card, plain version on the CPU), "ref" forces the plain version."""
+
+    n_servers: int = 16
+    gpus_per_server: int = 4
+    dt: float = 0.05          # [s]
+    max_steps: int = 400_000  # dt * max_steps = simulated horizon cap
+    policy: str = "ada"       # ada | srsfN (kwayK not ported)
+    placement: str = "consolidate"
+    a: float = ContentionParams().a
+    b: float = ContentionParams().b
+    eta: float = ContentionParams().eta
+    dual_threshold: float = ContentionParams().dual_threshold
+    server_bandwidth: Tuple[float, ...] = ()
+    topology: Optional[Topology] = None
+    placement_seed: int = 0
+    chunk_steps: int = 256
+    gating: str = "fixedpoint"
+    skip: bool = True
+    compact: bool = True
+    kernel: str = ""
+    device: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        if self.gating not in ("fixedpoint", "rounds"):
+            raise ValueError(
+                f"unknown gating mode {self.gating!r}: expected "
+                "'fixedpoint' or 'rounds'"
+            )
+        if self.gating == "rounds":
+            raise NotImplementedError(f"gating='rounds' is {_NOT_PORTED}")
+        if self.chunk_steps < 1:
+            raise ValueError(f"chunk_steps must be >= 1, got {self.chunk_steps}")
+        if netmodel.parse_policy(self.policy).exact_lookahead:
+            raise NotImplementedError(
+                f"exact k-way policy {self.policy!r} is {_NOT_PORTED}"
+            )
+        if netmodel.canonical_placement(self.placement) == "random":
+            raise NotImplementedError(f"placement 'random' is {_NOT_PORTED}")
+        if self.kernel and self.kernel not in FLUID_KERNEL_IMPLS:
+            raise ValueError(
+                f"unknown fluid step impl {self.kernel!r}; expected '' or one "
+                f"of {FLUID_KERNEL_IMPLS}"
+            )
+
+
+def _ticks_to_zero(x: torch.Tensor, inv_dt: float) -> torch.Tensor:
+    """Safe underestimate of ``ceil(x / dt)`` (see :data:`_TICK_MARGIN`)."""
+    return torch.floor(x * inv_dt - _TICK_MARGIN).to(_I32) + 1
+
+
+class _Statics:
+    """Config-derived constants on the simulation's device."""
+
+    def __init__(self, cfg: FluidSimConfig, device: torch.device) -> None:
+        ns = cfg.n_servers
+        topo = cfg.topology if cfg.topology is not None else nic_topology(ns)
+        if topo.n_servers != ns:
+            raise ValueError(
+                f"topology covers {topo.n_servers} servers, config has {ns}"
+            )
+        spec = netmodel.parse_policy(cfg.policy)
+        self.max_ways = spec.max_ways
+        self.gated = spec.threshold_gated
+        self.placement = netmodel.canonical_placement(cfg.placement)
+        self.bw = torch.tensor(
+            netmodel.server_bandwidth_array(cfg.server_bandwidth, ns),
+            dtype=_F32, device=device,
+        )
+        inc_t = torch.tensor(topo.incidence(), dtype=_F32, device=device).T
+        self.inc_t = inc_t.contiguous()  # (S, D)
+        self.inc_out_t = (1.0 - inc_t).contiguous()
+        self.oversub = torch.tensor(topo.oversub_array(), dtype=_F32, device=device)
+        self.n_domains = int(self.oversub.shape[0])
+        self.server_rack = torch.tensor(topo.server_rack(), dtype=_I32, device=device)
+        self.n_racks = len(topo.rack_groups())
+        self.server_index = torch.arange(ns, dtype=_F32, device=device)
+        self.index_le = self.server_index[None, :] <= self.server_index[:, None]
+        self.inv_dt = float(np.float32(1.0 / cfg.dt))
+        # 0-dim operands for torch.where: a Python scalar there becomes a
+        # fresh device tensor (one fill launch) on every call
+        f32 = lambda v: torch.tensor(v, dtype=_F32, device=device)  # noqa: E731
+        i32 = lambda v: torch.tensor(v, dtype=_I32, device=device)  # noqa: E731
+        self.zero, self.one, self.inf = f32(0.0), f32(1.0), f32(float("inf"))
+        self.zero_i, self.big_i = i32(0), i32(_BIG_TICKS)
+        self.compute, self.comm, self.done = i32(COMPUTE), i32(COMM), i32(DONE)
+
+
+def _trace_consts(trace: Dict[str, torch.Tensor], cfg: FluidSimConfig, inv_dt: float):
+    """Per-trace constants the reference derives inside its step:
+    contention-free comm seconds, GPU counts as float, the ticks of one
+    compute segment, and the job index."""
+    n_jobs = trace["arrival"].shape[1]
+    return {
+        "comm_total": trace["msg_bytes"] * cfg.b + cfg.a,
+        "n_gpus_f": trace["n_gpus"].to(_F32),
+        "k_iter": torch.clamp(_ticks_to_zero(trace["t_iter"], inv_dt), min=1),
+        "job_index": torch.arange(n_jobs, device=trace["arrival"].device),
+    }
+
+
+def _place(free, free_total, want, rank_key, k: _Statics):
+    """Gang placement for every lane: fill servers in ascending
+    ``rank_key`` order (ties by server index).  ``free``/``rank_key`` are ``(L, S)``, ``free_total``
+    ``(L, 1)``, ``want`` ``(L, 1)``.  Returns per-server takes ``(L, S)``
+    and the feasible flag ``(L, 1)``; small integers, exact in float32."""
+    key_u = rank_key[:, None, :]
+    key_s = rank_key[:, :, None]
+    before = (key_u < key_s) | ((key_u == key_s) & k.index_le)
+    cum = (before * free[:, None, :]).sum(-1)
+    take = torch.minimum(torch.clamp(want - (cum - free), min=0), free)
+    feasible = free_total >= want
+    return torch.where(feasible, take, k.zero), feasible
+
+
+def _init_lane_state(trace: Dict[str, torch.Tensor], cfg: FluidSimConfig,
+                     n_domains: int) -> Dict[str, torch.Tensor]:
+    """Initial state of every lane (the reference's layout with a lane
+    axis): padded jobs (``valid`` False) start DONE."""
+    n_lanes, n_jobs = trace["arrival"].shape
+    dev = trace["arrival"].device
+    ns = cfg.n_servers
+    valid = trace["valid"]
+    return {
+        "phase": torch.where(valid, QUEUED, DONE).to(_I32),
+        "loads": torch.zeros((n_lanes, n_jobs, n_domains), dtype=torch.bool, device=dev),
+        "iters_left": trace["iters"].clone(),
+        "rem": torch.zeros((n_lanes, n_jobs), dtype=_F32, device=dev),
+        "servers": torch.zeros((n_lanes, n_jobs, ns), dtype=_I32, device=dev),
+        "finish": torch.full((n_lanes, n_jobs), float("inf"), dtype=_F32, device=dev),
+        "free": torch.full((n_lanes, ns), float(cfg.gpus_per_server), dtype=_F32, device=dev),
+        "t": torch.zeros((n_lanes,), dtype=_F32, device=dev),
+        "n_done": torch.zeros((n_lanes,), dtype=_I32, device=dev),
+        "i": torch.zeros((n_lanes,), dtype=_I32, device=dev),
+        "started": torch.zeros((n_lanes, n_jobs), dtype=torch.bool, device=dev),
+    }
+
+
+def _lane_step(tr, c, st, k: _Statics, cfg: FluidSimConfig):
+    """One tick of every lane: the reference's executed tick, then
+    (``cfg.skip``) the bulk advance of the following eventless ticks.  Each
+    line mirrors ``jaxsim._make_lane_step.step``."""
+    dt = cfg.dt
+    i_new = st["i"] + 1
+    # clock derived from the integer tick counter (no accumulated drift)
+    t = i_new.to(_F32) * dt
+    phase, rem, servers = st["phase"], st["rem"], st["servers"]
+    n_gpus_f, comm_total = c["n_gpus_f"], c["comm_total"]
+
+    spans0 = (servers > 0).sum(-1) > 1
+    # SRSF key of running jobs: remaining iters x (compute + free comm) x GPUs
+    rem_service = (
+        st["iters_left"] * (tr["t_iter"] + torch.where(spans0, comm_total, k.zero)) * n_gpus_f
+    )
+
+    # ---- admission: smallest-SRSF arrived job that fits -------------------
+    free_total = st["free"].sum(-1, keepdim=True)
+    fits = n_gpus_f <= free_total
+    queued = phase == QUEUED
+    arrived = queued & (tr["arrival"] < t[:, None]) & fits
+    # queued-job priority is compute-only (E_J = 0 before placement);
+    # arrived implies queued, so one mask serves both of the reference's
+    pick = torch.where(
+        arrived, st["iters_left"] * tr["t_iter"] * n_gpus_f, k.inf
+    ).argmin(-1, keepdim=True)
+    can_pick = arrived.gather(-1, pick)
+    load = rank_extra = None
+    if k.placement == "least_loaded":
+        # per-server remaining workload (Alg. 3's L_S in gang form)
+        load = (rem_service[..., None] * servers).sum(-2)
+    elif k.placement == "rack_pack":
+        rank_extra = netmodel.rack_pack_rank(
+            st["free"], k.server_rack, k.n_racks, cfg.gpus_per_server
+        )
+    rank_key = netmodel.placement_rank(
+        k.placement, st["free"], load, k.server_index, rank_extra
+    )
+    take, feasible = _place(
+        st["free"], free_total, n_gpus_f.gather(-1, pick), rank_key, k
+    )
+    admit = can_pick & feasible  # (L, 1)
+    hot = (c["job_index"] == pick) & admit
+    free = st["free"] - torch.where(admit, take, k.zero)
+    servers = torch.where(hot[..., None], take.to(_I32)[:, None, :], servers)
+    phase = torch.where(hot, k.compute, phase)
+    rem = torch.where(hot, tr["t_iter"], rem)
+    # incremental domain-load update of the admitted job's row: the
+    # reference multiplies the {0,1} member row; the non-negative integer
+    # takes give the same zero pattern, exactly
+    row_loads = ((take @ k.inc_t) > 0) & ((take @ k.inc_out_t) > 0)
+    loads = torch.where(hot[..., None], row_loads[:, None, :], st["loads"])
+    member = servers > 0
+    spans = member.sum(-1) > 1
+
+    # ---- communication contention state ----------------------------------
+    started = st["started"]
+    in_comm = phase == COMM
+    active = in_comm & started & (rem > 0)
+    core = fluid_step_core(
+        loads, member.to(_F32), active, rem, k.bw, k.oversub,
+        b=cfg.b, eta=cfg.eta, need_overlap=False, impl=cfg.kernel,
+    )
+
+    # ---- drain compute -----------------------------------------------------
+    is_comp = phase == COMPUTE
+    rem = torch.where(is_comp, rem - dt, rem)
+    comp_done = is_comp & (rem <= 0)
+    to_comm = comp_done & spans
+    iter_done_direct = comp_done & ~spans
+
+    # ---- comm gating: one start per tick, smallest remaining service -----
+    waiting = in_comm & ~started
+    start_ok = waiting & netmodel.may_start_dynamic(
+        core["k_would"], comm_total, core["min_old_rem"], k.max_ways, k.gated,
+        cfg.dual_threshold,
+    )
+    pick_c = torch.where(start_ok, rem_service, k.inf).argmin(-1, keepdim=True)
+    start_now = (c["job_index"] == pick_c) & start_ok
+    started = started | start_now
+    leftover = start_ok & ~start_now
+
+    # ---- drain comm at the slowest-member-scaled Eq. 5 rate ---------------
+    ratio = core["ratio"]
+    draining = in_comm & started
+    rem = torch.where(draining, rem - dt * ratio, rem)
+    comm_done = draining & (rem <= 0)
+
+    # ---- iteration bookkeeping --------------------------------------------
+    iter_done = iter_done_direct | comm_done
+    iters_left = st["iters_left"] - iter_done.to(_F32)
+    job_done = iter_done & (iters_left <= 0)
+    next_compute = iter_done & ~job_done
+
+    phase = torch.where(to_comm, k.comm, phase)
+    rem = torch.where(to_comm, comm_total, rem)
+    started = started & ~(to_comm | iter_done)
+    phase = torch.where(next_compute, k.compute, phase)
+    rem = torch.where(next_compute, tr["t_iter"], rem)
+    phase = torch.where(job_done, k.done, phase)
+    finish = torch.where(job_done, t[:, None], st["finish"])
+    free = free + (servers * job_done[..., None]).sum(-2)
+    servers = torch.where(job_done[..., None], k.zero_i, servers)
+    loads = loads & ~job_done[..., None]
+
+    new_state = {
+        "phase": phase,
+        "loads": loads,
+        "iters_left": iters_left,
+        "rem": rem,
+        "servers": servers,
+        "finish": finish,
+        "free": free,
+        "t": t,
+        "n_done": (phase == DONE).sum(-1, dtype=_I32),
+        "i": i_new,
+        "started": started,
+    }
+    if not cfg.skip:
+        return new_state
+
+    # ---- next-event skip: bulk-advance provably eventless ticks -----------
+    in_comm2 = phase == COMM
+    is_comp2 = phase == COMPUTE
+    active2 = in_comm2 & started & (rem > 0)
+    waiting2 = (in_comm2 & ~started).any(-1)
+    counts2 = netmodel.domain_counts(loads, active2)
+    k_eff2 = netmodel.domain_k(loads, counts2.to(_F32) * k.oversub)
+    ratio2 = (ratio / netmodel.rate_ratio(core["k_eff"], cfg.b, cfg.eta)) * netmodel.rate_ratio(
+        k_eff2, cfg.b, cfg.eta
+    )
+    gate_block = leftover.any(-1) | (comm_done.any(-1) & waiting2) | to_comm.any(-1)
+    fits2 = n_gpus_f <= free.sum(-1, keepdim=True)
+    cap_arr = torch.where(
+        (phase == QUEUED) & fits2,
+        _ticks_to_zero(tr["arrival"] - t[:, None], k.inv_dt) - 1,
+        k.big_i,
+    )
+    k_cur = _ticks_to_zero(rem, k.inv_dt)
+    # a computing job is not done this tick, so its spans flag is the
+    # reference's post-release spans2
+    ns_comp = is_comp2 & ~spans
+    cap_comp = torch.where(
+        is_comp2 & spans,
+        k_cur - 1,
+        torch.where(
+            ns_comp, k_cur - 1 + c["k_iter"] * (iters_left.to(_I32) - 1), k.big_i
+        ),
+    )
+    pos = ratio2 > 0
+    cap_comm = torch.where(
+        active2 & pos,
+        _ticks_to_zero(rem / torch.where(pos, ratio2, k.one), k.inv_dt) - 1,
+        k.big_i,
+    )
+    caps = torch.minimum(torch.minimum(cap_arr, cap_comp), cap_comm).amin(-1)
+    extra = torch.clamp(torch.minimum(caps, cfg.max_steps - i_new), 0, _BIG_TICKS)
+    extra = torch.where(gate_block, k.zero_i, extra)[:, None]
+    nf = extra.to(_F32)
+    # linear drains, plus whole-iteration jumps for non-spanning compute
+    # jobs crossing >= 1 invisible iteration boundary
+    cross = ns_comp & (extra >= k_cur) & (extra > 0)
+    m = torch.clamp(extra - k_cur, min=0)
+    aq = torch.div(m, c["k_iter"], rounding_mode="floor")
+    rq = m - aq * c["k_iter"]
+    new_state["rem"] = torch.where(
+        cross,
+        tr["t_iter"] - rq.to(_F32) * dt,
+        torch.where(
+            is_comp2,
+            rem - nf * dt,
+            torch.where(active2, rem - nf * dt * ratio2, rem),
+        ),
+    )
+    new_state["iters_left"] = torch.where(cross, iters_left - (1 + aq).to(_F32), iters_left)
+    new_state["i"] = i_new + extra[:, 0]
+    new_state["t"] = new_state["i"].to(_F32) * dt
+    return new_state
+
+
+def _lane_chunk(trace, state, cfg: FluidSimConfig, statics: Optional[_Statics] = None):
+    """``cfg.chunk_steps`` ticks of every lane; a lane that has finished or
+    hit the step cap is frozen leaf by leaf (the reference's ``live``
+    select), so the batch can run past early finishers."""
+    k = statics if statics is not None else _Statics(cfg, trace["arrival"].device)
+    c = _trace_consts(trace, cfg, k.inv_dt)
+    n_jobs = trace["arrival"].shape[1]
+    for _ in range(cfg.chunk_steps):
+        live = (state["n_done"] < n_jobs) & (state["i"] < cfg.max_steps)
+        by_rank = (live, live[:, None], live[:, None, None])
+        new = _lane_step(trace, c, state, k, cfg)
+        state = {
+            name: torch.where(by_rank[v.dim() - 1], v, state[name])
+            for name, v in new.items()
+        }
+    return state
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _drive_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig) -> Dict[str, object]:
+    """Host driver: chunks with early exit and (``cfg.compact``) lane/job
+    compaction, as the reference's ``_drive_batched``.  Returns numpy
+    result planes shaped like the input batch and the number of chunks."""
+    device = traces["arrival"].device
+    n_lanes0, n_jobs0 = traces["arrival"].shape
+    if "valid" not in traces:
+        traces = dict(traces)
+        traces["valid"] = torch.ones((n_lanes0, n_jobs0), dtype=torch.bool, device=device)
+    results = {
+        "jct": np.full((n_lanes0, n_jobs0), np.inf, np.float32),
+        "finished": np.zeros((n_lanes0, n_jobs0), bool),
+        "makespan": np.zeros((n_lanes0,), np.float32),
+    }
+    k = _Statics(cfg, device)
+    orig = np.arange(n_lanes0)  # current lane -> original row (-1 = retired)
+    state = _init_lane_state(traces, cfg, k.n_domains)
+    chunks = 0
+    while True:
+        state = _lane_chunk(traces, state, cfg, k)
+        chunks += 1
+        n_jobs_cur = int(traces["arrival"].shape[1])
+        n_done, tick = torch.stack([state["n_done"], state["i"]]).cpu().numpy()
+        done = (n_done >= n_jobs_cur) | (tick >= cfg.max_steps)
+        newly = [l for l in np.nonzero(done)[0] if orig[l] >= 0]
+        valid = traces["valid"].cpu().numpy()
+        if newly:
+            phase = state["phase"].cpu().numpy()
+            finish = state["finish"].cpu().numpy()
+            t_now = state["t"].cpu().numpy()
+            arr = traces["arrival"].cpu().numpy()
+            for l in newly:
+                row = orig[l]
+                fin = (phase[l] == DONE) & valid[l]
+                results["jct"][row, :n_jobs_cur] = finish[l] - arr[l]
+                results["finished"][row, :n_jobs_cur] = fin
+                results["makespan"][row] = finish[l][fin].max() if fin.any() else t_now[l]
+                orig[l] = -1
+        if done.all():
+            break
+        if not (cfg.compact and done.any()):
+            continue
+
+        # ---- compaction: retire finished lanes, shrink the batch ---------
+        # pow2 lanes and jobs in multiples of 8, as the reference buckets
+        # them; dropped lanes are final and dropped job columns are
+        # all-invalid across the surviving lanes.
+        live = np.nonzero(~done)[0]
+        n_live = len(live)
+        lanes_new = _next_pow2(n_live)
+        pad_lane = int(np.nonzero(done)[0][0])
+        sel = np.concatenate([live, np.full(lanes_new - n_live, pad_lane, live.dtype)])
+        col_used = valid[live].any(axis=0)
+        jobs_need = int(np.nonzero(col_used)[0][-1]) + 1 if col_used.any() else 1
+        jobs_new = min(n_jobs_cur, max(8, -(-jobs_need // 8) * 8))
+        if lanes_new >= len(done) and jobs_new > 3 * n_jobs_cur // 4:
+            continue
+        sel_dev = torch.as_tensor(sel, device=device)
+        traces = {
+            name: v.index_select(0, sel_dev)[:, :jobs_new].contiguous()
+            for name, v in traces.items()
+        }
+        state = {
+            name: (
+                v.index_select(0, sel_dev)[:, :jobs_new].contiguous()
+                if name in _JOB_LEAVES else v.index_select(0, sel_dev)
+            )
+            for name, v in state.items()
+        }
+        state["n_done"] = (state["phase"] == DONE).sum(1, dtype=_I32)
+        orig = np.concatenate([orig[live], np.full(lanes_new - n_live, -1, orig.dtype)])
+    results["chunks"] = chunks
+    return results
+
+
+def _check_monolithic(traces: Dict[str, object]) -> None:
+    bb = traces.get("bucket_bytes")
+    if bb is not None and int(bb.shape[-1]) > 1:
+        raise NotImplementedError(f"WFBP multi-bucket traces are {_NOT_PORTED}")
+
+
+def simulate_traces_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig):
+    """Simulate a stacked batch of traces (leading axis = seed, see
+    :func:`stack_traces`) on ``cfg.device``.  Returns numpy ``jct`` and
+    ``finished`` ``(L, J)``, ``makespan`` ``(L,)`` and the number of
+    ``chunks`` the driver ran."""
+    _check_monolithic(traces)
+    device = resolve_device(cfg.device)
+    traces = {
+        name: torch.as_tensor(v).to(device)
+        for name, v in traces.items() if name not in ("bucket_bytes", "n_buckets")
+    }
+    return _drive_batched(traces, cfg)
+
+
+def simulate_trace(trace: Dict[str, torch.Tensor], cfg: FluidSimConfig):
+    """Simulate one fixed workload (per-job ``(J,)`` planes)."""
+    out = simulate_traces_batched({k: torch.as_tensor(v)[None] for k, v in trace.items()}, cfg)
+    return {
+        "jct": out["jct"][0],
+        "finished": out["finished"][0],
+        "makespan": out["makespan"][0],
+        "chunks": out["chunks"],
+    }
+
+
+def trace_from_jobs(jobs, fusion: object = "all", device=None) -> Dict[str, torch.Tensor]:
+    """``JobSpec`` list -> the struct-of-arrays trace the simulator
+    consumes, on ``device`` (None = CUDA).  Only monolithic traces
+    (``fusion="all"``) are ported."""
+    if netmodel.fusion_threshold(fusion) != float("inf"):
+        raise NotImplementedError(f"WFBP fusion {fusion!r} is {_NOT_PORTED}")
+    dev = resolve_device(device)
+    return {
+        "arrival": torch.tensor([j.arrival for j in jobs], dtype=_F32, device=dev),
+        "iters": torch.tensor([j.iterations for j in jobs], dtype=_F32, device=dev),
+        "t_iter": torch.tensor([j.model.t_iter_compute for j in jobs], dtype=_F32, device=dev),
+        "msg_bytes": torch.tensor([j.model.size_bytes for j in jobs], dtype=_F32, device=dev),
+        "n_gpus": torch.tensor([j.n_gpus for j in jobs], dtype=_I32, device=dev),
+    }
+
+
+def stack_traces(traces: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Stack per-seed traces into one rectangular batch, padding ragged job
+    counts with inert jobs masked out by a boolean ``valid`` plane."""
+    if not traces:
+        raise ValueError("need at least one trace to stack")
+    for tr in traces:
+        _check_monolithic(tr)
+    n_max = max(int(tr["arrival"].shape[0]) for tr in traces)
+    fills = {"arrival": 0.0, "iters": 1.0, "t_iter": 1.0, "msg_bytes": 0.0,
+             "n_gpus": 1, "valid": False}
+    out: Dict[str, List[torch.Tensor]] = {}
+    for tr in traces:
+        n = int(tr["arrival"].shape[0])
+        lane = dict(tr)
+        lane.setdefault("valid", torch.ones((n,), dtype=torch.bool, device=tr["arrival"].device))
+        for name, v in lane.items():
+            pad = torch.full((n_max - n,), fills[name], dtype=v.dtype, device=v.device)
+            out.setdefault(name, []).append(torch.cat([v, pad]))
+    return {name: torch.stack(vs) for name, vs in out.items()}
+
+
+def simulate_jobs(jobs, cfg: FluidSimConfig, fusion: object = "all") -> Dict[str, object]:
+    """One fluid simulation of a fixed job list; numpy outputs."""
+    out = simulate_trace(trace_from_jobs(jobs, fusion=fusion, device=resolve_device(cfg.device)), cfg)
+    return {
+        "jct": out["jct"],
+        "finished": out["finished"],
+        "makespan": float(out["makespan"]),
+        "chunks": out["chunks"],
+    }
+
+
+def from_reference(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """The reference's trace or lane-state dict, pulled to numpy, as the
+    port's tensors on ``device`` (dtypes kept: bool, int32, float32)."""
+    dev = resolve_device(device)
+    return {name: torch.as_tensor(np.array(v)).to(dev) for name, v in arrays.items()}
+
+
+def to_numpy(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`from_reference`."""
+    return {name: v.detach().cpu().numpy() for name, v in tensors.items()}
