@@ -7,8 +7,9 @@ Run from the repository root, with no arguments::
 Phases (any failed check raises, so the exit code is non-zero):
 
 1. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
-2. the build of the CUDA fluid step kernel from ``src/repro_torch/kernels/
-   fluidstep/csrc`` (``nvcc``, sm_90a), with its build time;
+2. the build of the two CUDA kernels from their sources, ``src/repro_torch/
+   kernels/{fluidstep,ssd}/csrc`` (one ``nvcc`` each, sm_90a, started
+   together), with their build times;
 3. the kernel against its plain PyTorch version on the card at J in
    {8, 40, 160, 256}, S = 16, D in {16, 20}, lanes in {1, 8}, with and
    without the overlap matrix: int and bool planes exact, float32 planes
@@ -30,7 +31,25 @@ Phases (any failed check raises, so the exit code is non-zero):
    reference;
 7. the host cost: one chunk of the ada batch alone on the card, timed with
    the kernel and with the plain step core, and its device time from the
-   profiler.
+   profiler;
+8. the SSD decode-step kernel against its plain PyTorch version on the
+   card over ``tests/test_kernels.py``'s (B, H, P, N) sweep plus the serve
+   shapes (8 and 64, 24, 64, 128), float32 and bfloat16, at the JAX suite's
+   bars (y within 3 x tol_for, state 1e-4), max abs error printed; then
+   both timed with CUDA events at B 8 and B 64, states rotated so that
+   each call finds its state cold in L2, beside the bound;
+9. the serving main path, with the SSD launch count reset just before it:
+   ``repro_torch.launch.serve.serve_batch`` at full-width mamba2-130m,
+   batch 8, prompt 512, 64 new tokens, greedy, bf16 (prefill and decode
+   tok/s, ms per decode step); exactly 24 x 63 = 1,512 launches, every
+   token in the vocab, finite logits;
+10. from the same prefill cache, decode teacher-forced over those tokens
+    with the kernel and with the plain step on the card: every step's
+    logits within the bf16 bar (0.15), top-1 agreement printed;
+11. the reduced config in float32 with the plain path, on the card and on
+    the CPU: identical generated tokens;
+12. one decode step: wall, device time (profiler), the SSD kernel's share,
+    device kernels, device idle share.
 
 Then the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -44,7 +63,7 @@ import multiprocessing
 import subprocess
 import sys
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -143,6 +162,272 @@ def _paper_batch(comm: str, impl: str, entry: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The SSD decode-step kernel and the serving path (mamba2-130m)
+# ---------------------------------------------------------------------------
+
+#: tests/test_kernels.py's (b, h, p, n) sweep plus the serve shapes (B 8 and
+#: 64 at mamba2-130m's H 24, P 64, N 128)
+SSD_SWEEP = [(2, 8, 64, 128), (2, 6, 16, 32), (3, 12, 32, 64), (1, 24, 64, 128),
+             (8, 24, 64, 128), (64, 24, 64, 128)]
+SSD_ORDER = ("x", "dt", "a", "b", "c", "d", "state")
+#: the main path: full-width mamba2-130m, batch 8, prompt 512, 64 new tokens
+SERVE = dict(batch=8, prompt_len=512, gen=64, seed=0)
+BF16_BAR = 0.15  # tests/test_models.py::TestDecodeMatchesPrefill, between two paths
+#: timing rotates over this many bytes of distinct states, so each call
+#: finds its state in device memory and not in the 50 MB L2 (as decode
+#: does: 24 layers' states lie between two reads of one)
+COLD_BYTES = 200e6
+
+
+def _ssd_inputs(torch, seed, b, h, p, n, dtype, dev):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    raw = {
+        "x": rng.standard_normal((b, h, p)).astype(f32),
+        "dt": np.logaddexp(rng.standard_normal((b, h)), 0.0).astype(f32),
+        "a": (-np.exp(rng.standard_normal(h) * 0.1)).astype(f32),
+        "b": rng.standard_normal((b, n)).astype(f32),
+        "c": rng.standard_normal((b, n)).astype(f32),
+        "d": rng.uniform(0.5, 1.5, h).astype(f32),
+        "state": rng.standard_normal((b, h, p, n)).astype(f32),
+    }
+    low = ("x", "dt", "b", "c")
+    return {k: torch.from_numpy(v).to(device=dev, dtype=dtype if k in low else torch.float32)
+            for k, v in raw.items()}
+
+
+def _ssd_bound(b, h, p, n, elt):
+    """(bound ms, "bytes" or "operations", bytes, ops): each input read and
+    each output written once; ~5 float32 operations per state element
+    (decay multiply, outer-product multiply-add, C multiply-add) plus the
+    per-row skip term and one exp per (b, h)."""
+    nbytes = 2 * b * h * p * n * 4 + (2 * b * h * p + b * h + 2 * b * n) * elt + 2 * h * 4
+    ops = 5 * b * h * p * n + 3 * b * h * p + 2 * b * h
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def _ssd_kernel_phase(torch, dev) -> dict:
+    """Phase 8: the kernel against its plain version over the sweep
+    (f32 and bf16), then both timed at B 8 and B 64.  Returns the kernels
+    line's entry (launches are filled in by the serving phase)."""
+    from repro_torch.kernels.ssd import ssd_decode_step
+
+    # ---- 8. kernel vs plain version -----------------------------------------
+    max_abs = 0.0
+    for b, h, p, n in SSD_SWEEP:
+        for name, dtype, tol in (("float32", torch.float32, 3 * 2e-5),
+                                 ("bfloat16", torch.bfloat16, 3 * 3e-2)):
+            t = _ssd_inputs(torch, b * 1000 + n, b, h, p, n, dtype, dev)
+            state_in = t["state"].clone()
+            y, s = ssd_decode_step(*(t[k] for k in SSD_ORDER))
+            y_ref, s_ref = ssd_decode_step(*(t[k] for k in SSD_ORDER), impl="ref")
+            torch.cuda.synchronize()
+            _require(torch.equal(t["state"], state_in), "the SSD state is updated out of place")
+            _require(y.dtype == dtype and s.dtype == torch.float32, "SSD output dtypes")
+            err_y = float((y.float() - y_ref.float()).abs().max())
+            err_s = float((s - s_ref).abs().max())
+            # y's error in ulps of the working dtype at |y| + |x*d| (the
+            # skip term is added after rounding on one side, before on the other)
+            mag = y_ref.float().abs() + (t["x"].float() * t["d"][None, :, None]).abs()
+            mant = 7 if dtype == torch.bfloat16 else 23
+            ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - mant)
+            ulps_y = float(((y.float() - y_ref.float()).abs() / ulp).max())
+            ok_y = bool(((y.float() - y_ref.float()).abs() <= tol + tol * y_ref.float().abs()).all())
+            ok_s = bool(((s - s_ref).abs() <= 1e-4 + 1e-4 * s_ref.abs()).all())
+            _log(f"ssd parity B={b} H={h} P={p} N={n} {name}: max abs err y {err_y} "
+                 f"({ulps_y:.3f} {name} ulps), state {err_s}")
+            _require(ok_y and ok_s, f"SSD kernel vs plain at {(b, h, p, n)} {name}")
+            max_abs = max(max_abs, err_y, err_s)
+
+    # ---- 8. timing (plain, kernel, kernel, plain), states cold in L2 ---------
+    def _time(impl, graph, t, states, reps):
+        """ms per call over rotating states: in a CUDA graph (device time)
+        or eagerly (what a decode step pays, host launch included)."""
+        others = [t[k] for k in SSD_ORDER[:-1]]
+
+        def run():
+            for st in states:
+                ssd_decode_step(*others, st, impl=impl)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        if graph:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                run()
+            g.replay()
+            run = g.replay
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            run()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / (reps * len(states))
+
+    entry = {}
+    for b in (8, 64):
+        h, p, n = 24, 64, 128
+        t = _ssd_inputs(torch, b, b, h, p, n, torch.bfloat16, dev)
+        k = max(2, int(np.ceil(COLD_BYTES / (b * h * p * n * 4))))
+        states = [t["state"].clone() for _ in range(k)]
+        reps = max(4, 640 // k)
+        timings = {}
+        for impl in ("ref", "cuda", "cuda", "ref"):
+            for graph in (True, False):
+                timings.setdefault((impl, graph), []).append(_time(impl, graph, t, states, reps))
+        del states
+        bound_ms, bound_by, nbytes, ops = _ssd_bound(b, h, p, n, 2)
+        kernel_ms = min(timings[("cuda", True)])
+        plain_ms = min(timings[("ref", True)])
+        _log(f"ssd timing B={b} H={h} P={p} N={n} bf16 ({k} states rotated, ms per call, "
+             f"plain/kernel/kernel/plain): device time in a CUDA graph: kernel "
+             f"{timings[('cuda', True)]}, plain {timings[('ref', True)]}; eager (host "
+             f"launch included): kernel {timings[('cuda', False)]}, plain "
+             f"{timings[('ref', False)]}; bound {bound_ms:.8f} ms ({bound_by}: {nbytes} B, "
+             f"{ops} ops), share of bound reached {bound_ms / kernel_ms:.4f}; no single "
+             f"PyTorch call computes this function")
+        if b == SERVE["batch"]:
+            entry = {
+                "name": "ssd_decode_step",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/ssd/csrc/ssd_step.cu",
+                "replaces": "src/repro/kernels/ssd/kernel.py:24",
+                "launches": 0,
+                "max_abs_err": max_abs,
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,
+            }
+    return entry
+
+
+def _serve_phases(torch, dev) -> int:
+    """Phases 9-12: the main path (full-width mamba2-130m served through
+    ``serve_batch``), the kernel path against the plain path teacher-forced
+    over its tokens, the card against the CPU on the reduced config, and
+    one decode step under the profiler.  Returns the SSD kernel's launches
+    on the main path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd.kernel import ssd_decode_step_cuda
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.common import param_count, tree_leaves
+    from repro_torch.models.lm import LM, RunFlags
+
+    cfg = get_config("mamba2-130m")
+    bsz, plen, gen, seed = (SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator().manual_seed(seed), torch.bfloat16, dev)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    _log(f"serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+         f"{cfg.ssm_n_heads} heads x P {cfg.ssm_head_dim}, N {cfg.ssm_state}, vocab "
+         f"{cfg.vocab_size} padded to {cfg.padded_vocab}), {n_params} parameters in bf16 "
+         f"from seed {seed}, made in {time.perf_counter() - t0:.2f} s")
+    _require(n_params == param_count(lm.schema()), "parameters of the schema")
+    warm = serve_batch(cfg, bsz, plen, 2, seed, params=params)  # cuBLAS, allocator
+    _log(f"serve warm-up (gen 2): prefill {warm['prefill_s']:.4f} s")
+
+    # ---- 9. the main path -----------------------------------------------
+    ssd_decode_step_cuda.launches = 0
+    res = serve_batch(cfg, bsz, plen, gen, seed, params=params)
+    launches = ssd_decode_step_cuda.launches
+    torch.cuda.synchronize()
+    generated, logits = res["generated"], res["logits"]
+    ms_step = res["decode_s"] / (gen - 1) * 1e3
+    _log(f"serve main path (batch {bsz}, prompt {plen}, gen {gen}, greedy, bf16): prefill "
+         f"{res['prefill_s']:.4f} s = {res['prefill_tok_per_s']:.1f} tok/s; decode "
+         f"{res['decode_s']:.4f} s = {res['decode_tok_per_s']:.1f} tok/s, {ms_step:.4f} ms "
+         f"per decode step; ssd kernel launches {launches} (expected "
+         f"{cfg.n_layers} x {gen - 1} = {cfg.n_layers * (gen - 1)})")
+    _log(f"serve sample tokens: {generated[0][:16].tolist()}")
+    _require(launches == cfg.n_layers * (gen - 1), "one SSD launch per layer per decode token")
+    _require(generated.shape == (bsz, gen), "generated shape")
+    _require(((generated >= 0) & (generated < cfg.vocab_size)).all(), "tokens in the vocab")
+    _require(tuple(logits.shape) == (bsz, gen, cfg.vocab_size), "logits shape")
+    _require(bool(torch.isfinite(logits).all()), "finite logits")
+
+    # ---- 10. kernel path vs plain path, teacher-forced on the card ---------
+    flags = {impl: RunFlags(remat="none", q_chunk=min(512, plen), ssd_impl=impl)
+             for impl in ("cuda", "ref")}
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (bsz, plen))
+    tokens = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
+    gen_t = torch.as_tensor(generated).to(dev)
+    worst, agree, replay = 0.0, 0, 0.0
+    with torch.no_grad():
+        first, cache0 = make_prefill_step(lm, plen + gen, flags["cuda"])(params, {"tokens": tokens})
+        steps = {impl: make_serve_step(lm, f) for impl, f in flags.items()}
+        caches = {impl: cache0 for impl in flags}
+        replay = float((first.float() - logits[:, 0].float()).abs().max())
+        for i in range(gen - 1):
+            tok = gen_t[:, i:i + 1]
+            lk, caches["cuda"] = steps["cuda"](params, caches["cuda"], tok)
+            lr, caches["ref"] = steps["ref"](params, caches["ref"], tok)
+            lk, lr = lk.float(), lr.float()
+            diff = (lk - lr).abs()
+            _require(bool((diff <= BF16_BAR + BF16_BAR * lr.abs()).all()),
+                     f"kernel vs plain decode logits at step {i + 1}")
+            worst = max(worst, float(diff.max()))
+            agree += int((lk.argmax(-1) == lr.argmax(-1)).sum())
+            replay = max(replay, float((lk - logits[:, i + 1].float()).abs().max()))
+        torch.cuda.synchronize()
+    _log(f"teacher-forced over the {gen - 1} decode tokens, kernel vs plain SSD step on the "
+         f"card: max abs logit difference {worst} (bar {BF16_BAR}), top-1 agreement "
+         f"{agree / (bsz * (gen - 1)):.6f}; kernel replay vs the served logits max abs "
+         f"difference {replay}")
+
+    # ---- 11. the reduced config in f32, plain path: card vs CPU -----------
+    red = get_config("mamba2-130m", reduced=True)
+    on_card = serve_batch(red, 2, 32, 8, 0, device=dev, dtype=torch.float32, ssd_impl="ref")
+    on_cpu = serve_batch(red, 2, 32, 8, 0, device="cpu", dtype=torch.float32)
+    _require((on_card["generated"] == on_cpu["generated"]).all(), "reduced f32: card vs CPU")
+    diff = float((on_card["logits"].cpu() - on_cpu["logits"]).abs().max())
+    _log(f"{red.name} f32, plain path, card vs CPU: identical generated tokens "
+         f"{on_card['generated'].tolist()}, max abs logit difference {diff}")
+
+    # ---- 12. one decode step: wall, device time, idle share ----------------
+    from torch.profiler import ProfilerActivity, profile
+
+    step = steps["cuda"]
+    tok = gen_t[:, :1]
+    with torch.no_grad():
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(10):
+                step(params, cache0, tok)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) / 10 * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(params, cache0, tok)
+            torch.cuda.synchronize()
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    ssd_ms = sum(e.self_device_time_total for e in on_device if "ssd_step" in e.key) / 1e3
+    n_kernels = sum(e.count for e in on_device)
+    wall = min(walls)
+    _require(device_ms > 0 and ssd_ms > 0, "the profiler saw the decode step's device time")
+    _log(f"decode step profile (batch {bsz}, full width): wall {walls} ms; device time "
+         f"{device_ms:.4f} ms in {n_kernels} kernels and copies, of which the SSD kernel "
+         f"{ssd_ms:.4f} ms ({ssd_ms / device_ms:.4f}); device idle share "
+         f"{1 - device_ms / wall:.4f}")
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        _log(f"  {e.key[:80]}: {e.count} x, {e.self_device_time_total / 1e3:.4f} ms")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -155,6 +440,7 @@ def main() -> int:
     from repro_torch.core import fluidsim
     from repro_torch.kernels.fluidstep import fluid_step_core
     from repro_torch.kernels.fluidstep import kernel as fs_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.scenarios import (
         QUICK_OVERRIDES, fluid_config, get_scenario, monte_carlo_fluid,
         run_scenario_fluid,
@@ -162,6 +448,9 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    # float32 products in full float32 (the plain versions' contractions)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     launches = fs_kernel.fluid_step_core_cuda
 
     # ---- 1. the card --------------------------------------------------------
@@ -173,13 +462,18 @@ def main() -> int:
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
          f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # ---- 2. build -----------------------------------------------------------
-    fs_kernel.build()
-    info = fs_kernel.build_info()
-    _log(f"build: fluid_step.cu in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            _log("  ptxas:", line.strip())
+    # ---- 2. build: one nvcc per kernel source, started together -------------
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for f in [pool.submit(k.build) for k in (fs_kernel, ssd_kernel)]:
+            f.result()
+    _log(f"build: both kernels in {time.perf_counter() - t0:.2f} s wall")
+    for src, k in (("fluid_step.cu", fs_kernel), ("ssd_step.cu", ssd_kernel)):
+        info = k.build_info()
+        _log(f"build: {src} in {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                _log("  ptxas:", line.strip())
 
     # ---- 3. kernel vs plain version -----------------------------------------
     names = ("loads", "member", "active", "rem", "bw", "oversub")
@@ -362,6 +656,10 @@ def main() -> int:
          f"{device_ops_tick:.2f} kernels and copies; device idle share "
          f"{1 - device_ms_tick / wall_ms_tick:.4f}")
 
+    # ---- 8.-12. the SSD decode-step kernel and the serving path -----------
+    ssd = _ssd_kernel_phase(torch, dev)
+    ssd["launches"] = _serve_phases(torch, dev)
+
     line = {"kernels": [{
         "name": "fluid_step_core",
         "route": "cuda",
@@ -374,7 +672,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}
+    }, ssd]}
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     _log(smi)
     _log(json.dumps(line))

@@ -1,0 +1,5 @@
+"""Flat-key npz checkpoints (port of ``repro.checkpoint``)."""
+
+from repro_torch.checkpoint.store import latest_step, restore, save
+
+__all__ = ["latest_step", "restore", "save"]

@@ -2,11 +2,9 @@
 (``csrc/fluid_step.cu``; replaces the Pallas kernel
 ``repro/kernels/fluidstep/kernel.py::_fluid_step_kernel``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use, from the package's own sources, into
-the ``build/`` directory beside this module, and loaded with ``ctypes``.
-Nothing is compiled or imported at module import time, so the CPU-only
-tests can import this module.
+The source is compiled with ``nvcc`` for ``sm_90a`` at first use and
+loaded with ``ctypes`` (:mod:`repro_torch.kernels.nvcc`), into the
+``build/`` directory beside this module.
 
 :func:`fluid_step_core_cuda` launches the kernel on PyTorch's current
 stream, one CTA per lane, and counts its launches in
@@ -16,95 +14,40 @@ stream, one CTA per lane, and counts its launches in
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
-from typing import Optional
 
 import torch
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "fluid_step.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "build"
+from repro_torch.kernels.nvcc import NvccLibrary, check_tensor
+
 #: The kernel stages each job's domain-load row as one 64-bit mask.
 MAX_DOMAINS = 64
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-)
 
 
-class _Build:
-    """The loaded library and how it was built (one per process)."""
-
-    lib: Optional[ctypes.CDLL] = None
-    log: str = ""
-    seconds: float = 0.0
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    found = str(cand) if cand.exists() else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the CUDA "
-            "fluid step kernel is built from csrc/ at first use"
-        )
-    return found
-
-
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/fluid_step.cu`` (once per source version) and load
-    it.  The library's name carries the source hash, so an edited source
-    is rebuilt; the output is written to a temporary name and renamed, so
-    concurrent builders never load a half-written file."""
-    if _Build.lib is not None:
-        return _Build.lib
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libfluidstep-{tag}.so"
-    t0 = time.perf_counter()
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        _Build.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{_Build.log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.fluid_step_core_launch
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    _Build.seconds = time.perf_counter() - t0
-    _Build.lib = lib
-    return lib
+
+
+#: ``--fmad=false``: the kernel keeps the plain version's rounding of every
+#: multiply and add (a one-ulp change of a remainder moves a finish tick).
+_LIB = NvccLibrary(Path(__file__).resolve().parent / "csrc" / "fluid_step.cu",
+                   "fluidstep", _bind, extra_flags=("--fmad=false",))
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/fluid_step.cu`` (once per source version) and load it."""
+    return _LIB.load()
 
 
 def build_info() -> dict:
     """Seconds the last :func:`build` took and the compiler's output
     (``-Xptxas -v`` register and shared-memory use; empty when the library
     was already built)."""
-    return {"seconds": _Build.seconds, "log": _Build.log}
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return _LIB.info()
 
 
 def fluid_step_core_cuda(loads, member, active, rem, bw, oversub, *,
@@ -124,12 +67,12 @@ def fluid_step_core_cuda(loads, member, active, rem, bw, oversub, *,
         raise ValueError(f"the CUDA kernel takes 1..{MAX_DOMAINS} domains, got {n_domains}")
     if n_lanes < 1 or n_jobs < 1 or n_servers < 1:
         raise ValueError(f"empty batch: lanes={n_lanes} jobs={n_jobs} servers={n_servers}")
-    _check("loads", loads, torch.bool, (n_lanes, n_jobs, n_domains), device)
-    _check("member", member, torch.float32, (n_lanes, n_jobs, n_servers), device)
-    _check("active", active, torch.bool, (n_lanes, n_jobs), device)
-    _check("rem", rem, torch.float32, (n_lanes, n_jobs), device)
-    _check("bw", bw, torch.float32, (n_servers,), device)
-    _check("oversub", oversub, torch.float32, (n_domains,), device)
+    check_tensor("loads", loads, torch.bool, (n_lanes, n_jobs, n_domains), device)
+    check_tensor("member", member, torch.float32, (n_lanes, n_jobs, n_servers), device)
+    check_tensor("active", active, torch.bool, (n_lanes, n_jobs), device)
+    check_tensor("rem", rem, torch.float32, (n_lanes, n_jobs), device)
+    check_tensor("bw", bw, torch.float32, (n_servers,), device)
+    check_tensor("oversub", oversub, torch.float32, (n_domains,), device)
 
     lib = build()
     # two output buffers, split into contiguous views

@@ -1,0 +1,99 @@
+"""Shared model building blocks: parameter schema, init, norm (port of
+``repro/models/common.py``).
+
+Parameters are plain nested dicts of tensors.  Every leaf is declared once
+via :class:`ParamSpec`, with the reference's shapes and keys, so weights
+carry across between the two packages leaf by leaf.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
+
+import torch
+
+Params = Any  # nested dict of tensors
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis name per dim (None = replicated)
+    init: str = "normal"  # normal | zeros | ones
+    scale: float = 1.0    # stddev multiplier for "normal"
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes} rank mismatch")
+
+
+Schema = Dict[str, Any]  # nested dict of ParamSpec
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Map ``fn`` over the leaves of nested dicts (and over the matching
+    leaves of ``rest``, which have the same keys)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``(flat key, leaf)`` pairs in sorted-key order, keys ``/``-joined as
+    the reference's checkpoint store joins them."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def init_params(schema: Schema, generator: torch.Generator,
+                dtype: torch.dtype = torch.bfloat16,
+                device: Union[str, torch.device] = "cpu") -> Params:
+    """Materialize parameters with the reference's rule (normal with std
+    ``scale / sqrt(fan_in)``, zeros, ones).  Draws come from ``generator``
+    (a CPU generator: the same seed gives the same weights on every
+    device) in sorted-key order; they are not JAX's threefry draws, so
+    parity tests carry JAX's weights across instead (``convert.py``)."""
+
+    def make(spec: ParamSpec) -> torch.Tensor:
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dtype, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dtype, device=device)
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = spec.scale / math.sqrt(max(fan_in, 1))
+        w = torch.randn(spec.shape, generator=generator, dtype=torch.float32) * std
+        return w.to(dtype).to(device)
+
+    # draw in sorted-key order, so the weights do not depend on dict order
+    flat = {k: make(spec) for k, spec in tree_leaves(schema)}
+    return tree_unflatten(flat)
+
+
+def tree_unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Nested dicts from ``/``-joined flat keys (inverse of :func:`tree_leaves`)."""
+    out: Dict[str, Any] = {}
+    for key, leaf in flat.items():
+        node = out
+        *parents, last = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return out
+
+
+def param_count(schema: Schema) -> int:
+    return int(sum(math.prod(s.shape) for _, s in tree_leaves(schema)))
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The reference's rounding order: normalise in float32, cast back to
+    the input dtype, then multiply by gamma in that dtype."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma

@@ -1,0 +1,120 @@
+"""The port's serving entry point and step functions (``repro_torch.launch``)
+against the JAX reference (``repro.launch``) on the CPU, at
+``mamba2_130m``'s REDUCED config.
+
+* ``serve_batch`` with the reference's weights for the same seed (carried
+  across by ``repro_torch.models.convert``) and the same seed, hence the
+  same prompts: first-step logits at the bf16 bar (0.15, as
+  ``tests/test_models.py::TestDecodeMatchesPrefill``).
+* In float32, both packages driven through their ``steps.py`` functions
+  with greedy sampling: every generated token identical.
+* ``greedy=False`` and a call without ``device`` where CUDA is absent raise.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.launch import serve as jserve
+from repro.launch import steps as jsteps
+from repro.models import lm as jlm
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as pserve
+from repro_torch.launch import steps as psteps
+from repro_torch.models import lm as plm
+from repro_torch.models.convert import params_from_numpy
+
+torch.set_num_threads(1)
+
+CFG = get_config("mamba2-130m", reduced=True)
+JCFG = jax_get_config("mamba2-130m", reduced=True)
+BF16_BAR = 0.15
+
+
+def _carried(seed, jdt):
+    jparams = jlm.LM(JCFG).init(jax.random.PRNGKey(seed), jdt)
+    return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams))
+
+
+class TestServeBatch:
+    @pytest.mark.parametrize("seed", [0, 3])
+    def test_matches_reference_serve_batch(self, seed):
+        batch, prompt_len, gen = 2, 32, 4
+        ref = jserve.serve_batch(JCFG, batch, prompt_len, gen, seed)
+        jparams, pparams = _carried(seed, jnp.bfloat16)  # what serve_batch initialises
+        got = pserve.serve_batch(CFG, batch, prompt_len, gen, seed, params=pparams,
+                                 device="cpu")
+        assert set(got) >= {"generated", "prefill_s", "decode_s", "decode_tok_per_s",
+                            "prefill_tok_per_s"}
+        assert got["generated"].shape == ref["generated"].shape == (batch, gen)
+        assert got["generated"].dtype == np.int32
+        assert ((got["generated"] >= 0) & (got["generated"] < CFG.vocab_size)).all()
+        assert tuple(got["logits"].shape) == (batch, gen, CFG.vocab_size)
+        # the reference's first-step logits on the same prompts
+        prompts = np.random.default_rng(seed).integers(0, JCFG.vocab_size, (batch, prompt_len))
+        first, _ = jlm.LM(JCFG).prefill_fn(
+            jparams, {"tokens": jnp.asarray(prompts, jnp.int32)}, max_seq=prompt_len + gen,
+            flags=jlm.RunFlags(remat="none", q_chunk=min(512, prompt_len)))
+        first = np.asarray(first, np.float32)
+        np.testing.assert_array_equal(ref["generated"][:, 0], first.argmax(-1))
+        np.testing.assert_allclose(got["logits"][:, 0].float().numpy(), first,
+                                   atol=BF16_BAR, rtol=BF16_BAR)
+
+    def test_sampling_waits_for_threefry(self):
+        with pytest.raises(NotImplementedError, match="threefry"):
+            pserve.serve_batch(CFG, 2, 8, 2, greedy=False, device="cpu")
+
+    def test_no_device_means_cuda(self):
+        if torch.cuda.is_available():
+            pytest.skip("checks the behaviour where CUDA is absent")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pserve.serve_batch(CFG, 2, 8, 2)
+
+    def test_own_weights_are_seeded(self):
+        a = pserve.serve_batch(CFG, 2, 16, 3, seed=1, device="cpu")
+        b = pserve.serve_batch(CFG, 2, 16, 3, seed=1, device="cpu")
+        np.testing.assert_array_equal(a["generated"], b["generated"])
+        assert torch.equal(a["logits"], b["logits"])
+
+
+class TestStepsFloat32:
+    def test_generated_tokens_identical(self):
+        """batch 2, prompt 32, gen 8, greedy, float32 weights: the two
+        packages' step functions pick the same token at every step."""
+        batch, prompt_len, gen = 2, 32, 8
+        jparams, pparams = _carried(0, jnp.float32)
+        prompts = np.random.default_rng(0).integers(0, CFG.vocab_size, (batch, prompt_len))
+
+        jflags = jlm.RunFlags(remat="none", q_chunk=min(512, prompt_len))
+        jlm_ = jlm.LM(JCFG)
+        jprefill = jax.jit(jsteps.make_prefill_step(jlm_, prompt_len + gen, jflags))
+        jdecode = jax.jit(jsteps.make_serve_step(jlm_, jflags))
+        logits, cache = jprefill(jparams, {"tokens": jnp.asarray(prompts, jnp.int32)})
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+        ref = [tok]
+        for _ in range(gen - 1):
+            logits, cache = jdecode(jparams, cache, tok)
+            tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+            ref.append(tok)
+        ref = np.concatenate([np.asarray(t) for t in ref], axis=1)
+
+        pflags = plm.RunFlags(remat="none", q_chunk=min(512, prompt_len))
+        plm_ = plm.LM(CFG)
+        pprefill = psteps.make_prefill_step(plm_, prompt_len + gen, pflags)
+        pdecode = psteps.make_serve_step(plm_, pflags)
+        logits, cache = pprefill(pparams, {"tokens": torch.from_numpy(prompts).int()})
+        tok = torch.argmax(logits, -1)[:, None].int()
+        got = [tok]
+        for _ in range(gen - 1):
+            logits, cache = pdecode(pparams, cache, tok)
+            tok = torch.argmax(logits, -1)[:, None].int()
+            got.append(tok)
+        got = torch.cat(got, dim=1).numpy()
+        np.testing.assert_array_equal(got, ref)
+        # and serve_batch takes the same path
+        served = pserve.serve_batch(CFG, batch, prompt_len, gen, 0, params=pparams,
+                                    device="cpu")
+        np.testing.assert_array_equal(served["generated"], ref)
