@@ -7,9 +7,9 @@ Run from the repository root, with no arguments::
 Phases (any failed check raises, so the exit code is non-zero):
 
 1. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
-2. the build of the two CUDA kernels from their sources, ``src/repro_torch/
-   kernels/{fluidstep,ssd}/csrc`` (one ``nvcc`` each, sm_90a, started
-   together), with their build times;
+2. the build of the three CUDA kernels from their sources, ``src/repro_torch/
+   kernels/{fluidstep,ssd,flash_attention}/csrc`` (one ``nvcc`` each,
+   sm_90a, started together), with their build times;
 3. the kernel against its plain PyTorch version on the card at J in
    {8, 40, 160, 256}, S = 16, D in {16, 20}, lanes in {1, 8}, with and
    without the overlap matrix: int and bool planes exact, float32 planes
@@ -49,7 +49,34 @@ Phases (any failed check raises, so the exit code is non-zero):
 11. the reduced config in float32 with the plain path, on the card and on
     the CPU: identical generated tokens;
 12. one decode step: wall, device time (profiler), the SSD kernel's share,
-    device kernels, device idle share.
+    device kernels, device idle share;
+13. the flash-attention kernel against its plain PyTorch version on the
+    card over ``tests/test_kernels.py::TestFlashAttention``'s shapes (slow
+    ones included), causal attention with S != T both ways and the serve
+    shape (BH 256 = batch 8 x 32 heads, S = T 512, D 64), float32 at 2e-5
+    and bfloat16 at 3e-2 (``tol_for``), and the scale override (0.05); max
+    abs error printed;
+14. the kernel, its plain version and ``F.scaled_dot_product_attention``
+    (the yardstick, never on the path) timed with CUDA events at the serve
+    shape in bfloat16, beside the bound;
+15. the dense serving main path, with the flash launch count reset just
+    before it: ``serve_batch`` at full-width llama3.2-1b (random weights
+    from seed 0, their making timed), batch 8, prompt 512, 64 new tokens,
+    greedy, bf16; exactly 16 flash launches (one per layer in prefill;
+    decode runs none), every token in the vocab, finite logits;
+16. the kernel against the plain attention inside the model on the card:
+    at full width, each layer's attention from the same input (along the
+    plain path's residual stream), and end to end on the reduced config in
+    bf16 (last-token logits and teacher-forced decode from each path's
+    cache), within the bf16 bar (0.15); end to end at full width (bf16 and
+    float32 weights) printed but not held, since the random full-width
+    model is chaotic, with the kernel path's teacher-forced logits against
+    the served ones;
+17. llama's reduced config in float32 with the plain path, on the card and
+    on the CPU: identical generated tokens;
+18. one full-width prefill and one decode step under the profiler: wall,
+    device time, the flash kernel's share, device kernels, device idle
+    share.
 
 Then the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -68,10 +95,11 @@ from pathlib import Path
 
 import numpy as np
 
-#: H100 SXM published rates (NVIDIA data sheet): HBM bytes/s and float32
-#: operations/s outside the tensor cores.
+#: H100 SXM published rates (NVIDIA data sheet): HBM bytes/s, float32
+#: operations/s outside the tensor cores, dense bf16 tensor-core operations/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 PAPER_CUT = dict(min_iters=100, max_iters=600)  # published: 1000-6000
 SEEDS = range(8)
@@ -428,6 +456,330 @@ def _serve_phases(torch, dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The flash-attention kernel and the dense serving path (llama3.2-1b)
+# ---------------------------------------------------------------------------
+
+#: (bh, s, t, d, causal): tests/test_kernels.py::TestFlashAttention's sweep
+#: (slow cases included), causal with S != T both ways, and the serve shape
+#: of llama3.2-1b (batch 8 x 32 heads, prompt 512, head dim 64)
+FLASH_SWEEP = [(4, 256, 256, 64, True), (3, 200, 200, 64, True), (2, 128, 384, 128, False),
+               (1, 64, 512, 256, False), (2, 512, 512, 64, True), (2, 128, 384, 64, True),
+               (2, 384, 128, 64, True), (256, 512, 512, 64, True)]
+FLASH_SERVE = (256, 512, 512, 64)
+
+
+def _qkv(torch, seed, bh, s, t, d, dtype, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+            for shape in ((bh, s, d), (bh, t, d), (bh, t, d))]
+
+
+def _flash_bound(bh, s, t, d, elt):
+    """(bound ms, "bytes" or "operations", bytes, ops) of causal attention:
+    q, k, v read once and the output written once; two products of
+    2 * D operations for each (query, visible key) pair, top-left causal."""
+    nbytes = (2 * bh * s * d + 2 * bh * t * d) * elt
+    pairs = sum(min(i + 1, t) for i in range(s))
+    ops = 4 * bh * d * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def _flash_kernel_phase(torch, dev) -> dict:
+    """Phases 13-14: the kernel against its plain version over the sweep,
+    then the kernel, the plain version and SDPA timed at the serve shape.
+    Returns the kernels line's entry (launches are filled in by phase 15)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    # ---- 13. kernel vs plain version ----------------------------------------
+    max_abs = 0.0
+    cases = [(shape, None) for shape in FLASH_SWEEP] + [((1, 128, 128, 64, c), 0.05)
+                                                         for c in (False, True)]
+    for (bh, s, t, d, causal), scale in cases:
+        for name, dtype, tol in (("float32", torch.float32, 2e-5),
+                                 ("bfloat16", torch.bfloat16, 3e-2)):
+            if scale is not None and dtype != torch.float32:
+                continue
+            q, k, v = _qkv(torch, bh * 1000 + s + d, bh, s, t, d, dtype, dev)
+            out = flash_attention(q, k, v, causal=causal, scale=scale)
+            ref = flash_attention(q, k, v, causal=causal, scale=scale, impl="ref")
+            torch.cuda.synchronize()
+            _require(out.dtype == dtype and tuple(out.shape) == (bh, s, d), "flash output")
+            diff = (out.float() - ref.float()).abs()
+            err = float(diff.max())
+            ok = bool((diff <= tol + tol * ref.float().abs()).all())
+            _log(f"flash parity BH={bh} S={s} T={t} D={d} causal={causal} scale={scale} "
+                 f"{name}: max abs err {err} (bar {tol})")
+            _require(ok, f"flash kernel vs plain at {(bh, s, t, d, causal, scale)} {name}")
+            max_abs = max(max_abs, err)
+
+    # ---- 14. timing at the serve shape, bf16 ---------------------------------
+    bh, s, t, d = FLASH_SERVE
+    q, k, v = _qkv(torch, 14, bh, s, t, d, torch.bfloat16, dev)
+    fns = {
+        "ref": lambda: flash_attention(q, k, v, causal=True, impl="ref"),
+        "cuda": lambda: flash_attention(q, k, v, causal=True),
+        # (BH, S, D) seen as one batch of BH heads: the 4-d layout SDPA's
+        # fused backends take
+        "sdpa": lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True)[0],
+    }
+    sdpa_err = float((fns["sdpa"]().float() - fns["cuda"]().float()).abs().max())
+
+    def _time(fn, reps=20):
+        fn()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    timings = {}
+    for impl in ("ref", "cuda", "sdpa", "sdpa", "cuda", "ref"):
+        timings.setdefault(impl, []).append(_time(fns[impl]))
+    bound_ms, bound_by, nbytes, ops = _flash_bound(bh, s, t, d, 2)
+    kernel_ms, plain_ms, sdpa_ms = (min(timings[i]) for i in ("cuda", "ref", "sdpa"))
+    _log(f"flash timing BH={bh} S={s} T={t} D={d} causal bf16 (ms per call, CUDA events, "
+         f"plain/kernel/sdpa/sdpa/kernel/plain): kernel {timings['cuda']}, plain "
+         f"{timings['ref']}, F.scaled_dot_product_attention {timings['sdpa']} (max abs "
+         f"difference to the kernel {sdpa_err}); bound {bound_ms:.8f} ms ({bound_by}: "
+         f"{nbytes} B, {ops} ops), share of bound reached {bound_ms / kernel_ms:.4f}; "
+         f"achieved {ops / kernel_ms / 1e9:.2f} TFLOP/s")
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+        "launches": 0,
+        "max_abs_err": max_abs,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": sdpa_ms,
+    }
+
+
+def _dense_serve_phases(torch, dev) -> int:
+    """Phases 15-18: full-width llama3.2-1b served through ``serve_batch``,
+    kernel against plain prefill attention (and teacher-forced decode from
+    each path's cache), the reduced config's card against the CPU, and one
+    profiled prefill.  Returns the flash kernel's launches on the main
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.common import param_count, tree_leaves
+    from repro_torch.models.lm import LM, RunFlags
+
+    cfg = get_config("llama3.2-1b")
+    bsz, plen, gen, seed = (SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator().manual_seed(seed), torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    _log(f"serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+         f"query heads over {cfg.n_kv_heads} kv heads of dim {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+         f"vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, rope theta {cfg.rope_theta}), "
+         f"{n_params} parameters in bf16 from seed {seed}, made on the host's CPU generator "
+         f"and moved to the card in {time.perf_counter() - t0:.2f} s")
+    _require(n_params == param_count(lm.schema()), "parameters of the schema")
+    warm = serve_batch(cfg, bsz, plen, 2, seed, params=params)  # cuBLAS, allocator
+    _log(f"serve warm-up (gen 2): prefill {warm['prefill_s']:.4f} s")
+    del warm
+
+    # ---- 15. the main path ----------------------------------------------
+    flash_attention_cuda.launches = 0
+    res = serve_batch(cfg, bsz, plen, gen, seed, params=params)
+    launches = flash_attention_cuda.launches
+    torch.cuda.synchronize()
+    generated, logits = res["generated"], res["logits"]
+    ms_step = res["decode_s"] / (gen - 1) * 1e3
+    _log(f"serve main path (batch {bsz}, prompt {plen}, gen {gen}, greedy, bf16): prefill "
+         f"{res['prefill_s']:.4f} s = {res['prefill_tok_per_s']:.1f} tok/s; decode "
+         f"{res['decode_s']:.4f} s = {res['decode_tok_per_s']:.1f} tok/s, {ms_step:.4f} ms "
+         f"per decode step; flash kernel launches {launches} (expected one per layer in "
+         f"prefill: {cfg.n_layers})")
+    _log(f"serve sample tokens: {generated[0][:16].tolist()}")
+    _require(launches == cfg.n_layers, "one flash launch per layer in prefill, none in decode")
+    _require(generated.shape == (bsz, gen), "generated shape")
+    _require(((generated >= 0) & (generated < cfg.vocab_size)).all(), "tokens in the vocab")
+    _require(tuple(logits.shape) == (bsz, gen, cfg.vocab_size), "logits shape")
+    _require(bool(torch.isfinite(logits).all()), "finite logits")
+
+    # ---- 16. kernel vs plain prefill attention --------------------------
+    # (a) full width, layer by layer along the plain path's residual stream:
+    #     each layer's attention from the same input, kernel vs plain;
+    # (b) end to end on the reduced config in bf16: last-token logits and
+    #     teacher-forced decode from each path's cache;
+    # (c) end to end at full width, in bf16 and float32: printed, not held.
+    #     The random weights make the full-width model chaotic (its softmax is
+    #     nearly a hard maximum, printed in (a)): float32 round-off in layer 0
+    #     grows layer by layer to full divergence (printed; PERF.md, PR 13).
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.common import rms_norm, tree_map
+    from repro_torch.models.lm import _layer
+
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (bsz, plen))
+    tokens = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
+    flags = {impl: RunFlags(remat="none", q_chunk=min(512, plen), attn_impl=impl)
+             for impl in ("cuda", "ref")}
+    per_layer = []
+    with torch.no_grad():
+        x = params["embed"][tokens.long()]
+        for i in range(lm.n_blocks):
+            bp = _layer(params["blocks"], i)
+            h = rms_norm(x, bp["attn_norm"])
+            yk, yr = (attn_mod.attention_forward(h, bp["attn"], cfg, impl=impl).float()
+                      for impl in ("cuda", "ref"))
+            diff = (yk - yr).abs()
+            _require(bool((diff <= BF16_BAR + BF16_BAR * yr.abs()).all()),
+                     f"kernel vs plain attention at layer {i}, same input")
+            per_layer.append((float(diff.max()), float(yr.abs().max())))
+            if i == 0:  # how peaked the softmax is: the first kv group's heads
+                rep = cfg.n_heads // cfg.n_kv_heads
+                q = torch.einsum("bsd,dhk->bhsk", h, bp["attn"]["wq"][:, :rep]).float()
+                k = torch.einsum("bsd,dk->bsk", h, bp["attn"]["wk"][:, 0]).float()
+                scores = torch.einsum("bhsk,btk->bhst", q, k) / cfg.head_dim_ ** 0.5
+                seen = torch.ones(plen, plen, dtype=torch.bool, device=dev).tril()
+                score_std = float(scores[..., seen].std())
+                top_prob = float(torch.softmax(scores.masked_fill(~seen, -2.0**30), -1)
+                                 .amax(-1).mean())
+                del q, k, scores
+            x, _ = lm._apply_block(x, bp, flags=flags["ref"], collect_kv=False)
+    _log(f"kernel vs plain attention at full width, layer by layer from the same input (bf16, "
+         f"bar {BF16_BAR} + {BF16_BAR}|plain|): max abs difference / max |plain| per layer "
+         f"{[f'{d:.4g}/{m:.4g}' for d, m in per_layer]}; layer 0, first kv group: score std "
+         f"{score_std:.4f} over the visible pairs, mean largest probability {top_prob:.4f}")
+
+    def _end_to_end(model, p, toks, forced, hold: bool):
+        """Prefill with each attention path, then decode teacher-forced
+        over ``forced`` from each path's own cache.  Returns (max abs logit
+        difference, top-1 agreement, the kernel path's logits per step)."""
+        worst, agree, n, steps = 0.0, 0, 0, []
+        decode = make_serve_step(model, flags["cuda"])
+        with torch.no_grad():
+            out, caches = {}, {}
+            for impl, f in flags.items():  # each prefill makes its own cache
+                out[impl], caches[impl] = make_prefill_step(
+                    model, toks.shape[1] + forced.shape[1] + 1, f)(p, {"tokens": toks})
+            for i in range(forced.shape[1] + 1):
+                if i:
+                    for impl in flags:
+                        out[impl], caches[impl] = decode(p, caches[impl], forced[:, i - 1:i])
+                lk, lr = out["cuda"].float(), out["ref"].float()
+                diff = (lk - lr).abs()
+                if hold:
+                    _require(bool((diff <= BF16_BAR + BF16_BAR * lr.abs()).all()),
+                             f"kernel vs plain prefill, {model.cfg.name}: logits at step {i}")
+                worst = max(worst, float(diff.max()))
+                agree += int((lk.argmax(-1) == lr.argmax(-1)).sum())
+                n += lk.shape[0]
+                steps.append(lk)
+        return worst, agree / n, steps
+
+    red = get_config("llama3.2-1b", reduced=True)
+    red_lm = LM(red)
+    red_params = red_lm.init(torch.Generator().manual_seed(seed), torch.bfloat16, dev)
+    red_toks = torch.as_tensor(np.random.default_rng(seed).integers(0, red.vocab_size, (2, 32)),
+                               dtype=torch.int32).to(dev)
+    red_forced = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, red.vocab_size, (2, 15)), dtype=torch.int32).to(dev)
+    worst, agree, _ = _end_to_end(red_lm, red_params, red_toks, red_forced, hold=True)
+    _log(f"kernel vs plain prefill attention end to end, {red.name} bf16 on the card (batch 2, "
+         f"prompt 32, last-token logits and 15 teacher-forced decode steps from each path's "
+         f"cache): max abs logit difference {worst} (bar {BF16_BAR}), top-1 agreement "
+         f"{agree:.6f}")
+
+    gen_t = torch.as_tensor(generated).to(dev)
+    worst, agree, steps = _end_to_end(lm, params, tokens, gen_t[:, :gen - 1], hold=False)
+    replay = max(float((lk - logits[:, i].float()).abs().max()) for i, lk in enumerate(steps))
+    del steps
+    _log(f"kernel vs plain prefill attention end to end at full width (not held: the random "
+         f"full-width model is chaotic): bf16 last-token logits and {gen - 1} teacher-forced "
+         f"decode steps max abs logit difference {worst}, top-1 agreement {agree:.6f}; kernel "
+         f"path replay vs the served logits max abs difference {replay}")
+    # each path on its own residual stream from the embeddings, bf16 and float32
+    for name, p in (("bf16", params), ("float32", None)):
+        p = p if p is not None else tree_map(lambda t: t.float(), params)
+        with torch.no_grad():
+            xs = {impl: p["embed"][tokens.long()] for impl in flags}
+            growth = []
+            for i in range(lm.n_blocks):
+                bp = _layer(p["blocks"], i)
+                for impl, f in flags.items():
+                    xs[impl], _ = lm._apply_block(xs[impl], bp, flags=f, collect_kv=False)
+                growth.append(float((xs["cuda"].float() - xs["ref"].float()).abs().max()))
+            last = {impl: torch.einsum("bd,vd->bv", rms_norm(x[:, -1], p["final_norm"]),
+                                       p["embed"])[:, :cfg.vocab_size].float()
+                    for impl, x in xs.items()}
+        rms = float(xs["ref"].float().pow(2).mean().sqrt())
+        _log(f"  {name} weights, each path on its own residual stream: max abs residual "
+             f"difference after each layer {[f'{g:.3g}' for g in growth]} (final residual rms "
+             f"{rms:.4g}); last-token logits max abs difference "
+             f"{float((last['cuda'] - last['ref']).abs().max())}, logits std "
+             f"{float(last['ref'].std()):.4f}, top-1 agreement "
+             f"{float((last['cuda'].argmax(-1) == last['ref'].argmax(-1)).float().mean()):.6f}")
+        del p, xs, last
+    torch.cuda.empty_cache()
+
+    # ---- 17. the reduced config in f32, plain path: card vs CPU -----------
+    on_card = serve_batch(red, 2, 32, 8, 0, device=dev, dtype=torch.float32, attn_impl="ref")
+    on_cpu = serve_batch(red, 2, 32, 8, 0, device="cpu", dtype=torch.float32)
+    _require((on_card["generated"] == on_cpu["generated"]).all(), "reduced f32: card vs CPU")
+    diff = float((on_card["logits"].cpu() - on_cpu["logits"]).abs().max())
+    _log(f"{red.name} f32, plain path, card vs CPU: identical generated tokens "
+         f"{on_card['generated'].tolist()}, max abs logit difference {diff}")
+
+    # ---- 18. one prefill and one decode step: wall, device time, idle share
+    from torch.profiler import ProfilerActivity, profile
+
+    prefill = make_prefill_step(lm, plen + gen, flags["cuda"])
+    decode = make_serve_step(lm, flags["cuda"])
+    with torch.no_grad():
+        _, cache0 = prefill(params, {"tokens": tokens})
+    # decoding the same token from the same cache rewrites one slot with the
+    # same key and value, so the step can be repeated
+    for what, fn, reps in (("prefill", lambda: prefill(params, {"tokens": tokens}), 1),
+                           ("decode step", lambda: decode(params, cache0, gen_t[:, :1]), 10)):
+        with torch.no_grad():
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t1) / reps * 1e3)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+        flash_ms = sum(e.self_device_time_total for e in on_device if "flash_fwd" in e.key) / 1e3
+        n_kernels = sum(e.count for e in on_device)
+        _require(device_ms > 0, f"the profiler saw the {what}'s device time")
+        _require((flash_ms > 0) == (what == "prefill"), f"flash kernel time in the {what}")
+        _log(f"{what} profile (batch {bsz}, prompt {plen}, full width): wall {walls} ms; device "
+             f"time {device_ms:.4f} ms in {n_kernels} kernels and copies, of which the flash "
+             f"kernel {flash_ms:.4f} ms ({flash_ms / device_ms:.4f}); device idle share "
+             f"{1 - device_ms / min(walls):.4f}")
+        top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
+        for e in top:
+            _log(f"  {e.key[:80]}: {e.count} x, {e.self_device_time_total / 1e3:.4f} ms")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -439,6 +791,7 @@ def main() -> int:
     torch.set_num_threads(1)
     from repro_torch.core import fluidsim
     from repro_torch.kernels.fluidstep import fluid_step_core
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.fluidstep import kernel as fs_kernel
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.scenarios import (
@@ -464,11 +817,13 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per kernel source, started together -------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for f in [pool.submit(k.build) for k in (fs_kernel, ssd_kernel)]:
+    kernels = (("fluid_step.cu", fs_kernel), ("ssd_step.cu", ssd_kernel),
+               ("flash_attention.cu", flash_kernel))
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        for f in [pool.submit(k.build) for _, k in kernels]:
             f.result()
-    _log(f"build: both kernels in {time.perf_counter() - t0:.2f} s wall")
-    for src, k in (("fluid_step.cu", fs_kernel), ("ssd_step.cu", ssd_kernel)):
+    _log(f"build: {len(kernels)} kernels in {time.perf_counter() - t0:.2f} s wall")
+    for src, k in kernels:
         info = k.build_info()
         _log(f"build: {src} in {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
@@ -660,6 +1015,10 @@ def main() -> int:
     ssd = _ssd_kernel_phase(torch, dev)
     ssd["launches"] = _serve_phases(torch, dev)
 
+    # ---- 13.-18. the flash-attention kernel and dense serving --------------
+    flash = _flash_kernel_phase(torch, dev)
+    flash["launches"] = _dense_serve_phases(torch, dev)
+
     line = {"kernels": [{
         "name": "fluid_step_core",
         "route": "cuda",
@@ -672,7 +1031,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, ssd]}
+    }, ssd, flash]}
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     _log(smi)
     _log(json.dumps(line))

@@ -8,7 +8,10 @@ paths for the slices that have been ported so far:
   policies (ada, srsfN) and the deterministic gang placements;
 * serving the ``ssm`` family, mamba2-130m (``launch.serve`` ->
   ``launch.steps`` -> ``models.lm`` -> ``models.ssm`` -> ``kernels.ssd``),
-  with the flat-key checkpoint store (``checkpoint``).
+  with the flat-key checkpoint store (``checkpoint``);
+* serving the ``dense`` family, llama3.2-1b (``launch.serve`` ->
+  ``models.lm`` -> ``models.attention`` -> ``kernels.flash_attention``
+  for the prefill attention, ``models.ffn`` for the MLP).
 
 It imports nothing of ``repro`` or JAX: the plain-Python pieces it needs
 are trimmed copies, held against the originals by the

@@ -1,9 +1,9 @@
 """Architecture configs (port of ``repro/configs/__init__.py``).
 
-The same ids and aliases as the reference; only ``mamba2_130m`` is
-registered in the port so far.  Each ``<id>.py`` exports ``CONFIG`` (the
-published hyper-parameters) and ``REDUCED`` (the reference's small variant
-for CPU tests).
+The same ids and aliases as the reference; ``mamba2_130m`` and
+``llama32_1b`` are registered in the port so far.  Each ``<id>.py``
+exports ``CONFIG`` (the published hyper-parameters) and ``REDUCED`` (the
+reference's small variant for CPU tests).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ ARCH_IDS = (
 )
 
 #: The archs whose config module the port has.
-PORTED_ARCH_IDS = ("mamba2_130m",)
+PORTED_ARCH_IDS = ("mamba2_130m", "llama32_1b")
 
 _ALIASES = {
     "mamba2-130m": "mamba2_130m",

@@ -1,9 +1,9 @@
-"""Serving entry point: batched prefill + greedy decode with the SSM cache
-(port of ``repro/launch/serve.py``).
+"""Serving entry point: batched prefill + greedy decode with the KV or SSM
+cache (port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch mamba2-130m [--reduced] [--batch 4 --prompt-len 64 --gen 32] \
-        [--device cpu]
+        --arch {mamba2-130m,llama3.2-1b} [--reduced] \
+        [--batch 4 --prompt-len 64 --gen 32] [--device cpu]
 
 Runs on CUDA unless asked for the CPU.  The prompts are the reference's
 draws for the same seed.  Without ``params`` the weights are initialised
@@ -35,14 +35,15 @@ def _sync(device: torch.device) -> None:
 def serve_batch(
     cfg, batch: int = 4, prompt_len: int = 64, gen: int = 32, seed: int = 0,
     greedy: bool = True, params=None, device=None, dtype: torch.dtype = torch.bfloat16,
-    ssd_impl: str = "",
+    ssd_impl: str = "", attn_impl: str = "",
 ):
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
     ``gen`` tokens greedily.  Returns the reference's dict (``generated``
     (B, gen) int32 numpy, ``prefill_s``, ``decode_s``, ``decode_tok_per_s``,
     ``prefill_tok_per_s``) plus ``logits``, every step's logits
     (B, gen, vocab) on the device.  ``dtype`` is the weights' dtype when
-    they are initialised here; ``ssd_impl`` as in ``RunFlags``."""
+    they are initialised here; ``ssd_impl`` and ``attn_impl`` as in
+    ``RunFlags``."""
     if not greedy:
         raise NotImplementedError(
             "sampling (jax.random.categorical in the reference) waits for the "
@@ -54,7 +55,8 @@ def serve_batch(
         params = lm.init(torch.Generator().manual_seed(seed), dtype, dev)
     else:
         params = tree_map(lambda t: t.to(dev), params)
-    flags = RunFlags(remat="none", q_chunk=min(512, prompt_len), ssd_impl=ssd_impl)
+    flags = RunFlags(remat="none", q_chunk=min(512, prompt_len), ssd_impl=ssd_impl,
+                     attn_impl=attn_impl)
 
     rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),

@@ -1,5 +1,5 @@
-"""Shared model building blocks: parameter schema, init, norm (port of
-``repro/models/common.py``).
+"""Shared model building blocks: parameter schema, init, norm, rotary
+embedding (port of ``repro/models/common.py``).
 
 Parameters are plain nested dicts of tensors.  Every leaf is declared once
 via :class:`ParamSpec`, with the reference's shapes and keys, so weights
@@ -97,3 +97,22 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     x32 = x.to(torch.float32)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding.  x: (..., seq, heads, head_dim); positions: (seq,)
+    or broadcastable to x's seq dim.  Angles, cos, sin and the rotation are
+    float32, cast back to x's dtype at the end, as in the reference."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)  # (hd/2,)
+    angles = positions.to(torch.float32)[..., None] * freqs  # (..., seq, hd/2)
+    angles = angles[..., :, None, :]  # heads axis
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

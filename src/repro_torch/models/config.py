@@ -1,8 +1,9 @@
 """Model configuration (port of ``repro/models/config.py``).
 
 A trimmed copy of ``ModelConfig``: the fields, derived sizes and analytic
-parameter count of the ``ssm`` family, the one family the port serves so
-far.  The other families' fields come with their slices (ROADMAP).
+parameter count of the families the port serves so far, ``ssm``
+(mamba2-130m) and ``dense`` (llama3.2-1b).  The other families' fields
+(MoE, hybrid, enc-dec, vlm) come with their slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -28,12 +29,23 @@ class ModelConfig:
     n_layers: int
     d_model: int
     vocab_size: int
+    # -- attention ----------------------------------------------------------
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    rope_theta: float = 10000.0
+    sliding_window: int = 0      # 0 = full attention
+    # -- mlp ----------------------------------------------------------------
+    d_ff: int = 0
+    act: str = "swiglu"          # swiglu | geglu | gelu (plain 2-matrix MLP)
     # -- SSM (Mamba-2 / SSD) --------------------------------------------------
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     ssm_conv_width: int = 4
     ssm_chunk: int = 128
+    # -- sharding / padding ----------------------------------------------------
+    padded_heads: int = 0        # pad q heads for TP divisibility (arctic)
     # -- bookkeeping ----------------------------------------------------------
     source: str = ""
     dtype: str = "bfloat16"
@@ -41,6 +53,18 @@ class ModelConfig:
     def __post_init__(self) -> None:
         if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}")
+        if self.family != "ssm" and self.n_heads <= 0:
+            raise ValueError(f"{self.name}: attention families need n_heads")
+
+    @property
+    def head_dim_(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.n_heads
+
+    @property
+    def q_heads_padded(self) -> int:
+        return self.padded_heads or self.n_heads
 
     @property
     def padded_vocab(self) -> int:
@@ -56,17 +80,30 @@ class ModelConfig:
 
     def param_count(self, padded: bool = False) -> int:
         """Total parameter count (analytic; excludes padding unless asked)."""
-        if self.family != "ssm":
+        if self.family not in ("ssm", "dense"):
             raise NotImplementedError(
-                f"the port's ModelConfig covers the ssm family only, not {self.family!r} "
-                "(ROADMAP queue 1, item 8)"
+                f"the port's ModelConfig covers the ssm and dense families, not "
+                f"{self.family!r} (ROADMAP queue 1, item 8)"
             )
         d = self.d_model
         vocab = self.padded_vocab if padded else self.vocab_size
         total = vocab * d  # tied embedding/lm-head
-        total += self.n_layers * self._ssm_params()
+        if self.family == "ssm":
+            total += self.n_layers * self._ssm_params()
+        else:
+            total += self.n_layers * (self._attn_params(padded) + self._mlp_params(self.d_ff))
         total += self.n_layers * 2 * d  # norms (approx: 2 per layer)
         return total
+
+    def _attn_params(self, padded: bool) -> int:
+        h = self.q_heads_padded if padded else self.n_heads
+        hd = self.head_dim_
+        d = self.d_model
+        return d * h * hd + 2 * d * self.n_kv_heads * hd + h * hd * d
+
+    def _mlp_params(self, d_ff: int) -> int:
+        n_mat = 3 if self.act in ("swiglu", "geglu") else 2
+        return n_mat * self.d_model * d_ff
 
     def _ssm_params(self) -> int:
         d, di, n = self.d_model, self.ssm_d_inner, self.ssm_state

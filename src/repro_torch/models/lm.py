@@ -1,14 +1,17 @@
-"""Model assembly (port of ``repro/models/lm.py``) for the ``ssm`` family.
+"""Model assembly (port of ``repro/models/lm.py``) for the ``ssm`` and
+``dense`` families.
 
 One :class:`LM` object per config provides what serving needs, as plain
 functions of nested dicts of tensors:
 
 * ``schema()`` / ``init`` — the reference's parameter schema (same flat
   keys, so JAX-initialised weights carry across leaf by leaf);
-* ``prefill_fn`` — prompt pass producing last-token logits + the SSM cache;
+* ``prefill_fn`` — prompt pass producing last-token logits + the cache;
 * ``decode_fn`` — one-token serve step against the cache;
-* ``init_cache`` — ``{"pos", "layers": {conv_x, conv_B, conv_C, state}}``,
-  each leaf stacked over layers, as the reference lays it out.
+* ``init_cache`` — ``{"pos", "layers": ...}``, each leaf stacked over
+  layers, as the reference lays it out: ``{conv_x, conv_B, conv_C, state}``
+  for ``ssm``, the ring-buffer KV cache ``{k, v}`` (L, B, window, KV, hd)
+  for ``dense``.
 
 The reference's ``lax.scan`` over the stacked layer axis is a Python loop
 over that axis.  Every other family raises ``NotImplementedError``.
@@ -19,11 +22,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import ParamSpec, Schema, init_params, rms_norm, tree_map
+from repro_torch.models.common import (
+    ParamSpec, Schema, apply_rope, init_params, rms_norm, tree_map,
+)
 from repro_torch.models.config import ModelConfig
+
+#: The families whose blocks the port has.
+PORTED_FAMILIES = ("ssm", "dense")
 
 
 def stack_schema(schema: Schema, n: int, axis: str = "layers") -> Schema:
@@ -47,25 +58,28 @@ def _stack(trees):
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
     """The reference's run flags that serving reads, plus the port's choice
-    of SSD decode-step implementation.
+    of kernel implementations.
 
-    ``remat`` and ``q_chunk`` have no effect on the ``ssm`` family's
-    serving (no autograd, no attention); they are kept so callers build
-    flags as for the reference.  ``ssd_impl`` as in
-    :func:`repro_torch.kernels.ssd.ssd_decode_step`: "" lets the device
-    decide (CUDA kernel on the card, plain version on the CPU), "ref" forces
-    the plain version."""
+    ``remat`` and ``q_chunk`` have no effect on serving (no autograd; the
+    attention kernel tiles the queries itself); they are kept so callers
+    build flags as for the reference.  ``ssd_impl`` as in
+    :func:`repro_torch.kernels.ssd.ssd_decode_step` and ``attn_impl`` (the
+    prefill attention) as in
+    :func:`repro_torch.kernels.flash_attention.flash_attention`: "" lets
+    the device decide (CUDA kernel on the card, plain version on the CPU),
+    "ref" forces the plain version."""
 
     remat: str = "block"
     q_chunk: int = 512
     ssd_impl: str = ""
+    attn_impl: str = ""
 
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "ssm":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: the port's LM covers the ssm family only, not "
+                f"{cfg.name}: the port's LM covers the {PORTED_FAMILIES} families, not "
                 f"{cfg.family!r} (ROADMAP queue 1, item 8)"
             )
         self.cfg = cfg
@@ -74,7 +88,15 @@ class LM:
     # -- schema ---------------------------------------------------------------
     def _block_schema(self) -> Schema:
         cfg = self.cfg
-        return {"norm": _norm_spec(cfg.d_model), "ssm": ssm_mod.ssm_schema(cfg)}
+        d = cfg.d_model
+        if cfg.family == "dense":
+            return {
+                "attn_norm": _norm_spec(d),
+                "attn": attn_mod.attn_schema(cfg),
+                "mlp_norm": _norm_spec(d),
+                "mlp": ffn_mod.mlp_schema(cfg, cfg.d_ff),
+            }
+        return {"norm": _norm_spec(d), "ssm": ssm_mod.ssm_schema(cfg)}
 
     def schema(self) -> Schema:
         cfg = self.cfg
@@ -89,50 +111,86 @@ class LM:
         return init_params(self.schema(), generator, dtype, device)
 
     # -- prefill blocks -------------------------------------------------------
-    def _apply_block(self, x, bp, *, collect_kv: bool):
-        """Returns (x, ssm cache or None)."""
+    def _apply_block(self, x, bp, *, flags: RunFlags, collect_kv: bool):
+        """Returns (x, this layer's cache pieces or None): the RoPE'd keys
+        and the values for ``dense``, the SSM cache for ``ssm``."""
+        cfg = self.cfg
+        if cfg.family == "dense":
+            h = rms_norm(x, bp["attn_norm"])
+            ap = bp["attn"]
+            mask = "sliding" if cfg.sliding_window else "causal"
+            x = x + attn_mod.attention_forward(h, ap, cfg, mask_kind=mask, impl=flags.attn_impl)
+            kv = None
+            if collect_kv:
+                k = torch.einsum("btd,dgk->btgk", h, ap["wk"])
+                k = apply_rope(k, torch.arange(h.shape[1], device=h.device), cfg.rope_theta)
+                v = torch.einsum("btd,dgk->btgk", h, ap["wv"])
+                kv = {"k": k, "v": v}
+            h = rms_norm(x, bp["mlp_norm"])
+            return x + ffn_mod.mlp(h, bp["mlp"], cfg.act), kv
         h = rms_norm(x, bp["norm"])
         if collect_kv:
-            y, cache = ssm_mod.ssm_prefill(h, bp["ssm"], self.cfg)
+            y, cache = ssm_mod.ssm_prefill(h, bp["ssm"], cfg)
             return x + y, cache
-        return x + ssm_mod.ssm_forward(h, bp["ssm"], self.cfg), None
+        return x + ssm_mod.ssm_forward(h, bp["ssm"], cfg), None
 
-    def _run_blocks(self, x, blocks, *, collect_kv: bool = False):
+    def _run_blocks(self, x, blocks, *, flags: RunFlags, collect_kv: bool = False):
         caches = []
         for i in range(self.n_blocks):
-            x, cache = self._apply_block(x, _layer(blocks, i), collect_kv=collect_kv)
+            x, cache = self._apply_block(x, _layer(blocks, i), flags=flags,
+                                         collect_kv=collect_kv)
             caches.append(cache)
         return x, (_stack(caches) if collect_kv else None)
 
     # -- caches ---------------------------------------------------------------
+    def kv_window(self, max_seq: int) -> int:
+        cfg = self.cfg
+        return min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+
     def init_cache(self, batch: int, max_seq: int, dtype: torch.dtype = torch.bfloat16,
                    device="cpu"):
-        """Zero cache; ``max_seq`` is unused by the ssm family (its state
-        does not grow with the sequence) and kept for the reference's
-        signature."""
-        layer = ssm_mod.init_ssm_cache(self.cfg, batch, dtype, device)
+        """Zero cache.  The ssm family's state does not grow with the
+        sequence, so it does not read ``max_seq``."""
+        if self.cfg.family == "dense":
+            layer = attn_mod.init_kv_cache(self.cfg, batch, self.kv_window(max_seq), dtype,
+                                           device)
+        else:
+            layer = ssm_mod.init_ssm_cache(self.cfg, batch, dtype, device)
         return {
             "pos": torch.zeros((), dtype=torch.int32, device=device),
             "layers": _stack([layer] * self.n_blocks),
         }
 
     # -- decode ---------------------------------------------------------------
-    def _decode_block(self, x, bp, bc, flags: RunFlags):
+    def _decode_block(self, x, bp, bc, pos, flags: RunFlags):
+        cfg = self.cfg
+        if cfg.family == "dense":
+            h = rms_norm(x, bp["attn_norm"])
+            y, kv = attn_mod.decode_attention(h, bp["attn"], bc, pos, cfg)
+            x = x + y
+            h = rms_norm(x, bp["mlp_norm"])
+            return x + ffn_mod.mlp(h, bp["mlp"], cfg.act), kv
         h = rms_norm(x, bp["norm"])
-        y, cache = ssm_mod.ssm_decode_step(h, bp["ssm"], bc, self.cfg, ssd_impl=flags.ssd_impl)
+        y, cache = ssm_mod.ssm_decode_step(h, bp["ssm"], bc, cfg, ssd_impl=flags.ssd_impl)
         return x + y, cache
 
     def decode_fn(self, params, cache, token, flags: RunFlags = RunFlags()):
-        """One serve step.  token: (B, 1) int -> (logits (B, vocab), cache)."""
+        """One serve step.  token: (B, 1) int -> (logits (B, vocab), cache).
+
+        The dense family writes each layer's new key and value into
+        ``cache`` in place (the reference donates the cache), so the
+        returned cache shares its k and v tensors with the one passed in."""
+        pos = cache["pos"]
         x = params["embed"][token.long()]
         layers = []
         for i in range(self.n_blocks):
             x, lc = self._decode_block(x, _layer(params["blocks"], i),
-                                       _layer(cache["layers"], i), flags)
+                                       _layer(cache["layers"], i), pos, flags)
             layers.append(lc)
         x = rms_norm(x, params["final_norm"])
         logits = torch.einsum("bsd,vd->bsv", x, params["embed"])[:, 0, : self.cfg.vocab_size]
-        return logits, {"pos": cache["pos"] + 1, "layers": _stack(layers)}
+        new_layers = cache["layers"] if self.cfg.family == "dense" else _stack(layers)
+        return logits, {"pos": pos + 1, "layers": new_layers}
 
     # -- prefill --------------------------------------------------------------
     def prefill_fn(self, params, batch: Dict[str, Any], max_seq: int,
@@ -144,8 +202,33 @@ class LM:
         tokens = batch["tokens"]
         s = tokens.shape[1]
         x = params["embed"][tokens.long()]
-        x, layers = self._run_blocks(x, params["blocks"], collect_kv=True)
+        x, kvs = self._run_blocks(x, params["blocks"], flags=flags, collect_kv=True)
         x = rms_norm(x, params["final_norm"])
         logits = torch.einsum("bd,vd->bv", x[:, -1], params["embed"])[:, : self.cfg.vocab_size]
         pos = torch.tensor(s, dtype=torch.int32, device=tokens.device)
-        return logits, {"pos": pos, "layers": layers}
+        return logits, {"pos": pos, "layers": self._pack_cache(kvs, s, self.kv_window(max_seq))}
+
+    def _ring_pack(self, k: torch.Tensor, s: int, w: int) -> torch.Tensor:
+        """Place the last w of s keys (axis 1) into ring-buffer slots
+        (slot = pos % w)."""
+        if s <= w:
+            pad = torch.zeros((k.shape[0], w - s) + tuple(k.shape[2:]), dtype=k.dtype,
+                              device=k.device)
+            return torch.cat([k, pad], dim=1)
+        last = k[:, s - w:]
+        slots = np.arange(s - w, s) % w
+        inv = np.empty(w, dtype=np.int64)
+        inv[slots] = np.arange(w)
+        return last[:, torch.from_numpy(inv).to(k.device)]
+
+    def _ring_pack_stacked(self, k: torch.Tensor, s: int, w: int) -> torch.Tensor:
+        """k: (L, B, S, KV, hd) stacked over layers; the reference's
+        ``vmap`` over L is a fold of L into the batch axis."""
+        packed = self._ring_pack(k.reshape((-1,) + tuple(k.shape[2:])), s, w)
+        return packed.reshape(tuple(k.shape[:2]) + tuple(packed.shape[1:]))
+
+    def _pack_cache(self, kvs, s: int, w: int):
+        if self.cfg.family == "dense":
+            return {"k": self._ring_pack_stacked(kvs["k"], s, w),
+                    "v": self._ring_pack_stacked(kvs["v"], s, w)}
+        return kvs  # stacked ssm caches from prefill

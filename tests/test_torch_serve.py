@@ -1,6 +1,6 @@
 """The port's serving entry point and step functions (``repro_torch.launch``)
-against the JAX reference (``repro.launch``) on the CPU, at
-``mamba2_130m``'s REDUCED config.
+against the JAX reference (``repro.launch``) on the CPU, at the REDUCED
+configs of ``mamba2_130m`` and ``llama32_1b``.
 
 * ``serve_batch`` with the reference's weights for the same seed (carried
   across by ``repro_torch.models.convert``) and the same seed, hence the
@@ -31,11 +31,13 @@ torch.set_num_threads(1)
 
 CFG = get_config("mamba2-130m", reduced=True)
 JCFG = jax_get_config("mamba2-130m", reduced=True)
+LLAMA = get_config("llama3.2-1b", reduced=True)
+JLLAMA = jax_get_config("llama3.2-1b", reduced=True)
 BF16_BAR = 0.15
 
 
-def _carried(seed, jdt):
-    jparams = jlm.LM(JCFG).init(jax.random.PRNGKey(seed), jdt)
+def _carried(seed, jdt, jcfg=JCFG):
+    jparams = jlm.LM(jcfg).init(jax.random.PRNGKey(seed), jdt)
     return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams))
 
 
@@ -73,6 +75,30 @@ class TestServeBatch:
         with pytest.raises(RuntimeError, match="CUDA"):
             pserve.serve_batch(CFG, 2, 8, 2)
 
+    def test_llama_matches_reference_first_step(self):
+        """The dense family through serve_batch: the reference's weights and
+        prompts for seed 0, first-step logits at the bf16 bar."""
+        batch, prompt_len, gen = 2, 32, 4
+        jparams, pparams = _carried(0, jnp.bfloat16, JLLAMA)
+        got = pserve.serve_batch(LLAMA, batch, prompt_len, gen, 0, params=pparams,
+                                 device="cpu")
+        assert got["generated"].shape == (batch, gen)
+        assert ((got["generated"] >= 0) & (got["generated"] < LLAMA.vocab_size)).all()
+        prompts = np.random.default_rng(0).integers(0, JLLAMA.vocab_size, (batch, prompt_len))
+        first, _ = jlm.LM(JLLAMA).prefill_fn(
+            jparams, {"tokens": jnp.asarray(prompts, jnp.int32)}, max_seq=prompt_len + gen,
+            flags=jlm.RunFlags(remat="none", q_chunk=min(512, prompt_len)))
+        np.testing.assert_allclose(got["logits"][:, 0].float().numpy(),
+                                   np.asarray(first, np.float32), atol=BF16_BAR, rtol=BF16_BAR)
+
+    def test_cli_serves_llama_reduced_on_cpu(self, monkeypatch, capsys):
+        monkeypatch.setattr("sys.argv", ["serve", "--arch", "llama3.2-1b", "--reduced",
+                                         "--batch", "2", "--prompt-len", "16", "--gen", "3",
+                                         "--device", "cpu"])
+        pserve.main()
+        out = capsys.readouterr().out
+        assert "[serve] llama32-1b-reduced: prefill" in out and "sample tokens" in out
+
     def test_own_weights_are_seeded(self):
         a = pserve.serve_batch(CFG, 2, 16, 3, seed=1, device="cpu")
         b = pserve.serve_batch(CFG, 2, 16, 3, seed=1, device="cpu")
@@ -80,41 +106,49 @@ class TestServeBatch:
         assert torch.equal(a["logits"], b["logits"])
 
 
+def _tokens_identical(cfg, jcfg):
+    """batch 2, prompt 32, gen 8, greedy, float32 weights: the two
+    packages' step functions pick the same token at every step, and
+    serve_batch takes the same path."""
+    batch, prompt_len, gen = 2, 32, 8
+    jparams, pparams = _carried(0, jnp.float32, jcfg)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, prompt_len))
+
+    jflags = jlm.RunFlags(remat="none", q_chunk=min(512, prompt_len))
+    jlm_ = jlm.LM(jcfg)
+    jprefill = jax.jit(jsteps.make_prefill_step(jlm_, prompt_len + gen, jflags))
+    jdecode = jax.jit(jsteps.make_serve_step(jlm_, jflags))
+    logits, cache = jprefill(jparams, {"tokens": jnp.asarray(prompts, jnp.int32)})
+    tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+    ref = [tok]
+    for _ in range(gen - 1):
+        logits, cache = jdecode(jparams, cache, tok)
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+        ref.append(tok)
+    ref = np.concatenate([np.asarray(t) for t in ref], axis=1)
+
+    pflags = plm.RunFlags(remat="none", q_chunk=min(512, prompt_len))
+    plm_ = plm.LM(cfg)
+    pprefill = psteps.make_prefill_step(plm_, prompt_len + gen, pflags)
+    pdecode = psteps.make_serve_step(plm_, pflags)
+    logits, cache = pprefill(pparams, {"tokens": torch.from_numpy(prompts).int()})
+    tok = torch.argmax(logits, -1)[:, None].int()
+    got = [tok]
+    for _ in range(gen - 1):
+        logits, cache = pdecode(pparams, cache, tok)
+        tok = torch.argmax(logits, -1)[:, None].int()
+        got.append(tok)
+    got = torch.cat(got, dim=1).numpy()
+    np.testing.assert_array_equal(got, ref)
+    # and serve_batch takes the same path
+    served = pserve.serve_batch(cfg, batch, prompt_len, gen, 0, params=pparams,
+                                device="cpu")
+    np.testing.assert_array_equal(served["generated"], ref)
+
+
 class TestStepsFloat32:
     def test_generated_tokens_identical(self):
-        """batch 2, prompt 32, gen 8, greedy, float32 weights: the two
-        packages' step functions pick the same token at every step."""
-        batch, prompt_len, gen = 2, 32, 8
-        jparams, pparams = _carried(0, jnp.float32)
-        prompts = np.random.default_rng(0).integers(0, CFG.vocab_size, (batch, prompt_len))
+        _tokens_identical(CFG, JCFG)
 
-        jflags = jlm.RunFlags(remat="none", q_chunk=min(512, prompt_len))
-        jlm_ = jlm.LM(JCFG)
-        jprefill = jax.jit(jsteps.make_prefill_step(jlm_, prompt_len + gen, jflags))
-        jdecode = jax.jit(jsteps.make_serve_step(jlm_, jflags))
-        logits, cache = jprefill(jparams, {"tokens": jnp.asarray(prompts, jnp.int32)})
-        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
-        ref = [tok]
-        for _ in range(gen - 1):
-            logits, cache = jdecode(jparams, cache, tok)
-            tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
-            ref.append(tok)
-        ref = np.concatenate([np.asarray(t) for t in ref], axis=1)
-
-        pflags = plm.RunFlags(remat="none", q_chunk=min(512, prompt_len))
-        plm_ = plm.LM(CFG)
-        pprefill = psteps.make_prefill_step(plm_, prompt_len + gen, pflags)
-        pdecode = psteps.make_serve_step(plm_, pflags)
-        logits, cache = pprefill(pparams, {"tokens": torch.from_numpy(prompts).int()})
-        tok = torch.argmax(logits, -1)[:, None].int()
-        got = [tok]
-        for _ in range(gen - 1):
-            logits, cache = pdecode(pparams, cache, tok)
-            tok = torch.argmax(logits, -1)[:, None].int()
-            got.append(tok)
-        got = torch.cat(got, dim=1).numpy()
-        np.testing.assert_array_equal(got, ref)
-        # and serve_batch takes the same path
-        served = pserve.serve_batch(CFG, batch, prompt_len, gen, 0, params=pparams,
-                                    device="cpu")
-        np.testing.assert_array_equal(served["generated"], ref)
+    def test_llama_generated_tokens_identical(self):
+        _tokens_identical(LLAMA, JLLAMA)

@@ -86,7 +86,7 @@ class TestConfig:
 
     def test_other_archs_raise(self):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config("llama3.2-1b")
+            get_config("olmoe-1b-7b")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config("no-such-arch")
 
@@ -115,13 +115,15 @@ class TestConfig:
         std = float(ssm["out_proj"].std())
         assert abs(std - 0.5 / np.sqrt(CFG.ssm_d_inner)) < 0.05 * std
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            plm.LM(_dense_config())
+            plm.LM(_moe_config())
 
 
-def _dense_config():
+def _moe_config():
+    """A family the port does not serve yet."""
     from repro_torch.models.config import ModelConfig
 
-    return ModelConfig(name="dense-x", family="dense", n_layers=2, d_model=64, vocab_size=128)
+    return ModelConfig(name="moe-x", family="moe", n_layers=2, d_model=64, vocab_size=128,
+                       n_heads=4, n_kv_heads=4)
 
 
 class TestLayers:
