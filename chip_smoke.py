@@ -9,7 +9,9 @@ Phases (any failed check raises, so the exit code is non-zero):
 1. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of the three CUDA kernels from their sources, ``src/repro_torch/
    kernels/{fluidstep,ssd,flash_attention}/csrc`` (one ``nvcc`` each,
-   sm_90a, started together), with their build times;
+   sm_90a, started together), with their build times, and the registers
+   and spills of the flash kernel's bf16 D-64 tensor-core instantiation
+   (the serve shape's), which must not spill;
 3. the kernel against its plain PyTorch version on the card at J in
    {8, 40, 160, 256}, S = 16, D in {16, 20}, lanes in {1, 8}, with and
    without the overlap matrix: int and bool planes exact, float32 planes
@@ -52,13 +54,15 @@ Phases (any failed check raises, so the exit code is non-zero):
     device kernels, device idle share;
 13. the flash-attention kernel against its plain PyTorch version on the
     card over ``tests/test_kernels.py::TestFlashAttention``'s shapes (slow
-    ones included), causal attention with S != T both ways and the serve
+    ones included), causal attention with S != T both ways (also not
+    multiples of the 64-row tiles), D 128 and D 30 causal, and the serve
     shape (BH 256 = batch 8 x 32 heads, S = T 512, D 64), float32 at 2e-5
-    and bfloat16 at 3e-2 (``tol_for``), and the scale override (0.05); max
-    abs error printed;
+    and bfloat16 at 3e-2 (``tol_for``), the scale override (0.05) and the
+    peaked regime (bf16 q x 8, k x 16); max abs error printed;
 14. the kernel, its plain version and ``F.scaled_dot_product_attention``
     (the yardstick, never on the path) timed with CUDA events at the serve
-    shape in bfloat16, beside the bound;
+    shape in bfloat16, beside the bound: device time from a CUDA graph of
+    10 calls (the number kept), and eager calls (host launch included);
 15. the dense serving main path, with the flash launch count reset just
     before it: ``serve_batch`` at full-width llama3.2-1b (random weights
     from seed 0, their making timed), batch 8, prompt 512, 64 new tokens,
@@ -87,6 +91,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import multiprocessing
+import re
 import subprocess
 import sys
 import time
@@ -132,6 +137,32 @@ def _ulps(a: np.ndarray, b: np.ndarray) -> int:
     ia = a[fin].view(np.int32).astype(np.int64)
     ib = b[fin].view(np.int32).astype(np.int64)
     return int(np.abs(ia - ib).max(initial=0))
+
+
+def _cuda_ms(torch, run, graph: bool, reps: int) -> float:
+    """ms per ``run()``, with CUDA events: replayed from a CUDA graph of
+    one ``run()`` (device time; the host's launch work is not replayed) or
+    called eagerly (host launch included).  Warmed up on a side stream
+    first, as graph capture requires."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        g.replay()
+        run = g.replay
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        run()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def _summary(tag, res, chunk_steps):
@@ -279,25 +310,7 @@ def _ssd_kernel_phase(torch, dev) -> dict:
         def run():
             for st in states:
                 ssd_decode_step(*others, st, impl=impl)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            run()
-        torch.cuda.current_stream().wait_stream(side)
-        if graph:
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                run()
-            g.replay()
-            run = g.replay
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            run()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / (reps * len(states))
+        return _cuda_ms(torch, run, graph, reps) / len(states)
 
     entry = {}
     for b in (8, 64):
@@ -462,17 +475,37 @@ def _serve_phases(torch, dev) -> int:
 
 #: (bh, s, t, d, causal): tests/test_kernels.py::TestFlashAttention's sweep
 #: (slow cases included), causal with S != T both ways, and the serve shape
-#: of llama3.2-1b (batch 8 x 32 heads, prompt 512, head dim 64)
+#: of llama3.2-1b (batch 8 x 32 heads, prompt 512, head dim 64); then S and
+#: T that are not multiples of the tensor-core path's 64-row tiles, D 128
+#: causal and D 30 (staged without 16-byte copies)
 FLASH_SWEEP = [(4, 256, 256, 64, True), (3, 200, 200, 64, True), (2, 128, 384, 128, False),
                (1, 64, 512, 256, False), (2, 512, 512, 64, True), (2, 128, 384, 64, True),
-               (2, 384, 128, 64, True), (256, 512, 512, 64, True)]
+               (2, 384, 128, 64, True), (256, 512, 512, 64, True), (2, 130, 70, 64, True),
+               (2, 70, 130, 64, True), (2, 200, 200, 128, True), (3, 77, 91, 30, True)]
+#: the peaked regime (ROADMAP R8): q x 8 and k x 16, scores of std 128
+FLASH_PEAKED = ((2, 256, 256, 64, True), (8.0, 16.0, 1.0))
 FLASH_SERVE = (256, 512, 512, 64)
 
 
-def _qkv(torch, seed, bh, s, t, d, dtype, dev):
+def _qkv(torch, seed, bh, s, t, d, dtype, dev, mul=(1.0, 1.0, 1.0)):
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
-            for shape in ((bh, s, d), (bh, t, d), (bh, t, d))]
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * f).to(dev, dtype)
+            for shape, f in zip(((bh, s, d), (bh, t, d), (bh, t, d)), mul)]
+
+
+def _ptxas_entries(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from an ``nvcc -Xptxas -v`` log."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name, spills = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out[name] = (int(m.group(1)), *spills)
+            name = None
+    return out
 
 
 def _flash_bound(bh, s, t, d, elt):
@@ -497,14 +530,17 @@ def _flash_kernel_phase(torch, dev) -> dict:
 
     # ---- 13. kernel vs plain version ----------------------------------------
     max_abs = 0.0
-    cases = [(shape, None) for shape in FLASH_SWEEP] + [((1, 128, 128, 64, c), 0.05)
-                                                         for c in (False, True)]
-    for (bh, s, t, d, causal), scale in cases:
+    ones = (1.0, 1.0, 1.0)
+    cases = ([(shape, None, ones) for shape in FLASH_SWEEP]
+             + [((1, 128, 128, 64, c), 0.05, ones) for c in (False, True)]
+             + [(FLASH_PEAKED[0], None, FLASH_PEAKED[1])])
+    for (bh, s, t, d, causal), scale, mul in cases:
         for name, dtype, tol in (("float32", torch.float32, 2e-5),
                                  ("bfloat16", torch.bfloat16, 3e-2)):
-            if scale is not None and dtype != torch.float32:
+            if (scale is not None and dtype != torch.float32) or (
+                    mul != ones and dtype != torch.bfloat16):
                 continue
-            q, k, v = _qkv(torch, bh * 1000 + s + d, bh, s, t, d, dtype, dev)
+            q, k, v = _qkv(torch, bh * 1000 + s + d, bh, s, t, d, dtype, dev, mul)
             out = flash_attention(q, k, v, causal=causal, scale=scale)
             ref = flash_attention(q, k, v, causal=causal, scale=scale, impl="ref")
             torch.cuda.synchronize()
@@ -513,7 +549,7 @@ def _flash_kernel_phase(torch, dev) -> dict:
             err = float(diff.max())
             ok = bool((diff <= tol + tol * ref.float().abs()).all())
             _log(f"flash parity BH={bh} S={s} T={t} D={d} causal={causal} scale={scale} "
-                 f"{name}: max abs err {err} (bar {tol})")
+                 f"q, k, v x {mul} {name}: max abs err {err} (bar {tol})")
             _require(ok, f"flash kernel vs plain at {(bh, s, t, d, causal, scale)} {name}")
             max_abs = max(max_abs, err)
 
@@ -530,28 +566,30 @@ def _flash_kernel_phase(torch, dev) -> dict:
     }
     sdpa_err = float((fns["sdpa"]().float() - fns["cuda"]().float()).abs().max())
 
-    def _time(fn, reps=20):
-        fn()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / reps
+    def _time(fn, graph: bool, calls=10, reps=20):
+        """ms per call, over a graph of (or ``calls`` eager) calls; in the
+        graph the wrapper's checks, allocation and ctypes call are not
+        replayed."""
+        def run():
+            for _ in range(calls):
+                fn()
+        return _cuda_ms(torch, run, graph, reps) / calls
 
     timings = {}
     for impl in ("ref", "cuda", "sdpa", "sdpa", "cuda", "ref"):
-        timings.setdefault(impl, []).append(_time(fns[impl]))
+        for graph in (True, False):
+            timings.setdefault((impl, graph), []).append(_time(fns[impl], graph))
     bound_ms, bound_by, nbytes, ops = _flash_bound(bh, s, t, d, 2)
-    kernel_ms, plain_ms, sdpa_ms = (min(timings[i]) for i in ("cuda", "ref", "sdpa"))
+    kernel_ms, plain_ms, sdpa_ms = (min(timings[(i, True)]) for i in ("cuda", "ref", "sdpa"))
     _log(f"flash timing BH={bh} S={s} T={t} D={d} causal bf16 (ms per call, CUDA events, "
-         f"plain/kernel/sdpa/sdpa/kernel/plain): kernel {timings['cuda']}, plain "
-         f"{timings['ref']}, F.scaled_dot_product_attention {timings['sdpa']} (max abs "
-         f"difference to the kernel {sdpa_err}); bound {bound_ms:.8f} ms ({bound_by}: "
-         f"{nbytes} B, {ops} ops), share of bound reached {bound_ms / kernel_ms:.4f}; "
-         f"achieved {ops / kernel_ms / 1e9:.2f} TFLOP/s")
+         f"plain/kernel/sdpa/sdpa/kernel/plain): device time in a CUDA graph of 10 calls: "
+         f"kernel {timings[('cuda', True)]}, plain {timings[('ref', True)]}, "
+         f"F.scaled_dot_product_attention {timings[('sdpa', True)]}; eager (host launch "
+         f"included): kernel {timings[('cuda', False)]}, plain {timings[('ref', False)]}, "
+         f"sdpa {timings[('sdpa', False)]}; max abs difference of SDPA to the kernel "
+         f"{sdpa_err}; bound {bound_ms:.8f} ms ({bound_by}: {nbytes} B, {ops} ops), share "
+         f"of bound reached {bound_ms / kernel_ms:.4f}; achieved "
+         f"{ops / kernel_ms / 1e9:.2f} TFLOP/s; kernel / SDPA {kernel_ms / sdpa_ms:.4f}")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -829,6 +867,13 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 _log("  ptxas:", line.strip())
+    tc64 = [v for name, v in _ptxas_entries(flash_kernel.build_info()["log"]).items()
+            if "flash_fwd_tc_kernelILi64E" in name]
+    _require(len(tc64) == 1, "the ptxas log names the bf16 D-64 tensor-core instantiation")
+    regs, spill_st, spill_ld = tc64[0]
+    _log(f"build: flash_attention.cu bf16 D-64 tensor-core instantiation (the serve shape's): "
+         f"{regs} registers, {spill_st} bytes spill stores, {spill_ld} bytes spill loads")
+    _require(spill_st == 0 and spill_ld == 0, "the bf16 D-64 flash instantiation spills")
 
     # ---- 3. kernel vs plain version -----------------------------------------
     names = ("loads", "member", "active", "rem", "bw", "oversub")
@@ -876,25 +921,7 @@ def main() -> int:
         def run():
             for _ in range(calls):
                 fluid_step_core(*args, impl=impl, **kw)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            run()
-        torch.cuda.current_stream().wait_stream(side)
-        if graph:
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                run()
-            g.replay()
-            run = g.replay
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            run()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / (reps * calls)
+        return _cuda_ms(torch, run, graph, reps) / calls
 
     timings = {}
     for rnd in (1, 2):  # plain, kernel, kernel, plain

@@ -8,7 +8,9 @@ loaded with ``ctypes`` (:mod:`repro_torch.kernels.nvcc`), into the
 
 :func:`flash_attention_cuda` launches the kernel on PyTorch's current
 stream, one CTA per (bh, query tile), and counts its launches in
-``flash_attention_cuda.launches``.
+``flash_attention_cuda.launches``.  The source picks the path: bf16 with
+D <= 128 runs on the bf16 tensor cores (``mma.sync``, P rounded to bf16
+before the product with V), the rest on the float32 cores.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from repro_torch.kernels.nvcc import NvccLibrary, check_tensor
 
 #: dtype codes of the C interface (q, k, v and the output share one dtype)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Largest head dim: each lane accumulates D / 32 output columns, at most 8.
+#: Largest head dim.  bf16 with D <= 128 takes the tensor-core kernel;
+#: float32, and bf16 above 128, the float32-core kernel, whose lanes
+#: accumulate D / 32 output columns each, at most 8.
 MAX_D = 256
 
 

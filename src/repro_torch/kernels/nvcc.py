@@ -8,7 +8,9 @@ CPU-only tests can import every module.
 
 The library's name carries a hash of the source and the flags, so an
 edited source is rebuilt; the output is written to a temporary name and
-renamed, so concurrent builds never load a half-written file.
+renamed, so concurrent builds never load a half-written file.  The
+compiler's output is kept beside the library (``.log``), so a process that
+finds the library already built still reads its registers and spills.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ class NvccLibrary:
     ``bind`` declares the ``argtypes``/``restype`` of the library's C
     functions.  After :meth:`load`, ``seconds`` is how long the build (or,
     when the library was already built, the load) took and ``log`` is the
-    compiler's output (empty when nothing was compiled)."""
+    compiler's output for this library, read back from the build
+    directory when it was built before."""
 
     def __init__(self, src: Path, name: str, bind: Callable[[ctypes.CDLL], None],
                  extra_flags: Sequence[str] = ()):
@@ -69,6 +72,7 @@ class NvccLibrary:
         tag = hashlib.sha256(src + " ".join(self.flags).encode()).hexdigest()[:16]
         build_dir = self.src.parent.parent / "build"
         out = build_dir / f"lib{self.name}-{tag}.so"
+        log = out.with_suffix(".log")
         t0 = time.perf_counter()
         if not out.exists():
             build_dir.mkdir(parents=True, exist_ok=True)
@@ -82,7 +86,12 @@ class NvccLibrary:
                 raise RuntimeError(
                     f"nvcc failed on {self.src.name} ({proc.returncode}):\n{self.log}"
                 )
+            tmp_log = log.with_suffix(f".{os.getpid()}.logtmp")
+            tmp_log.write_text(self.log)
+            os.replace(tmp_log, log)
             os.replace(tmp, out)
+        else:
+            self.log = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(out))
         self.bind(lib)
         self.seconds = time.perf_counter() - t0

@@ -10,6 +10,13 @@ shapes and causal cases with S != T (top-left aligned), at the JAX suite's
 ``tol_for``: 2e-5 in float32, 3e-2 in bfloat16.  The CUDA kernel is held
 to the same plain version on the card
 (``tests/test_torch_flash_attention_cuda.py``).
+
+The CUDA kernel's bf16 tensor-core path rounds P to bf16 before the
+product with V, where ``ref.py`` keeps it in float32.  Its arithmetic is
+emulated in plain torch (``tensor_core_emulation``, in the CUDA test file,
+which imports no JAX), and the emulation is held here to the JAX reference
+and the interpret-mode Pallas kernel at the bf16 ``tol_for``, over the same
+shapes and the peaked regime of ROADMAP R8.
 """
 
 import jax.numpy as jnp
@@ -22,6 +29,7 @@ from repro.kernels.flash_attention.ref import attention_reference as jax_referen
 from repro_torch.kernels.flash_attention import FLASH_IMPLS, flash_attention
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_reference
+from test_torch_flash_attention_cuda import PEAKED, tensor_core_emulation
 
 torch.set_num_threads(1)
 
@@ -40,11 +48,11 @@ def tol_for(name):
     return 3e-2 if name == "bfloat16" else 2e-5
 
 
-def _qkv(seed, bh, s, t, d, name):
+def _qkv(seed, bh, s, t, d, name, mul=(1.0, 1.0, 1.0)):
     jdt, tdt = DTYPES[name]
     rng = np.random.default_rng(seed)
-    raw = [rng.standard_normal(shape).astype(np.float32)
-           for shape in ((bh, s, d), (bh, t, d), (bh, t, d))]
+    raw = [rng.standard_normal(shape).astype(np.float32) * f
+           for shape, f in zip(((bh, s, d), (bh, t, d), (bh, t, d)), mul)]
     return [jnp.asarray(a, jdt) for a in raw], [torch.from_numpy(a).to(tdt) for a in raw]
 
 
@@ -66,6 +74,40 @@ class TestPlainVersion:
         jx, tx = _qkv(bh + s + t, bh, s, t, d, name)
         got = flash_attention(*tx, causal=causal)  # a CPU tensor takes the plain version
         _close(got, jax_flash_attention(*jx, causal=causal, impl="interpret"), tol_for(name))
+
+
+#: the shapes above in bf16, and the peaked regime (q x 8, k x 16)
+EMULATED = [(*shape, (1.0, 1.0, 1.0)) for shape in SHAPES] + [(*PEAKED, (8.0, 16.0, 1.0))]
+
+
+@pytest.mark.parametrize("bh,s,t,d,causal,mul", EMULATED)
+class TestTensorCoreEmulation:
+    def test_matches_jax_reference(self, bh, s, t, d, causal, mul):
+        jx, tx = _qkv(bh + s + t, bh, s, t, d, "bfloat16", mul)
+        got = tensor_core_emulation(*tx, causal=causal)
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (bh, s, d)
+        _close(got, jax_reference(*jx, causal=causal), tol_for("bfloat16"))
+
+    def test_matches_pallas_kernel_interpret(self, bh, s, t, d, causal, mul):
+        jx, tx = _qkv(bh + s + t, bh, s, t, d, "bfloat16", mul)
+        got = tensor_core_emulation(*tx, causal=causal)
+        _close(got, jax_flash_attention(*jx, causal=causal, impl="interpret"),
+               tol_for("bfloat16"))
+
+
+@pytest.mark.parametrize("round_p", [False, True])
+def test_emulation_rounds_only_p(round_p):
+    """In float32 the emulation without the P rounding is the plain version
+    to float32 round-off; with it, it differs, by less than the bf16 bar."""
+    for seed, (bh, s, t, d) in enumerate(((2, 130, 70, 32), (2, 70, 130, 32))):
+        _, tx = _qkv(seed, bh, s, t, d, "float32")
+        got = tensor_core_emulation(*tx, causal=True, round_p=round_p)
+        want = attention_reference(*tx, causal=True)
+        diff = float((got - want).abs().max())
+        if round_p:
+            assert 1e-5 < diff < 3e-2
+        else:
+            _close(got, want, 2e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])

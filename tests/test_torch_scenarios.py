@@ -176,6 +176,22 @@ class TestHygiene:
         out = _run(["-c", code], REPO, {"PYTHONPATH": str(REPO / "src")})
         assert out.returncode == 0, out.stdout + out.stderr
 
+    def test_flash_prefill_ab_imports_no_jax_and_fails_without_cuda(self):
+        if torch.cuda.is_available():
+            pytest.skip("CUDA present: the script is meant to run here")
+        code = (
+            "import sys\n"
+            "sys.path[:0] = ['scripts', '.']\n"
+            "import chip_smoke, flash_prefill_ab\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        out = _run(["-c", code], REPO, {"PYTHONPATH": ""})
+        assert out.returncode == 0, out.stdout + out.stderr
+        out = _run(["scripts/flash_prefill_ab.py", "--baseline", "missing.cu"], REPO)
+        assert out.returncode != 0
+        assert "needs an NVIDIA GPU" in out.stderr
+
     def test_chip_smoke_fails_without_cuda(self, tmp_path):
         if torch.cuda.is_available():
             pytest.skip("CUDA present: chip_smoke.py is meant to run here")
