@@ -12,28 +12,38 @@ Phases (any failed check raises, so the exit code is non-zero):
    sm_90a, started together), with their build times, and the registers
    and spills of the flash kernel's bf16 D-64 tensor-core instantiation
    (the serve shape's), which must not spill;
-3. the kernel against its plain PyTorch version on the card at J in
-   {8, 40, 160, 256}, S = 16, D in {16, 20}, lanes in {1, 8}, with and
-   without the overlap matrix: int and bool planes exact, float32 planes
-   bit-equal (max ulp difference printed); then both timed with CUDA events
-   at the main path's shapes;
+3. the fluid step kernel against its plain PyTorch version on the card at
+   J in {8, 40, 160, 256}, S = 16, D in {16, 20}, lanes in {1, 8}; at the
+   shapes a warp-parallel design gets wrong, J in {1, 31, 33, 1000} x D in
+   {1, 63, 64} x S in {1, 16, 40}; and on inputs with a lane without active
+   jobs, jobs without members, tied remainders, remainders from 1e-30 to
+   1e4 and every domain loaded; each with and without the overlap matrix:
+   int and bool planes exact, float32 planes bit-equal (max ulp difference
+   printed); then the kernel, its plain version and an empty kernel on the
+   same grid (the card's launch floor) timed with CUDA events at the main
+   path's shapes, in a CUDA graph and eagerly, beside the bound and the
+   kernel's time before its redesign;
 4. the main path, with the kernel's launch count reset just before it:
    the paper's 64-GPU cluster (16 x 4) and 160 jobs, 8 seeds per batch,
    iterations cut from 1000-6000 to 100-600, under ada (through
    ``simulate_traces_batched``), srsf1 and srsf2 (through
    ``monte_carlo_fluid``); and ``oversub_fabric`` (QUICK size, two-tier
-   fabric, rack_pack placement, 8 seeds).  Every job must finish, and the
-   kernel must have launched exactly once per executed tick;
-5. the ada batch once more with the plain step core on the card: finished
-   mask and every finish tick identical to the kernel run (the four paper
-   batches run side by side in worker processes, since the simulator is
-   bound by the host's per-operation cost);
+   fabric, rack_pack placement, 8 seeds).  Each chunk is replayed from a
+   CUDA graph, captured once per batch shape (capture and instantiation
+   seconds printed).  Every job must finish, and the kernel must have
+   launched exactly once per executed tick, counted over graph replays;
+5. the ada batch twice more: with the plain step core in the graph, and
+   with the kernel run eagerly on the card: finished mask, every finish
+   tick and chunk count identical to the main path's run (the batches
+   run one at a time, each alone on the card);
 6. small inputs on the card against the same runs on the CPU (identical
    finish ticks); the CPU path is the one the tests hold to the JAX
    reference;
-7. the host cost: one chunk of the ada batch alone on the card, timed with
-   the kernel and with the plain step core, and its device time from the
-   profiler;
+7. the host cost: one chunk of the ada batch alone on the card, through
+   the graph and eagerly (and through the graph with the plain step core):
+   wall and CUDA-event time per tick, device time per tick from the
+   profiler, device idle share; before that, blocks of 8, 16, 32 and 256
+   ticks: capture and instantiation seconds against wall per tick;
 8. the SSD decode-step kernel against its plain PyTorch version on the
    card over ``tests/test_kernels.py``'s (B, H, P, N) sweep plus the serve
    shapes (8 and 64, 24, 64, 128), float32 and bfloat16, at the JAX suite's
@@ -90,12 +100,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import multiprocessing
 import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -130,6 +139,29 @@ def _rand_inputs(rng, lanes, n_jobs, n_servers, n_domains):
         "bw": rng.uniform(0.4, 2.5, n_servers).astype(np.float32),
         "oversub": rng.uniform(1.0, 4.0, n_domains).astype(np.float32),
     }
+
+
+#: inputs at the edges of the fluid step's semantics (phase 3)
+FLUID_SPECIAL = ("no_active_lane", "zero_member_rows", "tied_rem", "rem_range", "all_loaded")
+#: the fluid step kernel before its redesign (a thread per domain walking
+#: all jobs), in a CUDA graph on an H100 80GB HBM3 at 700 W (PERF.md)
+FLUID_BEFORE_MS = 0.017127
+
+
+def _special(x, case, rng) -> None:
+    """Turn random inputs into one of :data:`FLUID_SPECIAL`, in place."""
+    lanes, n_jobs = x["rem"].shape
+    if case == "no_active_lane":
+        x["active"][1] = False
+    elif case == "zero_member_rows":
+        x["member"][:, ::2] = 0.0
+    elif case == "tied_rem":
+        x["rem"] = rng.choice(np.float32([0.5, 2.5, 7.0]), (lanes, n_jobs))
+    elif case == "rem_range":
+        x["rem"] = (10.0 ** rng.uniform(-30, 4, (lanes, n_jobs))).astype(np.float32)
+    elif case == "all_loaded":
+        x["loads"][:] = True
+        x["active"][:] = True
 
 
 def _ulps(a: np.ndarray, b: np.ndarray) -> int:
@@ -180,13 +212,12 @@ def _summary(tag, res, chunk_steps):
     return ticks
 
 
-def _paper_batch(comm: str, impl: str, entry: str) -> dict:
-    """One 8-seed paper batch in a worker process (spawned, so it imports
-    the port afresh and starts with a launch count of 0)."""
+def _paper_batch(comm: str, impl: str, entry: str, graph: bool = True) -> dict:
+    """One 8-seed paper batch, from a launch count of 0: each chunk
+    replayed from a CUDA graph (the main path) or, with ``graph=False``
+    (``simulate_traces_batched`` only), run eagerly on the card."""
     import torch
 
-    torch.set_num_threads(1)
-    sys.path.insert(0, str(SRC))
     from repro_torch.core import fluidsim
     from repro_torch.kernels.fluidstep import kernel as fs_kernel
     from repro_torch.scenarios import fluid_config, get_scenario, monte_carlo_fluid
@@ -203,14 +234,15 @@ def _paper_batch(comm: str, impl: str, entry: str) -> dict:
         batch = fluidsim.stack_traces(
             [fluidsim.trace_from_jobs(s.job_list(), device=cfg.device) for s in paper]
         )
-        res = fluidsim.simulate_traces_batched(batch, cfg)
+        res = fluidsim.simulate_traces_batched(batch, cfg, _graph=None if graph else False)
         recs = [
             from_jcts(res["jct"][i][res["finished"][i]].tolist(), scenario="paper",
                       backend="fluid", placement="gang-consolidate", comm=comm, seed=s,
                       n_jobs=scn.n_jobs, makespan=float(res["makespan"][i]))
             for i, (s, scn) in enumerate(zip(SEEDS, paper))
         ]
-        out.update(jct=res["jct"], finished=res["finished"], chunks=res["chunks"])
+        out.update(jct=res["jct"], finished=res["finished"], chunks=res["chunks"],
+                   captures=res["captures"])
     else:
         recs = monte_carlo_fluid("paper", SEEDS, comm=comm, placement="lwf",
                                  overrides=PAPER_CUT, kernel=impl)
@@ -880,33 +912,42 @@ def main() -> int:
     rng = np.random.default_rng(0)
     max_ulp, max_abs = 0, 0.0
     n_cases = 0
-    for n_jobs in (8, 40, 160, 256):
-        for n_domains in (16, 20):
-            for lanes in (1, 8):
-                for need_overlap in (False, True):
-                    x = _rand_inputs(rng, lanes, n_jobs, 16, n_domains)
-                    args = [torch.as_tensor(x[k], device=dev) for k in names]
-                    kw = dict(b=8.53e-10, eta=1.706e-10, need_overlap=need_overlap)
-                    got = fluid_step_core(*args, impl="cuda", **kw)
-                    want = fluid_step_core(*args, impl="ref", **kw)
-                    torch.cuda.synchronize()
-                    for k, v in want.items():
-                        g = got[k]
-                        if v is None:
-                            _require(g is None, k)
-                            continue
-                        g, v = g.cpu().numpy(), v.cpu().numpy()
-                        _require(g.dtype == v.dtype and g.shape == v.shape, k)
-                        if v.dtype == np.float32:
-                            _require((np.isinf(g) == np.isinf(v)).all(), f"inf pattern of {k}")
-                            max_ulp = max(max_ulp, _ulps(g, v))
-                            fin = np.isfinite(v)
-                            max_abs = max(max_abs, float(np.abs(g[fin] - v[fin]).max(initial=0)))
-                        else:
-                            _require((g == v).all(), f"{k} differs at J={n_jobs} D={n_domains}")
-                    n_cases += 1
-    _log(f"parity: {n_cases} cases, int/bool planes exact, inf pattern exact, "
-         f"float32 max ulp {max_ulp}, max abs err {max_abs}")
+    # the main path's neighbourhood, then the shapes a warp-parallel design
+    # gets wrong, then inputs at the edges of the semantics
+    grid = [(lanes, n_jobs, 16, n_domains, None) for n_jobs in (8, 40, 160, 256)
+            for n_domains in (16, 20) for lanes in (1, 8)]
+    grid += [(3, n_jobs, n_servers, n_domains, None) for n_jobs in (1, 31, 33, 1000)
+             for n_domains in (1, 63, 64) for n_servers in (1, 16, 40)]
+    grid += [(3, 45, 16, 20, case) for case in FLUID_SPECIAL]
+    for lanes, n_jobs, n_servers, n_domains, case in grid:
+        for need_overlap in (False, True):
+            x = _rand_inputs(rng, lanes, n_jobs, n_servers, n_domains)
+            if case:
+                _special(x, case, rng)
+            args = [torch.as_tensor(x[k], device=dev) for k in names]
+            kw = dict(b=8.53e-10, eta=1.706e-10, need_overlap=need_overlap)
+            got = fluid_step_core(*args, impl="cuda", **kw)
+            want = fluid_step_core(*args, impl="ref", **kw)
+            torch.cuda.synchronize()
+            where = f"L={lanes} J={n_jobs} S={n_servers} D={n_domains} {case or ''}"
+            for k, v in want.items():
+                g = got[k]
+                if v is None:
+                    _require(g is None, k)
+                    continue
+                g, v = g.cpu().numpy(), v.cpu().numpy()
+                _require(g.dtype == v.dtype and g.shape == v.shape, k)
+                if v.dtype == np.float32:
+                    _require((np.isinf(g) == np.isinf(v)).all(), f"inf pattern of {k} at {where}")
+                    max_ulp = max(max_ulp, _ulps(g, v))
+                    fin = np.isfinite(v)
+                    max_abs = max(max_abs, float(np.abs(g[fin] - v[fin]).max(initial=0)))
+                else:
+                    _require((g == v).all(), f"{k} differs at {where}")
+            n_cases += 1
+    _log(f"parity: {n_cases} cases (J up to 1000, S 1-40, D 1-64, with and without "
+         f"overlap, special inputs {FLUID_SPECIAL}), int/bool planes exact, inf pattern "
+         f"exact, float32 max ulp {max_ulp}, max abs err {max_abs}")
     _require(max_ulp == 0, "float32 planes must be bit-equal to the plain version")
 
     # timing at the main path's shapes: 8 lanes, J=160, S=16, D=16
@@ -917,19 +958,23 @@ def main() -> int:
 
     def _time(impl, graph: bool, reps=40, calls=50):
         """ms per call: in a CUDA graph (device time, no host launch
-        overhead) or eagerly (what a tick of the simulator pays)."""
+        overhead) or eagerly (what a tick of the simulator pays); impl
+        "empty" is the empty kernel on the same grid (the launch floor)."""
         def run():
             for _ in range(calls):
-                fluid_step_core(*args, impl=impl, **kw)
+                if impl == "empty":
+                    fs_kernel.empty_launch(L, dev)
+                else:
+                    fluid_step_core(*args, impl=impl, **kw)
         return _cuda_ms(torch, run, graph, reps) / calls
 
     timings = {}
-    for rnd in (1, 2):  # plain, kernel, kernel, plain
-        for impl in (("ref", "cuda") if rnd == 1 else ("cuda", "ref")):
-            for graph in (True, False):
-                timings.setdefault((impl, graph), []).append(_time(impl, graph))
+    for impl in ("ref", "cuda", "empty", "empty", "cuda", "ref"):
+        for graph in (True, False):
+            timings.setdefault((impl, graph), []).append(_time(impl, graph))
     kernel_ms = min(timings[("cuda", True)])
     plain_ms = min(timings[("ref", True)])
+    floor_ms = min(timings[("empty", True)])
     bytes_moved = (L * J * D + L * J * S * 4 + L * J + L * J * 4 + S * 4 + D * 4
                    + L * D * 4 + 4 * L * J * 4)
     ops = L * (5 * J * D + J * S + 5 * J + D)
@@ -937,107 +982,165 @@ def main() -> int:
     bound_ops_ms = ops / FP32_OPS_PER_S * 1e3
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
     bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
-    _log(f"timing (L={L} J={J} S={S} D={D}, ms per call, plain/kernel/kernel/plain): "
-         f"device time in a CUDA graph: kernel {timings[('cuda', True)]}, "
-         f"plain {timings[('ref', True)]}; eager (host launch included): "
-         f"kernel {timings[('cuda', False)]}, plain {timings[('ref', False)]}; "
-         f"bound {bound_ms:.8f} ms ({bound_by}: {bytes_moved} B, {ops} ops); "
-         f"no single PyTorch call computes this function")
+    _log(f"timing (L={L} J={J} S={S} D={D}, ms per call, plain/kernel/empty/empty/kernel/"
+         f"plain): device time in a CUDA graph of 50 calls: kernel {timings[('cuda', True)]}, "
+         f"plain {timings[('ref', True)]}, empty kernel on the same grid (launch floor) "
+         f"{timings[('empty', True)]}; eager (host launch included): kernel "
+         f"{timings[('cuda', False)]}, plain {timings[('ref', False)]}, empty "
+         f"{timings[('empty', False)]}; bound {bound_ms:.8f} ms ({bound_by}: {bytes_moved} B, "
+         f"{ops} ops); kernel / launch floor {kernel_ms / floor_ms:.4f}; the kernel before its "
+         f"redesign {FLUID_BEFORE_MS} ms; no single PyTorch call computes this function")
 
     # ---- 4./5. the main path, and the ada batch with the plain step core ---
-    # The simulator is bound by the host's per-operation launch cost, so the
-    # four paper batches run side by side in worker processes on the one
-    # card; each worker starts with a launch count of 0 and reports its
-    # count just after its run.  The parent meanwhile runs the second
-    # fabric (its count reset just before) and the small card-vs-CPU runs.
-    jobs = [("ada", "", "simulate_traces_batched"), ("srsf1", "", "monte_carlo_fluid"),
-            ("srsf2", "", "monte_carlo_fluid"), ("ada", "ref", "simulate_traces_batched")]
+    # One batch at a time, alone on the card: graph replays from separate
+    # processes would take turns on it.  Each batch starts with a launch
+    # count of 0 and reports its count just after its run.
+    jobs = [("ada", "", "simulate_traces_batched", True),
+            ("srsf1", "", "monte_carlo_fluid", True), ("srsf2", "", "monte_carlo_fluid", True),
+            ("ada", "ref", "simulate_traces_batched", True),
+            ("ada", "", "simulate_traces_batched", False)]
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(max_workers=len(jobs),
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
-        futures = [pool.submit(_paper_batch, *job) for job in jobs]
-
-        launches.launches = 0
-        t1 = time.perf_counter()
-        recs = monte_carlo_fluid("oversub_fabric", SEEDS, comm="ada", placement="rack_pack",
-                                 overrides=QUICK_OVERRIDES["oversub_fabric"])
-        torch.cuda.synchronize()
-        over = {"recs": [dataclasses.asdict(r) for r in recs], "chunks": recs[0].chunks,
-                "wall": time.perf_counter() - t1, "launches": launches.launches}
-
-        # ---- 6. small inputs: card vs CPU -----------------------------------
-        for name, comm, placement in (("smoke", "ada", "lwf"),
-                                      ("contended_residue", "srsf2", "ls"),
-                                      ("oversub_fabric", "srsf1", "rack_pack")):
-            scn = get_scenario(name, seed=1, **QUICK_OVERRIDES[name])
-            on_card = run_scenario_fluid(scn, comm=comm, placement=placement)
-            on_cpu = run_scenario_fluid(scn, comm=comm, placement=placement, device="cpu")
-            _require((on_card["finished"] == on_cpu["finished"]).all(), name)
-            _require((on_card["jct"] == on_cpu["jct"]).all(), name)
-            _log(f"{name} {comm} {placement}: card == CPU on every finish tick "
-                 f"({int(on_card['finished'].sum())} jobs)")
-        results = [f.result() for f in futures]
-    _log(f"main path: 4 paper batches side by side + oversub_fabric, wall "
+    results = [_paper_batch(*job) for job in jobs]
+    launches.launches = 0
+    t1 = time.perf_counter()
+    recs = monte_carlo_fluid("oversub_fabric", SEEDS, comm="ada", placement="rack_pack",
+                             overrides=QUICK_OVERRIDES["oversub_fabric"])
+    torch.cuda.synchronize()
+    over = {"recs": [dataclasses.asdict(r) for r in recs], "chunks": recs[0].chunks,
+            "wall": time.perf_counter() - t1, "launches": launches.launches}
+    _log(f"main path: 5 paper batches + oversub_fabric, one at a time, wall "
          f"{time.perf_counter() - t0:.3f} s")
+
+    # ---- 6. small inputs: card vs CPU ---------------------------------------
+    for name, comm, placement in (("smoke", "ada", "lwf"),
+                                  ("contended_residue", "srsf2", "ls"),
+                                  ("oversub_fabric", "srsf1", "rack_pack")):
+        scn = get_scenario(name, seed=1, **QUICK_OVERRIDES[name])
+        on_card = run_scenario_fluid(scn, comm=comm, placement=placement)
+        on_cpu = run_scenario_fluid(scn, comm=comm, placement=placement, device="cpu")
+        _require((on_card["finished"] == on_cpu["finished"]).all(), name)
+        _require((on_card["jct"] == on_cpu["jct"]).all(), name)
+        _log(f"{name} {comm} {placement}: card == CPU on every finish tick "
+             f"({int(on_card['finished'].sum())} jobs)")
 
     chunk_steps = fluidsim.FluidSimConfig().chunk_steps
     main_launches, executed = 0, 0
-    for (comm, impl, entry), res in zip(jobs, results):
-        tag = f"paper {comm} ({entry}{', plain step core' if impl else ''})"
+    for (comm, impl, entry, graph), res in zip(jobs, results):
+        tag = (f"paper {comm} ({entry}{', plain step core' if impl else ''}"
+               f"{', CUDA graph' if graph else ', eager'})")
         ticks = _summary(tag, res, chunk_steps)
+        for cap in res.get("captures", []):
+            _log(f"  capture at {cap['lanes']} lanes x {cap['jobs']} jobs: eager first block "
+                 f"{cap['warmup_s']:.4f} s, recording {cap['capture_s']:.4f} s, "
+                 f"instantiation {cap['instantiate_s']:.4f} s")
+        _require(bool(res.get("captures")) == (graph and entry == "simulate_traces_batched"),
+                 f"{tag}: captures")
         if impl:
             _require(res["launches"] == 0, f"{tag}: the plain run launched the kernel")
+        elif not graph:
+            _require(res["launches"] == ticks, f"{tag}: one launch per executed tick")
         else:
             main_launches += res["launches"]
             executed += ticks
-    executed += _summary("oversub_fabric ada rack_pack (monte_carlo_fluid, D=20)", over,
-                         chunk_steps)
+    executed += _summary("oversub_fabric ada rack_pack (monte_carlo_fluid, D=20, CUDA graph)",
+                         over, chunk_steps)
     main_launches += over["launches"]
-    ada, ada_ref = results[0], results[3]
+    ada, ada_ref, ada_eager = results[0], results[3], results[4]
     _log(f"paper ada: port chunks {ada['chunks']}, JAX reference on the CPU "
          f"{REFERENCE_CPU_CHUNKS_ADA}")
-    _log(f"main path: fluid_step_core launches {main_launches}, executed ticks {executed}")
+    _log(f"main path: fluid_step_core launches {main_launches} (counted over graph replays), "
+         f"executed ticks {executed}")
     _require(main_launches > 0 and main_launches == executed, "one launch per executed tick")
-    _require((ada_ref["finished"] == ada["finished"]).all(), "finished mask differs")
-    _require((ada_ref["jct"] == ada["jct"]).all(), "finish ticks differ")
-    _require(ada_ref["chunks"] == ada["chunks"], "chunk counts differ")
-    _log("paper ada, kernel vs plain step core on the card: identical finished mask "
-         "and finish ticks")
+    for other, what in ((ada_ref, "plain step core in the graph"), (ada_eager, "eager kernel")):
+        _require((other["finished"] == ada["finished"]).all(), f"finished mask differs: {what}")
+        _require((other["jct"] == ada["jct"]).all(), f"finish ticks differ: {what}")
+        _require(other["chunks"] == ada["chunks"], f"chunk counts differ: {what}")
+    _log("paper ada on the card, kernel in the graph vs plain step core in the graph vs kernel "
+         "eagerly: identical finished mask, finish ticks and chunk count")
 
-    # ---- host cost: one chunk of the ada batch, alone on the card ----------
+    # ---- 7. host cost: one chunk of the ada batch, alone on the card --------
+    from torch.profiler import ProfilerActivity, profile
+
     paper = [get_scenario("paper", seed=s, **PAPER_CUT) for s in SEEDS]
     cfg = fluid_config(paper[0], comm="ada", placement="lwf")
     batch = fluidsim.stack_traces(
         [fluidsim.trace_from_jobs(s.job_list(), device=dev) for s in paper]
     )
     statics = fluidsim._Statics(cfg, dev)
-    state = fluidsim._init_lane_state(batch, cfg, statics.n_domains)
-    state = fluidsim._lane_chunk(batch, state, cfg, statics)  # warm, past the start
-    per_tick = {}
-    for impl in ("ref", "", "", "ref"):
-        c = dataclasses.replace(cfg, kernel=impl)
+    state0 = fluidsim._init_lane_state(batch, cfg, statics.n_domains)
+    state0 = fluidsim._lane_chunk(batch, state0, cfg, statics)  # past the start
+    ticks = cfg.chunk_steps
+
+    def _runner(graph: bool, block: int = fluidsim.BLOCK_TICKS, impl: str = ""):
+        """A chunk runner from ``state0``; a graph runner is captured by a
+        first chunk, timed here."""
+        r = fluidsim._ChunkRunner(batch, {n: v.clone() for n, v in state0.items()},
+                                  dataclasses.replace(cfg, kernel=impl), statics,
+                                  block=block, graph=graph)
+        t1 = time.perf_counter()
+        r.run_chunk()
+        torch.cuda.synchronize()
+        r.first_chunk_s = time.perf_counter() - t1
+        return r
+
+    def _chunk(r):
+        """(host wall ms, CUDA-event ms) per tick of one chunk from state0."""
+        for n, v in r.state.items():
+            v.copy_(state0[n])
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        fluidsim._lane_chunk(batch, state, c, statics)
+        start.record()
+        r.run_chunk()
+        stop.record()
         torch.cuda.synchronize()
-        per_tick.setdefault(impl or "cuda", []).append(
-            (time.perf_counter() - t1) / cfg.chunk_steps * 1e3)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fluidsim._lane_chunk(batch, state, cfg, statics)
-        torch.cuda.synchronize()
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms_tick = sum(e.self_device_time_total for e in on_device) / 1e3 / cfg.chunk_steps
-    device_ops_tick = sum(e.count for e in on_device) / cfg.chunk_steps
-    wall_ms_tick = min(per_tick["cuda"])
-    _log(f"host cost (paper ada batch, 8 lanes x 160 jobs, one chunk of "
-         f"{cfg.chunk_steps} ticks, alone on the card): wall per tick with the kernel "
-         f"{per_tick['cuda']} ms, with the plain step core {per_tick['ref']} ms; "
-         f"device time per tick (profiler) {device_ms_tick:.4f} ms in "
-         f"{device_ops_tick:.2f} kernels and copies; device idle share "
-         f"{1 - device_ms_tick / wall_ms_tick:.4f}")
+        return (time.perf_counter() - t1) / ticks * 1e3, start.elapsed_time(stop) / ticks
 
+    def _device_ms(r):
+        """Device time per tick by the profiler (kernels and copies), and
+        their number per tick."""
+        for n, v in r.state.items():
+            v.copy_(state0[n])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            r.run_chunk()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        return (sum(e.self_device_time_total for e in on_device) / 1e3 / ticks,
+                sum(e.count for e in on_device) / ticks)
+
+    # ticks per captured block: capture and instantiation cost against replay
+    for block in (8, 16, 32, ticks):
+        r = _runner(True, block=block)
+        walls = [_chunk(r) for _ in range(2)]
+        _log(f"block of {block} ticks: first chunk (eager block, capture, instantiation, "
+             f"replays) {r.first_chunk_s:.4f} s: eager block {r.timing['warmup_s']:.4f} s, "
+             f"recording {r.timing['capture_s']:.4f} s, instantiation "
+             f"{r.timing['instantiate_s']:.4f} s; then wall per tick "
+             f"{[round(w, 6) for w, _ in walls]} ms")
+        r.release()
+
+    runners = {"graph": _runner(True), "eager": _runner(False),
+               "graph, plain step core": _runner(True, impl="ref")}
+    per_tick = {}
+    for mode in ("graph", "eager", "eager", "graph", "graph, plain step core"):
+        per_tick.setdefault(mode, []).append(_chunk(runners[mode]))
+    for mode, r in runners.items():
+        wall = min(w for w, _ in per_tick[mode])
+        events = min(e for _, e in per_tick[mode])
+        dev_ms, n_ops = _device_ms(r)
+        idle = f"{1 - dev_ms / wall:.4f}" if dev_ms > 0 else "not measured"
+        _log(f"host cost, {mode} (paper ada batch, 8 lanes x 160 jobs, one chunk of {ticks} "
+             f"ticks in blocks of {r.block}, alone on the card): wall per tick "
+             f"{[round(w, 6) for w, _ in per_tick[mode]]} ms, CUDA events per tick "
+             f"{[round(e, 6) for _, e in per_tick[mode]]} ms; device time per tick (profiler) "
+             f"{dev_ms:.6f} ms in {n_ops:.2f} kernels and copies; device idle share {idle} "
+             f"(events: {1 - dev_ms / events:.4f})")
+        if mode == "eager":
+            _require(dev_ms > 0, "the profiler saw the eager chunk's device time")
+        r.release()
+    del runners
     # ---- 8.-12. the SSD decode-step kernel and the serving path -----------
     ssd = _ssd_kernel_phase(torch, dev)
     ssd["launches"] = _serve_phases(torch, dev)

@@ -4,8 +4,13 @@ A fixed-timestep, batched approximation of the Ada-SRSF dynamics: a
 struct-of-arrays state over jobs plus per-server occupancy, advanced tick by
 tick with branchless masks.  The reference's ``vmap`` over lanes (seeds)
 becomes a lane axis written out in every tensor, and its ``lax.scan`` over
-ticks a Python loop; the host syncs once per chunk of ``chunk_steps`` ticks,
-as the reference does, to retire finished lanes and compact the batch.
+ticks a Python loop, run in blocks of :data:`BLOCK_TICKS` ticks over
+persistent buffers (:class:`_ChunkRunner`).  On the card each block is
+captured once per batch shape as a CUDA graph and replayed, as the
+reference compiles its chunk once (``_chunk_jit``); on the CPU the same
+blocks run eagerly.  The host syncs once per chunk of ``chunk_steps``
+ticks, as the reference does, to retire finished lanes and compact the
+batch.
 
 Every executed tick calls the fluid step core once for all lanes
 (:mod:`repro_torch.kernels.fluidstep`: the CUDA kernel on the card, its
@@ -26,6 +31,8 @@ ROADMAP.md queue 1).
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +43,7 @@ from repro_torch.core.contention import ContentionParams
 from repro_torch.core.topology import Topology, nic_topology
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fluidstep import FLUID_KERNEL_IMPLS, fluid_step_core
+from repro_torch.kernels.fluidstep.kernel import fluid_step_core_cuda
 
 # job phases
 QUEUED, COMPUTE, COMM, DONE = 0, 1, 2, 3
@@ -379,33 +387,139 @@ def _lane_step(tr, c, st, k: _Statics, cfg: FluidSimConfig):
     return new_state
 
 
-def _lane_chunk(trace, state, cfg: FluidSimConfig, statics: Optional[_Statics] = None):
-    """``cfg.chunk_steps`` ticks of every lane; a lane that has finished or
-    hit the step cap is frozen leaf by leaf (the reference's ``live``
-    select), so the batch can run past early finishers."""
+def _live_tick(tr, c, st, k: _Statics, cfg: FluidSimConfig, n_jobs: int):
+    """One tick of every lane with the live freeze: a lane that has
+    finished or hit the step cap keeps its state leaf by leaf (the
+    reference's ``live`` select), so the batch can run past early
+    finishers."""
+    live = (st["n_done"] < n_jobs) & (st["i"] < cfg.max_steps)
+    by_rank = (live, live[:, None], live[:, None, None])
+    new = _lane_step(tr, c, st, k, cfg)
+    return {name: torch.where(by_rank[v.dim() - 1], v, st[name]) for name, v in new.items()}
+
+
+#: Ticks per block of a chunk (a divisor of the default ``chunk_steps``):
+#: on the card one block is captured as a CUDA graph and replayed
+#: ``chunk_steps / BLOCK_TICKS`` times per chunk.  Capture costs about one
+#: eager tick per tick of the block plus instantiation, once per batch
+#: shape, while replay costs the same per tick for blocks of 8, 16 and 32
+#: ticks (PERF.md), so the smallest of them wins.
+BLOCK_TICKS = 8
+
+
+class _ChunkRunner:
+    """A chunk of ``cfg.chunk_steps`` ticks over persistent trace and state
+    buffers of one (lanes, jobs) shape, run as ``chunk_steps / block``
+    blocks of ``block`` ticks; each block writes the new state back into
+    the same buffers in place.  The port's counterpart of
+    ``jaxsim._chunk_jit``.
+
+    With ``graph`` (CUDA only) the first block runs eagerly on a side
+    stream (it builds and loads the kernel library, warms the allocator
+    and is the chunk's first block), then one block is captured as a CUDA
+    graph, and every later block, in this chunk and the next ones, replays
+    it.  The graph reads its inputs by address: the trace, the state, the
+    per-trace constants and the statics all live as long as the runner.
+    ``fluid_step_core_cuda.launches`` advances at capture, not at replay,
+    so the runner takes back the launches the capture added and adds them
+    once per replay.  A capture or replay that fails raises.
+    """
+
+    def __init__(self, trace, state, cfg: FluidSimConfig, k: _Statics, *,
+                 block: int = BLOCK_TICKS, graph: bool = False) -> None:
+        if block < 1 or cfg.chunk_steps % block:
+            raise ValueError(f"block of {block} ticks does not divide chunk_steps "
+                             f"{cfg.chunk_steps}")
+        if graph and trace["arrival"].device.type != "cuda":
+            raise ValueError("a CUDA graph needs the simulation on a CUDA device")
+        self.trace, self.state, self.cfg, self.k = trace, state, cfg, k
+        self.block, self.use_graph = block, graph
+        self.c = _trace_consts(trace, cfg, k.inv_dt)
+        self.n_jobs = int(trace["arrival"].shape[1])
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches_per_replay = 0
+        #: seconds of the eager first block, of recording the captured
+        #: block, and of ending the capture (graph instantiation)
+        self.timing: Dict[str, float] = {}
+
+    def _block(self) -> None:
+        st = self.state
+        for _ in range(self.block):
+            st = _live_tick(self.trace, self.c, st, self.k, self.cfg, self.n_jobs)
+        for name, v in st.items():
+            self.state[name].copy_(v)
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._block()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        before = fluid_step_core_cuda.launches
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._block()
+            t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        self.launches_per_replay = fluid_step_core_cuda.launches - before
+        fluid_step_core_cuda.launches = before  # nothing ran at capture
+        self.timing = {"warmup_s": t1 - t0, "capture_s": t2 - t1,
+                       "instantiate_s": time.perf_counter() - t2}
+
+    def run_chunk(self) -> Dict[str, torch.Tensor]:
+        n_blocks = self.cfg.chunk_steps // self.block
+        if not self.use_graph:
+            for _ in range(n_blocks):
+                self._block()
+            return self.state
+        if self.graph is None:
+            self._capture()  # the eager warm-up block is this chunk's first
+            n_blocks -= 1
+        for _ in range(n_blocks):
+            self.graph.replay()
+            fluid_step_core_cuda.launches += self.launches_per_replay
+        return self.state
+
+    def release(self) -> None:
+        """Free the graph and its memory pool."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+
+
+def _lane_chunk(trace, state, cfg: FluidSimConfig, statics: Optional[_Statics] = None,
+                block: int = BLOCK_TICKS):
+    """``cfg.chunk_steps`` ticks of every lane, run eagerly as blocks of
+    ``block`` ticks over copies of ``state`` (left as it was); returns the
+    new state."""
     k = statics if statics is not None else _Statics(cfg, trace["arrival"].device)
-    c = _trace_consts(trace, cfg, k.inv_dt)
-    n_jobs = trace["arrival"].shape[1]
-    for _ in range(cfg.chunk_steps):
-        live = (state["n_done"] < n_jobs) & (state["i"] < cfg.max_steps)
-        by_rank = (live, live[:, None], live[:, None, None])
-        new = _lane_step(trace, c, state, k, cfg)
-        state = {
-            name: torch.where(by_rank[v.dim() - 1], v, state[name])
-            for name, v in new.items()
-        }
-    return state
+    state = {name: v.clone() for name, v in state.items()}
+    return _ChunkRunner(trace, state, cfg, k, block=math.gcd(block, cfg.chunk_steps)).run_chunk()
 
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def _drive_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig) -> Dict[str, object]:
+def _drive_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig, *,
+                   graph: Optional[bool] = None) -> Dict[str, object]:
     """Host driver: chunks with early exit and (``cfg.compact``) lane/job
     compaction, as the reference's ``_drive_batched``.  Returns numpy
-    result planes shaped like the input batch and the number of chunks."""
+    result planes shaped like the input batch, the number of chunks, and
+    per batch shape the seconds its graph capture took (``captures``).
+
+    ``graph`` is for the tests and chip_smoke.py: None (the default)
+    replays each chunk's blocks from a CUDA graph on the card and runs them
+    eagerly on the CPU; False runs them eagerly on the card too; True on
+    the CPU raises."""
     device = traces["arrival"].device
+    if graph is None:
+        graph = device.type == "cuda"
+    elif graph and device.type != "cuda":
+        raise ValueError("graph=True needs the simulation on a CUDA device")
     n_lanes0, n_jobs0 = traces["arrival"].shape
     if "valid" not in traces:
         traces = dict(traces)
@@ -416,11 +530,17 @@ def _drive_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig) -> Dict
         "makespan": np.zeros((n_lanes0,), np.float32),
     }
     k = _Statics(cfg, device)
+    block = math.gcd(BLOCK_TICKS, cfg.chunk_steps)
     orig = np.arange(n_lanes0)  # current lane -> original row (-1 = retired)
     state = _init_lane_state(traces, cfg, k.n_domains)
+    runner = _ChunkRunner(traces, state, cfg, k, block=block, graph=graph)
+    captures = []
     chunks = 0
     while True:
-        state = _lane_chunk(traces, state, cfg, k)
+        fresh = runner.graph is None
+        state = runner.run_chunk()
+        if fresh and runner.timing:
+            captures.append({"lanes": len(orig), "jobs": runner.n_jobs, **runner.timing})
         chunks += 1
         n_jobs_cur = int(traces["arrival"].shape[1])
         n_done, tick = torch.stack([state["n_done"], state["i"]]).cpu().numpy()
@@ -472,7 +592,13 @@ def _drive_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig) -> Dict
         }
         state["n_done"] = (state["phase"] == DONE).sum(1, dtype=_I32)
         orig = np.concatenate([orig[live], np.full(lanes_new - n_live, -1, orig.dtype)])
+        # the new shape's buffers, and a new capture; the old graph and
+        # its memory pool go
+        runner.release()
+        runner = _ChunkRunner(traces, state, cfg, k, block=block, graph=graph)
+    runner.release()
     results["chunks"] = chunks
+    results["captures"] = captures
     return results
 
 
@@ -482,18 +608,21 @@ def _check_monolithic(traces: Dict[str, object]) -> None:
         raise NotImplementedError(f"WFBP multi-bucket traces are {_NOT_PORTED}")
 
 
-def simulate_traces_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig):
+def simulate_traces_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig, *,
+                            _graph: Optional[bool] = None):
     """Simulate a stacked batch of traces (leading axis = seed, see
     :func:`stack_traces`) on ``cfg.device``.  Returns numpy ``jct`` and
-    ``finished`` ``(L, J)``, ``makespan`` ``(L,)`` and the number of
-    ``chunks`` the driver ran."""
+    ``finished`` ``(L, J)``, ``makespan`` ``(L,)``, the number of
+    ``chunks`` the driver ran and the graph ``captures``.  On the card each
+    chunk is replayed from a CUDA graph; ``_graph=False`` (for the tests
+    and chip_smoke.py) runs it eagerly, see :func:`_drive_batched`."""
     _check_monolithic(traces)
     device = resolve_device(cfg.device)
     traces = {
         name: torch.as_tensor(v).to(device)
         for name, v in traces.items() if name not in ("bucket_bytes", "n_buckets")
     }
-    return _drive_batched(traces, cfg)
+    return _drive_batched(traces, cfg, graph=_graph)
 
 
 def simulate_trace(trace: Dict[str, torch.Tensor], cfg: FluidSimConfig):

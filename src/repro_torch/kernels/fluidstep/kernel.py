@@ -7,8 +7,10 @@ loaded with ``ctypes`` (:mod:`repro_torch.kernels.nvcc`), into the
 ``build/`` directory beside this module.
 
 :func:`fluid_step_core_cuda` launches the kernel on PyTorch's current
-stream, one CTA per lane, and counts its launches in
-``fluid_step_core_cuda.launches``.
+stream, one CTA of 512 threads per lane, and counts its launches in
+``fluid_step_core_cuda.launches``.  :func:`empty_launch` launches an empty
+kernel on the same grid: its time in a CUDA graph is the card's launch
+floor, what no kernel of a tick can go below.
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    lib.fluid_step_empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.fluid_step_empty_launch.restype = ctypes.c_int
+    lib.fluid_step_core_max_jobs.argtypes = []
+    lib.fluid_step_core_max_jobs.restype = ctypes.c_int
 
 
 #: ``--fmad=false``: the kernel keeps the plain version's rounding of every
@@ -75,6 +81,10 @@ def fluid_step_core_cuda(loads, member, active, rem, bw, oversub, *,
     check_tensor("oversub", oversub, torch.float32, (n_domains,), device)
 
     lib = build()
+    max_jobs = lib.fluid_step_core_max_jobs()
+    if n_jobs > max_jobs:
+        raise ValueError(f"the CUDA kernel keeps a lane's jobs in shared memory: at most "
+                         f"{max_jobs} jobs, got {n_jobs}")
     # two output buffers, split into contiguous views
     floats = torch.empty((3, n_lanes, n_jobs), dtype=torch.float32, device=device)
     ints = torch.empty(n_lanes * (n_domains + n_jobs), dtype=torch.int32, device=device)
@@ -111,3 +121,13 @@ def fluid_step_core_cuda(loads, member, active, rem, bw, oversub, *,
 
 #: Launches of the kernel in this process (reset by setting it to 0).
 fluid_step_core_cuda.launches = 0
+
+
+def empty_launch(n_lanes: int, device) -> None:
+    """Launch the empty kernel on the fluid step's grid (``n_lanes`` CTAs
+    of 512 threads) on the current stream; raises if the launch fails.
+    Not counted in ``fluid_step_core_cuda.launches``."""
+    err = build().fluid_step_empty_launch(
+        n_lanes, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")

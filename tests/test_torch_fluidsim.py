@@ -10,6 +10,9 @@
   ``iters_left`` exact, ``rem`` to round-off (``rtol=1e-6, atol=1e-7``
   seconds: the reference's fused CPU graph contracts some multiply-adds
   into FMAs, the port rounds each operation).
+* Block runner: a chunk run as ``chunk_steps / g`` blocks of ``g`` ticks
+  over persistent buffers (the eager form of the CUDA graph the card
+  replays) is bit-equal, leaf by leaf, to the plain tick loop.
 The QUICK-size lockstep cells and the end-to-end runs are in
 ``test_torch_fluidsim_e2e.py``.
 """
@@ -23,7 +26,7 @@ from repro.core import jaxsim
 import repro_torch.scenarios as P
 from repro_torch.core import fluidsim
 
-from _torch_parity import lockstep, np_tree
+from _torch_parity import CPU, lockstep, np_tree
 
 torch.set_num_threads(1)
 
@@ -111,3 +114,76 @@ class TestOutOfSlice:
         )
         with pytest.raises(RuntimeError, match="CUDA"):
             fluidsim.simulate_traces_batched(tr, fluidsim.FluidSimConfig(n_servers=4))
+
+
+def _plain_chunk(trace, state, cfg, k):
+    """The chunk as one plain loop of ``chunk_steps`` ticks with the live
+    freeze, written out here independently of the block runner."""
+    c = fluidsim._trace_consts(trace, cfg, k.inv_dt)
+    n_jobs = trace["arrival"].shape[1]
+    for _ in range(cfg.chunk_steps):
+        live = (state["n_done"] < n_jobs) & (state["i"] < cfg.max_steps)
+        by_rank = (live, live[:, None], live[:, None, None])
+        new = fluidsim._lane_step(trace, c, state, k, cfg)
+        state = {name: torch.where(by_rank[v.dim() - 1], v, state[name])
+                 for name, v in new.items()}
+    return state
+
+
+class TestBlockRunner:
+    @pytest.mark.parametrize("block", [1, 8, 256])
+    @pytest.mark.parametrize(
+        "name, comm, placement",
+        [("paper", "ada", "lwf"), ("contended_residue", "srsf2", "ls"),
+         ("oversub_fabric", "srsf1", "rack_pack")],
+    )
+    def test_blocks_match_plain_loop(self, name, comm, placement, block):
+        scns = [P.get_scenario(name, seed=s, **P.QUICK_OVERRIDES[name]) for s in (0, 1)]
+        cfg = P.fluid_config(scns[0], comm=comm, placement=placement, device="cpu")
+        assert cfg.chunk_steps == 256
+        trace = fluidsim.stack_traces(
+            [fluidsim.trace_from_jobs(s.job_list(), device="cpu") for s in scns])
+        k = fluidsim._Statics(cfg, CPU)
+        want = fluidsim._init_lane_state(trace, cfg, k.n_domains)
+        buffers = {n: v.clone() for n, v in want.items()}
+        runner = fluidsim._ChunkRunner(trace, buffers, cfg, k, block=block)
+        ptrs = {n: v.data_ptr() for n, v in buffers.items()}
+        for chunk in range(2):
+            want = _plain_chunk(trace, want, cfg, k)
+            got = runner.run_chunk()
+            assert got is buffers
+            assert {n: v.data_ptr() for n, v in got.items()} == ptrs, "written in place"
+            for n, v in want.items():
+                assert got[n].dtype == v.dtype, n
+                np.testing.assert_array_equal(got[n].numpy(), v.numpy(),
+                                              err_msg=f"chunk {chunk + 1}: {n}")
+        assert int(want["i"].min()) > 256, "the chunks ran past the start"
+
+    def test_lane_chunk_leaves_its_input(self):
+        scn = P.get_scenario("smoke")
+        cfg = P.fluid_config(scn, comm="ada", placement="lwf", device="cpu", chunk_steps=24)
+        trace = fluidsim.stack_traces([fluidsim.trace_from_jobs(scn.job_list(), device="cpu")])
+        k = fluidsim._Statics(cfg, CPU)
+        state = fluidsim._init_lane_state(trace, cfg, k.n_domains)
+        before = fluidsim.to_numpy(state)
+        got = fluidsim._lane_chunk(trace, state, cfg, k)  # blocks of gcd(BLOCK_TICKS, 24)
+        want = _plain_chunk(trace, state, cfg, k)
+        for n, v in before.items():
+            np.testing.assert_array_equal(state[n].numpy(), v, err_msg=n)
+            np.testing.assert_array_equal(got[n].numpy(), want[n].numpy(), err_msg=n)
+
+    def test_graph_and_block_options(self):
+        scn = P.get_scenario("smoke")
+        cfg = P.fluid_config(scn, comm="ada", placement="lwf", device="cpu")
+        trace = fluidsim.stack_traces([fluidsim.trace_from_jobs(scn.job_list(), device="cpu")])
+        k = fluidsim._Statics(cfg, CPU)
+        state = fluidsim._init_lane_state(trace, cfg, k.n_domains)
+        with pytest.raises(ValueError, match="divide"):
+            fluidsim._ChunkRunner(trace, state, cfg, k, block=48)
+        with pytest.raises(ValueError, match="CUDA"):
+            fluidsim._ChunkRunner(trace, state, cfg, k, graph=True)
+        with pytest.raises(ValueError, match="CUDA"):
+            fluidsim.simulate_traces_batched(trace, cfg, _graph=True)
+        eager = fluidsim.simulate_traces_batched(trace, cfg)
+        assert eager["captures"] == []
+        assert eager["finished"].all()

@@ -192,6 +192,37 @@ class TestHygiene:
         assert out.returncode != 0
         assert "needs an NVIDIA GPU" in out.stderr
 
+    def test_fluid_step_ab_imports_no_jax_and_fails_without_cuda(self):
+        if torch.cuda.is_available():
+            pytest.skip("CUDA present: the script is meant to run here")
+        code = (
+            "import sys\n"
+            "sys.path[:0] = ['scripts', '.']\n"
+            "import chip_smoke, fluid_step_ab\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        out = _run(["-c", code], REPO, {"PYTHONPATH": ""})
+        assert out.returncode == 0, out.stdout + out.stderr
+        out = _run(["scripts/fluid_step_ab.py", "--baseline", "missing.cu"], REPO)
+        assert out.returncode != 0
+        assert "needs an NVIDIA GPU" in out.stderr
+
+    def test_fluid_step_probe_marks_every_phase(self):
+        """The probe of ``scripts/fluid_step_ab.py`` finds each phase marker
+        of the kernel's source once (it raises otherwise)."""
+        sys.path.insert(0, str(REPO / "scripts"))
+        try:
+            import fluid_step_ab
+        finally:
+            sys.path.remove(str(REPO / "scripts"))
+        src = (REPO / "src/repro_torch/kernels/fluidstep/csrc/fluid_step.cu").read_text()
+        probed = fluid_step_ab.probed_source(src)
+        assert probed.count("g_fluid_probe[blockIdx.x]") == len(fluid_step_ab.PROBE_PHASES) + 1
+        assert 'extern "C" int fluid_probe_read' in probed
+        with pytest.raises(RuntimeError, match="marker"):
+            fluid_step_ab.probed_source(src.replace("// ---- 2. ", "// 2. "))
+
     def test_chip_smoke_fails_without_cuda(self, tmp_path):
         if torch.cuda.is_available():
             pytest.skip("CUDA present: chip_smoke.py is meant to run here")
