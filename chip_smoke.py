@@ -45,23 +45,33 @@ Phases (any failed check raises, so the exit code is non-zero):
    profiler, device idle share; before that, blocks of 8, 16, 32 and 256
    ticks: capture and instantiation seconds against wall per tick;
 8. the SSD decode-step kernel against its plain PyTorch version on the
-   card over ``tests/test_kernels.py``'s (B, H, P, N) sweep plus the serve
-   shapes (8 and 64, 24, 64, 128), float32 and bfloat16, at the JAX suite's
-   bars (y within 3 x tol_for, state 1e-4), max abs error printed; then
-   both timed with CUDA events at B 8 and B 64, states rotated so that
-   each call finds its state cold in L2, beside the bound;
+   card over ``tests/test_kernels.py``'s (B, H, P, N) sweep, P 24 and 40
+   (not multiples of the kernel's 16 rows per CTA) and the serve shapes
+   (8 and 64, 24, 64, 128), float32 and bfloat16, at the JAX suite's bars
+   (y within 3 x tol_for, state 1e-4), max abs error printed, and in place
+   (``out=state``, as the decode step calls it) bit-equal to out of place;
+   then the kernel in place and out of place, its plain version and an
+   empty kernel on the kernel's grid (the launch floor) timed with CUDA
+   events at B 8 and B 64, states rotated so that each call finds its
+   state cold in L2, beside the bound and the kernel's time before its
+   redesign;
 9. the serving main path, with the SSD launch count reset just before it:
    ``repro_torch.launch.serve.serve_batch`` at full-width mamba2-130m,
-   batch 8, prompt 512, 64 new tokens, greedy, bf16 (prefill and decode
-   tok/s, ms per decode step); exactly 24 x 63 = 1,512 launches, every
-   token in the vocab, finite logits;
-10. from the same prefill cache, decode teacher-forced over those tokens
-    with the kernel and with the plain step on the card: every step's
-    logits within the bf16 bar (0.15), top-1 agreement printed;
+   batch 8, prompt 512, 64 new tokens, greedy, bf16, each decode step
+   replayed from a CUDA graph (prefill and decode tok/s, ms per decode
+   step, capture seconds); exactly 24 x 63 = 1,512 launches counted over
+   the replays, every token in the vocab, finite logits; then the same
+   batch decoded eagerly (``_graph=False``): identical tokens;
+10. from copies of one prefill cache (a decode step updates its cache in
+    place), decode teacher-forced over those tokens with the kernel and
+    with the plain step on the card: every step's logits within the bf16
+    bar (0.15), top-1 agreement printed;
 11. the reduced config in float32 with the plain path, on the card and on
     the CPU: identical generated tokens;
-12. one decode step: wall, device time (profiler), the SSD kernel's share,
-    device kernels, device idle share;
+12. decode steps through the CUDA graph and eagerly, in turns: wall per
+    step, then one step under the profiler: device time, the SSD kernel's
+    share, device kernels, device idle share, and the graph's capture
+    seconds;
 13. the flash-attention kernel against its plain PyTorch version on the
     card over ``tests/test_kernels.py::TestFlashAttention``'s shapes (slow
     ones included), causal attention with S != T both ways (also not
@@ -76,8 +86,10 @@ Phases (any failed check raises, so the exit code is non-zero):
 15. the dense serving main path, with the flash launch count reset just
     before it: ``serve_batch`` at full-width llama3.2-1b (random weights
     from seed 0, their making timed), batch 8, prompt 512, 64 new tokens,
-    greedy, bf16; exactly 16 flash launches (one per layer in prefill;
-    decode runs none), every token in the vocab, finite logits;
+    greedy, bf16, each decode step replayed from a CUDA graph; exactly 16
+    flash launches (one per layer in prefill; decode runs none), every
+    token in the vocab, finite logits; then decoded eagerly: identical
+    tokens;
 16. the kernel against the plain attention inside the model on the card:
     at full width, each layer's attention from the same input (along the
     plain path's residual stream), and end to end on the reduced config in
@@ -88,9 +100,9 @@ Phases (any failed check raises, so the exit code is non-zero):
     the served ones;
 17. llama's reduced config in float32 with the plain path, on the card and
     on the CPU: identical generated tokens;
-18. one full-width prefill and one decode step under the profiler: wall,
-    device time, the flash kernel's share, device kernels, device idle
-    share.
+18. one full-width prefill under the profiler (wall, device time, the
+    flash kernel's share, device kernels, device idle share), then decode
+    steps through the CUDA graph and eagerly as in phase 12.
 
 Then the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -257,10 +269,14 @@ def _paper_batch(comm: str, impl: str, entry: str, graph: bool = True) -> dict:
 # The SSD decode-step kernel and the serving path (mamba2-130m)
 # ---------------------------------------------------------------------------
 
-#: tests/test_kernels.py's (b, h, p, n) sweep plus the serve shapes (B 8 and
-#: 64 at mamba2-130m's H 24, P 64, N 128)
+#: tests/test_kernels.py's (b, h, p, n) sweep, P that is not a multiple of
+#: the kernel's 16 rows per CTA at N 128, and the serve shapes (B 8 and 64 at
+#: mamba2-130m's H 24, P 64, N 128)
 SSD_SWEEP = [(2, 8, 64, 128), (2, 6, 16, 32), (3, 12, 32, 64), (1, 24, 64, 128),
-             (8, 24, 64, 128), (64, 24, 64, 128)]
+             (2, 4, 24, 128), (3, 5, 40, 128), (8, 24, 64, 128), (64, 24, 64, 128)]
+#: the SSD kernel before its redesign (one CTA per (b, h)), in a CUDA graph on
+#: an H100 80GB HBM3 at 700 W (PERF.md): ms per call at B 8 and 64
+SSD_BEFORE_MS = {8: 0.009024, 64: 0.043024}
 SSD_ORDER = ("x", "dt", "a", "b", "c", "d", "state")
 #: the main path: full-width mamba2-130m, batch 8, prompt 512, 64 new tokens
 SERVE = dict(batch=8, prompt_len=512, gen=64, seed=0)
@@ -302,9 +318,11 @@ def _ssd_bound(b, h, p, n, elt):
 
 def _ssd_kernel_phase(torch, dev) -> dict:
     """Phase 8: the kernel against its plain version over the sweep
-    (f32 and bf16), then both timed at B 8 and B 64.  Returns the kernels
-    line's entry (launches are filled in by the serving phase)."""
+    (f32 and bf16), out of place and in place, then both timed at B 8 and
+    B 64 beside the launch floor.  Returns the kernels line's entry
+    (launches are filled in by the serving phase)."""
     from repro_torch.kernels.ssd import ssd_decode_step
+    from repro_torch.kernels.ssd.kernel import empty_launch
 
     # ---- 8. kernel vs plain version -----------------------------------------
     max_abs = 0.0
@@ -318,6 +336,12 @@ def _ssd_kernel_phase(torch, dev) -> dict:
             torch.cuda.synchronize()
             _require(torch.equal(t["state"], state_in), "the SSD state is updated out of place")
             _require(y.dtype == dtype and s.dtype == torch.float32, "SSD output dtypes")
+            # in place, as the decode step calls it: bit-equal to out of place
+            st = t["state"].clone()
+            y_in, s_in = ssd_decode_step(*(t[k] for k in SSD_ORDER[:-1]), st, out=st)
+            torch.cuda.synchronize()
+            _require(s_in is st and torch.equal(y_in, y) and torch.equal(s_in, s),
+                     f"SSD in place == out of place at {(b, h, p, n)} {name}")
             err_y = float((y.float() - y_ref.float()).abs().max())
             err_s = float((s - s_ref).abs().max())
             # y's error in ulps of the working dtype at |y| + |x*d| (the
@@ -329,22 +353,35 @@ def _ssd_kernel_phase(torch, dev) -> dict:
             ok_y = bool(((y.float() - y_ref.float()).abs() <= tol + tol * y_ref.float().abs()).all())
             ok_s = bool(((s - s_ref).abs() <= 1e-4 + 1e-4 * s_ref.abs()).all())
             _log(f"ssd parity B={b} H={h} P={p} N={n} {name}: max abs err y {err_y} "
-                 f"({ulps_y:.3f} {name} ulps), state {err_s}")
+                 f"({ulps_y:.3f} {name} ulps), state {err_s}; in place bit-equal")
             _require(ok_y and ok_s, f"SSD kernel vs plain at {(b, h, p, n)} {name}")
             max_abs = max(max_abs, err_y, err_s)
 
-    # ---- 8. timing (plain, kernel, kernel, plain), states cold in L2 ---------
+    # ---- 8. timing, states cold in L2 ------------------------------------
     def _time(impl, graph, t, states, reps):
         """ms per call over rotating states: in a CUDA graph (device time)
-        or eagerly (what a decode step pays, host launch included)."""
+        or eagerly (what a decode step pays, host launch included).  impl
+        "cuda" is the kernel in place (the decode step's call), "cuda
+        out of place" the call the kernel's earlier design was timed with
+        (its output buffer reused, so the writes stay in L2), "ref" the
+        plain version out of place, "empty" the empty kernel on the
+        kernel's grid (the launch floor)."""
         others = [t[k] for k in SSD_ORDER[:-1]]
+        b, h, p, n = t["state"].shape
 
         def run():
             for st in states:
-                ssd_decode_step(*others, st, impl=impl)
+                if impl == "empty":
+                    empty_launch(b, h, p, n, dev)
+                elif impl == "cuda":
+                    ssd_decode_step(*others, st, out=st)
+                else:
+                    ssd_decode_step(*others, st, impl="cuda" if impl != "ref" else "ref")
         return _cuda_ms(torch, run, graph, reps) / len(states)
 
     entry = {}
+    order = ("ref", "cuda", "cuda out of place", "empty", "empty", "cuda out of place", "cuda",
+             "ref")
     for b in (8, 64):
         h, p, n = 24, 64, 128
         t = _ssd_inputs(torch, b, b, h, p, n, torch.bfloat16, dev)
@@ -352,20 +389,26 @@ def _ssd_kernel_phase(torch, dev) -> dict:
         states = [t["state"].clone() for _ in range(k)]
         reps = max(4, 640 // k)
         timings = {}
-        for impl in ("ref", "cuda", "cuda", "ref"):
+        for impl in order:
             for graph in (True, False):
                 timings.setdefault((impl, graph), []).append(_time(impl, graph, t, states, reps))
         del states
         bound_ms, bound_by, nbytes, ops = _ssd_bound(b, h, p, n, 2)
-        kernel_ms = min(timings[("cuda", True)])
-        plain_ms = min(timings[("ref", True)])
+        best = {impl: min(timings[(impl, True)]) for impl in set(order)}
+        kernel_ms, plain_ms, floor_ms = best["cuda"], best["ref"], best["empty"]
         _log(f"ssd timing B={b} H={h} P={p} N={n} bf16 ({k} states rotated, ms per call, "
-             f"plain/kernel/kernel/plain): device time in a CUDA graph: kernel "
-             f"{timings[('cuda', True)]}, plain {timings[('ref', True)]}; eager (host "
-             f"launch included): kernel {timings[('cuda', False)]}, plain "
-             f"{timings[('ref', False)]}; bound {bound_ms:.8f} ms ({bound_by}: {nbytes} B, "
-             f"{ops} ops), share of bound reached {bound_ms / kernel_ms:.4f}; no single "
-             f"PyTorch call computes this function")
+             f"in the order {'/'.join(order)}): device time in a CUDA graph: kernel in place "
+             f"{timings[('cuda', True)]}, kernel out of place "
+             f"{timings[('cuda out of place', True)]}, plain {timings[('ref', True)]}, empty "
+             f"kernel on the kernel's grid (launch floor) {timings[('empty', True)]}; eager "
+             f"(host launch included): kernel in place {timings[('cuda', False)]}, out of place "
+             f"{timings[('cuda out of place', False)]}, plain {timings[('ref', False)]}, empty "
+             f"{timings[('empty', False)]}; bound {bound_ms:.8f} ms ({bound_by}: {nbytes} B, "
+             f"{ops} ops), share of bound reached {bound_ms / kernel_ms:.4f} in place, "
+             f"{bound_ms / best['cuda out of place']:.4f} out of place; kernel / launch floor "
+             f"{kernel_ms / floor_ms:.4f}; the kernel before its redesign "
+             f"{SSD_BEFORE_MS[b]} ms ({bound_ms / SSD_BEFORE_MS[b]:.4f} of the bound); no "
+             f"single PyTorch call computes this function")
         if b == SERVE["batch"]:
             entry = {
                 "name": "ssd_decode_step",
@@ -381,6 +424,94 @@ def _ssd_kernel_phase(torch, dev) -> dict:
                 "library_ms": None,
             }
     return entry
+
+
+def _clone(tree):
+    """A copy of a cache: a decode step updates its cache in place."""
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def _serve_both(torch, tag, cfg, params, counter) -> dict:
+    """The serving main path through ``serve_batch`` (batch 8, prompt 512,
+    64 new tokens): with the decode step replayed from its CUDA graph (the
+    main path; ``counter.launches`` reset just before it and read just
+    after), then eagerly (``_graph=False``), whose tokens must be
+    identical.  Returns the graph run's dict with ``launches`` added."""
+    from repro_torch.launch.serve import serve_batch
+
+    bsz, plen, gen, seed = (SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
+    counter.launches = 0
+    res = serve_batch(cfg, bsz, plen, gen, seed, params=params)
+    res["launches"] = counter.launches
+    torch.cuda.synchronize()
+    eager = serve_batch(cfg, bsz, plen, gen, seed, params=params, _graph=False)
+    for mode, r in (("CUDA graph", res), ("eager", eager)):
+        _log(f"serve {tag} main path, decode {mode} (batch {bsz}, prompt {plen}, gen {gen}, "
+             f"greedy, bf16): prefill {r['prefill_s']:.4f} s = {r['prefill_tok_per_s']:.1f} "
+             f"tok/s; decode {r['decode_s']:.4f} s = {r['decode_tok_per_s']:.1f} tok/s, "
+             f"{r['decode_s'] / (gen - 1) * 1e3:.4f} ms per decode step (graph recording and "
+             f"instantiation {r['capture_s']:.4f} s of it)")
+    _require(bool((res["generated"] == eager["generated"]).all()),
+             f"{tag}: tokens through the decode graph == eager tokens")
+    diff = float((res["logits"].float() - eager["logits"].float()).abs().max())
+    _log(f"serve {tag}: tokens through the decode graph identical to the eager run; max abs "
+         f"logit difference {diff}; decode speed-up {eager['decode_s'] / res['decode_s']:.3f}x")
+    _log(f"serve sample tokens: {res['generated'][0][:16].tolist()}")
+    return res
+
+
+def _decode_modes(torch, tag, lm, params, cache0, tok, flags, key, expect_key) -> None:
+    """Phases 12 and 18: decode steps through the runner's CUDA graph and
+    eagerly, from copies of one prefill cache, each mode's steps greedy
+    from ``tok``: wall per step (3 rounds of 10, modes in turns), then one
+    step under the profiler: device time, kernels and copies per step, the
+    share of the kernels whose name holds ``key`` (there must be some iff
+    ``expect_key``), device idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import _DecodeRunner
+    from repro_torch.launch.steps import make_serve_step
+
+    decode = make_serve_step(lm, flags)
+    runners, walls = {}, {}
+    with torch.no_grad():
+        for mode in ("graph", "eager"):
+            runners[mode] = _DecodeRunner(decode, params, _clone(cache0), tok,
+                                          graph=mode == "graph")
+            runners[mode].step()  # the first step (and, for the graph, its capture)
+        for rnd in range(3):
+            for mode in (("graph", "eager") if rnd % 2 == 0 else ("eager", "graph")):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(10):
+                    runners[mode].step()
+                torch.cuda.synchronize()
+                walls.setdefault(mode, []).append((time.perf_counter() - t1) / 10 * 1e3)
+        for mode, r in runners.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                r.step()
+                torch.cuda.synchronize()
+            on_device = [e for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+            device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+            key_ms = sum(e.self_device_time_total for e in on_device if key in e.key) / 1e3
+            n_kernels = sum(e.count for e in on_device)
+            _require(device_ms > 0, f"the profiler saw the {tag} decode step's device time "
+                     f"({mode})")
+            _require((key_ms > 0) == expect_key, f"{key} kernel time in the {tag} decode step")
+            cap = (f"; capture: eager first step {r.timing['warmup_s']:.4f} s, recording "
+                   f"{r.timing['capture_s']:.4f} s, instantiation "
+                   f"{r.timing['instantiate_s']:.4f} s" if mode == "graph" else "")
+            _log(f"{tag} decode step, {mode} (batch {SERVE['batch']}, full width): wall "
+                 f"{walls[mode]} ms; device time {device_ms:.4f} ms in {n_kernels} kernels and "
+                 f"copies, of which {key} {key_ms:.4f} ms ({key_ms / device_ms:.4f}); device "
+                 f"idle share {1 - device_ms / min(walls[mode]):.4f}{cap}")
+            top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
+            for e in top:
+                _log(f"  {e.key[:80]}: {e.count} x, {e.self_device_time_total / 1e3:.4f} ms")
+            r.release()
 
 
 def _serve_phases(torch, dev) -> int:
@@ -410,19 +541,12 @@ def _serve_phases(torch, dev) -> int:
     warm = serve_batch(cfg, bsz, plen, 2, seed, params=params)  # cuBLAS, allocator
     _log(f"serve warm-up (gen 2): prefill {warm['prefill_s']:.4f} s")
 
-    # ---- 9. the main path -----------------------------------------------
-    ssd_decode_step_cuda.launches = 0
-    res = serve_batch(cfg, bsz, plen, gen, seed, params=params)
-    launches = ssd_decode_step_cuda.launches
-    torch.cuda.synchronize()
+    # ---- 9. the main path, through the decode graph; then eagerly ----------
+    res = _serve_both(torch, cfg.name, cfg, params, ssd_decode_step_cuda)
+    launches = res["launches"]
     generated, logits = res["generated"], res["logits"]
-    ms_step = res["decode_s"] / (gen - 1) * 1e3
-    _log(f"serve main path (batch {bsz}, prompt {plen}, gen {gen}, greedy, bf16): prefill "
-         f"{res['prefill_s']:.4f} s = {res['prefill_tok_per_s']:.1f} tok/s; decode "
-         f"{res['decode_s']:.4f} s = {res['decode_tok_per_s']:.1f} tok/s, {ms_step:.4f} ms "
-         f"per decode step; ssd kernel launches {launches} (expected "
+    _log(f"serve {cfg.name}: ssd kernel launches {launches} over the graph's replays (expected "
          f"{cfg.n_layers} x {gen - 1} = {cfg.n_layers * (gen - 1)})")
-    _log(f"serve sample tokens: {generated[0][:16].tolist()}")
     _require(launches == cfg.n_layers * (gen - 1), "one SSD launch per layer per decode token")
     _require(generated.shape == (bsz, gen), "generated shape")
     _require(((generated >= 0) & (generated < cfg.vocab_size)).all(), "tokens in the vocab")
@@ -439,7 +563,7 @@ def _serve_phases(torch, dev) -> int:
     with torch.no_grad():
         first, cache0 = make_prefill_step(lm, plen + gen, flags["cuda"])(params, {"tokens": tokens})
         steps = {impl: make_serve_step(lm, f) for impl, f in flags.items()}
-        caches = {impl: cache0 for impl in flags}
+        caches = {impl: _clone(cache0) for impl in flags}  # each step updates its own
         replay = float((first.float() - logits[:, 0].float()).abs().max())
         for i in range(gen - 1):
             tok = gen_t[:, i:i + 1]
@@ -467,37 +591,9 @@ def _serve_phases(torch, dev) -> int:
     _log(f"{red.name} f32, plain path, card vs CPU: identical generated tokens "
          f"{on_card['generated'].tolist()}, max abs logit difference {diff}")
 
-    # ---- 12. one decode step: wall, device time, idle share ----------------
-    from torch.profiler import ProfilerActivity, profile
-
-    step = steps["cuda"]
-    tok = gen_t[:, :1]
-    with torch.no_grad():
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            for _ in range(10):
-                step(params, cache0, tok)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t1) / 10 * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(params, cache0, tok)
-            torch.cuda.synchronize()
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    ssd_ms = sum(e.self_device_time_total for e in on_device if "ssd_step" in e.key) / 1e3
-    n_kernels = sum(e.count for e in on_device)
-    wall = min(walls)
-    _require(device_ms > 0 and ssd_ms > 0, "the profiler saw the decode step's device time")
-    _log(f"decode step profile (batch {bsz}, full width): wall {walls} ms; device time "
-         f"{device_ms:.4f} ms in {n_kernels} kernels and copies, of which the SSD kernel "
-         f"{ssd_ms:.4f} ms ({ssd_ms / device_ms:.4f}); device idle share "
-         f"{1 - device_ms / wall:.4f}")
-    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
-    for e in top:
-        _log(f"  {e.key[:80]}: {e.count} x, {e.self_device_time_total / 1e3:.4f} ms")
+    # ---- 12. decode steps: the graph against eager ---------------------------
+    _decode_modes(torch, cfg.name, lm, params, cache0, gen_t[:, :1], flags["cuda"], "ssd_step",
+                  True)
     return launches
 
 
@@ -667,19 +763,12 @@ def _dense_serve_phases(torch, dev) -> int:
     _log(f"serve warm-up (gen 2): prefill {warm['prefill_s']:.4f} s")
     del warm
 
-    # ---- 15. the main path ----------------------------------------------
-    flash_attention_cuda.launches = 0
-    res = serve_batch(cfg, bsz, plen, gen, seed, params=params)
-    launches = flash_attention_cuda.launches
-    torch.cuda.synchronize()
+    # ---- 15. the main path, through the decode graph; then eagerly ---------
+    res = _serve_both(torch, cfg.name, cfg, params, flash_attention_cuda)
+    launches = res["launches"]
     generated, logits = res["generated"], res["logits"]
-    ms_step = res["decode_s"] / (gen - 1) * 1e3
-    _log(f"serve main path (batch {bsz}, prompt {plen}, gen {gen}, greedy, bf16): prefill "
-         f"{res['prefill_s']:.4f} s = {res['prefill_tok_per_s']:.1f} tok/s; decode "
-         f"{res['decode_s']:.4f} s = {res['decode_tok_per_s']:.1f} tok/s, {ms_step:.4f} ms "
-         f"per decode step; flash kernel launches {launches} (expected one per layer in "
+    _log(f"serve {cfg.name}: flash kernel launches {launches} (expected one per layer in "
          f"prefill: {cfg.n_layers})")
-    _log(f"serve sample tokens: {generated[0][:16].tolist()}")
     _require(launches == cfg.n_layers, "one flash launch per layer in prefill, none in decode")
     _require(generated.shape == (bsz, gen), "generated shape")
     _require(((generated >= 0) & (generated < cfg.vocab_size)).all(), "tokens in the vocab")
@@ -810,43 +899,37 @@ def _dense_serve_phases(torch, dev) -> int:
     _log(f"{red.name} f32, plain path, card vs CPU: identical generated tokens "
          f"{on_card['generated'].tolist()}, max abs logit difference {diff}")
 
-    # ---- 18. one prefill and one decode step: wall, device time, idle share
+    # ---- 18. one prefill, then decode steps: the graph against eager --------
     from torch.profiler import ProfilerActivity, profile
 
     prefill = make_prefill_step(lm, plen + gen, flags["cuda"])
-    decode = make_serve_step(lm, flags["cuda"])
     with torch.no_grad():
         _, cache0 = prefill(params, {"tokens": tokens})
-    # decoding the same token from the same cache rewrites one slot with the
-    # same key and value, so the step can be repeated
-    for what, fn, reps in (("prefill", lambda: prefill(params, {"tokens": tokens}), 1),
-                           ("decode step", lambda: decode(params, cache0, gen_t[:, :1]), 10)):
-        with torch.no_grad():
-            walls = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t1) / reps * 1e3)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-        on_device = [e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-        flash_ms = sum(e.self_device_time_total for e in on_device if "flash_fwd" in e.key) / 1e3
-        n_kernels = sum(e.count for e in on_device)
-        _require(device_ms > 0, f"the profiler saw the {what}'s device time")
-        _require((flash_ms > 0) == (what == "prefill"), f"flash kernel time in the {what}")
-        _log(f"{what} profile (batch {bsz}, prompt {plen}, full width): wall {walls} ms; device "
-             f"time {device_ms:.4f} ms in {n_kernels} kernels and copies, of which the flash "
-             f"kernel {flash_ms:.4f} ms ({flash_ms / device_ms:.4f}); device idle share "
-             f"{1 - device_ms / min(walls):.4f}")
-        top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
-        for e in top:
-            _log(f"  {e.key[:80]}: {e.count} x, {e.self_device_time_total / 1e3:.4f} ms")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in on_device if "flash_fwd" in e.key) / 1e3
+    n_kernels = sum(e.count for e in on_device)
+    _require(device_ms > 0 and flash_ms > 0, "the profiler saw the prefill's flash kernel")
+    _log(f"prefill profile (batch {bsz}, prompt {plen}, full width): wall {walls} ms; device "
+         f"time {device_ms:.4f} ms in {n_kernels} kernels and copies, of which the flash "
+         f"kernel {flash_ms:.4f} ms ({flash_ms / device_ms:.4f}); device idle share "
+         f"{1 - device_ms / min(walls):.4f}")
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        _log(f"  {e.key[:80]}: {e.count} x, {e.self_device_time_total / 1e3:.4f} ms")
+    _decode_modes(torch, cfg.name, lm, params, cache0, gen_t[:, :1], flags["cuda"], "flash_fwd",
+                  False)
     return launches
 
 

@@ -17,13 +17,15 @@ from repro_torch.kernels.ssd.ref import ssd_decode_step_ref
 SSD_IMPLS = ("ref", "cuda")
 
 
-def ssd_decode_step(x, dt, a, b, c, d, state, *, impl: str = ""):
+def ssd_decode_step(x, dt, a, b, c, d, state, *, impl: str = "", out=None):
     """One Mamba-2 decode step with the ``D·x`` skip term: x (B,H,P),
     dt (B,H), a and d (H,), b and c (B,N), state (B,H,P,N) float32 ->
-    (y (B,H,P) in x's dtype, new state float32, out of place)."""
+    (y (B,H,P) in x's dtype, new state float32).  The new state is a new
+    tensor (the reference's functional semantics), or is written into
+    ``out`` when it is given: ``out=state`` updates the state in place."""
     impl = impl or ("cuda" if x.is_cuda else "ref")
     if impl not in SSD_IMPLS:
         raise ValueError(f"unknown SSD decode impl {impl!r}; expected one of {SSD_IMPLS}")
     if impl == "ref":
-        return ssd_decode_step_ref(x, dt, a, b, c, d, state)
-    return ssd_decode_step_cuda(x, dt, a, b, c, d, state)
+        return ssd_decode_step_ref(x, dt, a, b, c, d, state, out=out)
+    return ssd_decode_step_cuda(x, dt, a, b, c, d, state, out=out)

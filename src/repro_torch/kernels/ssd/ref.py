@@ -32,8 +32,11 @@ def ssd_step(
     return y.to(x1.dtype), new_state
 
 
-def ssd_decode_step_ref(x, dt, a, b, c, d, state):
-    """(y (B,H,P) in x's dtype, new state (B,H,P,N) float32)."""
+def ssd_decode_step_ref(x, dt, a, b, c, d, state, out=None):
+    """(y (B,H,P) in x's dtype, new state (B,H,P,N) float32); the new state
+    is copied into ``out`` when it is given (``out`` may be ``state``)."""
     y, new_state = ssd_step(x, dt, a, b, c, state)
     y = y + x * d[None, :, None].to(x.dtype)
+    if out is not None:
+        new_state = out.copy_(new_state)
     return y, new_state

@@ -7,7 +7,7 @@ functions of nested dicts of tensors:
 * ``schema()`` / ``init`` — the reference's parameter schema (same flat
   keys, so JAX-initialised weights carry across leaf by leaf);
 * ``prefill_fn`` — prompt pass producing last-token logits + the cache;
-* ``decode_fn`` — one-token serve step against the cache;
+* ``decode_fn`` — one-token serve step, updating the cache in place;
 * ``init_cache`` — ``{"pos", "layers": ...}``, each leaf stacked over
   layers, as the reference lays it out: ``{conv_x, conv_B, conv_C, state}``
   for ``ssm``, the ring-buffer KV cache ``{k, v}`` (L, B, window, KV, hd)
@@ -163,34 +163,37 @@ class LM:
 
     # -- decode ---------------------------------------------------------------
     def _decode_block(self, x, bp, bc, pos, flags: RunFlags):
+        """One layer of a decode step; writes its new state into ``bc``."""
         cfg = self.cfg
         if cfg.family == "dense":
             h = rms_norm(x, bp["attn_norm"])
-            y, kv = attn_mod.decode_attention(h, bp["attn"], bc, pos, cfg)
+            y, _ = attn_mod.decode_attention(h, bp["attn"], bc, pos, cfg)
             x = x + y
             h = rms_norm(x, bp["mlp_norm"])
-            return x + ffn_mod.mlp(h, bp["mlp"], cfg.act), kv
+            return x + ffn_mod.mlp(h, bp["mlp"], cfg.act)
         h = rms_norm(x, bp["norm"])
-        y, cache = ssm_mod.ssm_decode_step(h, bp["ssm"], bc, cfg, ssd_impl=flags.ssd_impl)
-        return x + y, cache
+        y, _ = ssm_mod.ssm_decode_step(h, bp["ssm"], bc, cfg, ssd_impl=flags.ssd_impl)
+        return x + y
 
     def decode_fn(self, params, cache, token, flags: RunFlags = RunFlags()):
         """One serve step.  token: (B, 1) int -> (logits (B, vocab), cache).
 
-        The dense family writes each layer's new key and value into
-        ``cache`` in place (the reference donates the cache), so the
-        returned cache shares its k and v tensors with the one passed in."""
+        The cache is donated, as the reference's server donates it
+        (``donate_argnums``): each layer writes its new state into its view
+        of the stacked cache (the new key and value for ``dense``, the conv
+        caches and the SSM state for ``ssm``) and ``pos`` advances in
+        place, so the returned cache is the one passed in.  A caller that
+        needs the old cache again clones it first.  Nothing here waits for
+        the host, so the step can be captured in a CUDA graph."""
         pos = cache["pos"]
         x = params["embed"][token.long()]
-        layers = []
         for i in range(self.n_blocks):
-            x, lc = self._decode_block(x, _layer(params["blocks"], i),
-                                       _layer(cache["layers"], i), pos, flags)
-            layers.append(lc)
+            x = self._decode_block(x, _layer(params["blocks"], i), _layer(cache["layers"], i),
+                                   pos, flags)
         x = rms_norm(x, params["final_norm"])
         logits = torch.einsum("bsd,vd->bsv", x, params["embed"])[:, 0, : self.cfg.vocab_size]
-        new_layers = cache["layers"] if self.cfg.family == "dense" else _stack(layers)
-        return logits, {"pos": pos + 1, "layers": new_layers}
+        pos.add_(1)
+        return logits, cache
 
     # -- prefill --------------------------------------------------------------
     def prefill_fn(self, params, batch: Dict[str, Any], max_seq: int,

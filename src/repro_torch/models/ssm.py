@@ -6,7 +6,7 @@ masked quadratic form, and chunk states are carried by a Python loop over
 chunks (the reference's ``lax.scan``).  Decode is the O(1) recurrent state
 update, which :func:`ssm_decode_step` hands to the SSD decode-step kernel
 (``repro_torch.kernels.ssd``): the CUDA kernel for CUDA tensors, its plain
-version for CPU tensors.
+version for CPU tensors; it updates the layer's cache in place.
 
 The recurrence (per head h, state size N, head dim P):
 
@@ -232,11 +232,14 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype = torch.bflo
 
 def ssm_decode_step(x1: torch.Tensor, params: Dict[str, torch.Tensor], cache,
                     cfg: ModelConfig, ssd_impl: str = "") -> Tuple[torch.Tensor, dict]:
-    """One-token decode.  x1: (B, 1, D) -> (y (B,1,D), new cache).
+    """One-token decode.  x1: (B, 1, D) -> (y (B,1,D), cache).
 
-    The SSD step with its ``D·x`` skip term is one call of
-    :func:`repro_torch.kernels.ssd.ssd_decode_step` (``ssd_impl`` as
-    there: "" lets the device decide)."""
+    The new conv caches and the new state are written into ``cache``'s own
+    tensors, which are returned (the reference's server donates the cache,
+    so its step updates it in place too).  The SSD step with its ``D·x``
+    skip term is one call of :func:`repro_torch.kernels.ssd.ssd_decode_step`
+    with ``out`` the cached state (``ssd_impl`` as there: "" lets the
+    device decide)."""
     bsz = x1.shape[0]
     h, p = cfg.ssm_n_heads, cfg.ssm_head_dim
     z, xs, bp, cp, dt = _in_proj(x1[:, 0, :], params)
@@ -244,15 +247,16 @@ def ssm_decode_step(x1: torch.Tensor, params: Dict[str, torch.Tensor], cache,
     xs, conv_x = conv_step(xs, cache["conv_x"], params["conv_x"], params["conv_bias_x"])
     bp, conv_b = conv_step(bp, cache["conv_B"], params["conv_B"], params["conv_bias_B"])
     cp, conv_c = conv_step(cp, cache["conv_C"], params["conv_C"], params["conv_bias_C"])
+    for name, new in (("conv_x", conv_x), ("conv_B", conv_b), ("conv_C", conv_c)):
+        cache[name].copy_(new)
     xs, bp, cp = silu(xs), silu(bp), silu(cp)
 
     a = -torch.exp(params["A_log"].to(torch.float32))
-    y, state = ssd_decode_step(
+    y, _ = ssd_decode_step(
         xs.reshape(bsz, h, p), dt.to(xs.dtype), a, bp, cp,
-        params["D"].to(x1.dtype), cache["state"], impl=ssd_impl,
+        params["D"].to(x1.dtype), cache["state"], impl=ssd_impl, out=cache["state"],
     )
     y = y.reshape(bsz, h * p)
     y = rms_norm(y * silu(z), params["norm"])
     out = (y @ params["out_proj"])[:, None, :]
-    new_cache = {"conv_x": conv_x, "conv_B": conv_b, "conv_C": conv_c, "state": state}
-    return out, new_cache
+    return out, cache

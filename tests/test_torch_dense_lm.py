@@ -274,12 +274,15 @@ class TestLM:
         jlm_, plm_ = jlm.LM(JCFG), plm.LM(CFG)
         _, jcache = jlm_.prefill_fn(jp, {"tokens": jt}, max_seq=S + 8, flags=FLAGS)
         _, pcache = plm_.prefill_fn(pp, {"tokens": tt}, max_seq=S + 8)
+        ptrs = {k: t.data_ptr() for k, t in pcommon.tree_leaves(pcache)}
         jdec = jax.jit(lambda p, c, t: jlm_.decode_fn(p, c, t, FLAGS))
         forced = np.random.default_rng(10).integers(0, CFG.vocab_size, (3, B, 1))
         for step in range(3):
             lj, jcache = jdec(jp, jcache, jnp.asarray(forced[step], jnp.int32))
             lt, pcache = plm_.decode_fn(pp, pcache, torch.from_numpy(forced[step]).int())
             assert tuple(lt.shape) == (B, CFG.vocab_size)
+            # the cache is donated: k, v and pos are written in place
+            assert {k: t.data_ptr() for k, t in pcommon.tree_leaves(pcache)} == ptrs
             _close(lt, lj, BAR[name], f"step {step}")
         _compare_cache(pcache, jcache, name)
         assert int(pcache["pos"]) == S + 3

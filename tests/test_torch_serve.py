@@ -9,6 +9,9 @@ configs of ``mamba2_130m`` and ``llama32_1b``.
 * In float32, both packages driven through their ``steps.py`` functions
   with greedy sampling: every generated token identical.
 * ``greedy=False`` and a call without ``device`` where CUDA is absent raise.
+* The decode runner (``serve._DecodeRunner``) on the CPU steps eagerly:
+  bit-equal to a plain loop of ``decode_fn`` over its own cache, which it
+  updates in place; ``_graph=True`` on the CPU raises.
 """
 
 import jax
@@ -24,6 +27,7 @@ from repro.models import lm as jlm
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as pserve
 from repro_torch.launch import steps as psteps
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models import lm as plm
 from repro_torch.models.convert import params_from_numpy
 
@@ -140,10 +144,13 @@ def _tokens_identical(cfg, jcfg):
         got.append(tok)
     got = torch.cat(got, dim=1).numpy()
     np.testing.assert_array_equal(got, ref)
-    # and serve_batch takes the same path
-    served = pserve.serve_batch(cfg, batch, prompt_len, gen, 0, params=pparams,
-                                device="cpu")
-    np.testing.assert_array_equal(served["generated"], ref)
+    # and serve_batch takes the same path, through its decode runner, with
+    # _graph left to the device and with _graph=False
+    for graph in (None, False):
+        served = pserve.serve_batch(cfg, batch, prompt_len, gen, 0, params=pparams,
+                                    device="cpu", _graph=graph)
+        np.testing.assert_array_equal(served["generated"], ref)
+        assert served["capture_s"] == 0.0
 
 
 class TestStepsFloat32:
@@ -152,3 +159,49 @@ class TestStepsFloat32:
 
     def test_llama_generated_tokens_identical(self):
         _tokens_identical(LLAMA, JLLAMA)
+
+
+FAMILIES = {"ssm": (CFG, JCFG), "dense": (LLAMA, JLLAMA)}
+
+
+class TestDecodeRunner:
+    @pytest.mark.parametrize("family", list(FAMILIES))
+    def test_runner_matches_decode_loop(self, family):
+        """The runner's eager steps on the CPU against a plain greedy loop of
+        ``decode_fn`` from a clone of the same prefill cache: every token and
+        logit bit-equal, the runner's cache updated in place (the same
+        tensors, pos advanced), no SSD kernel launch counted."""
+        from repro_torch.kernels.ssd.kernel import ssd_decode_step_cuda
+
+        cfg, jcfg = FAMILIES[family]
+        _, pparams = _carried(0, jnp.float32, jcfg)
+        lm = plm.LM(cfg)
+        flags = plm.RunFlags(remat="none", q_chunk=16)
+        prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 16))
+        logits, cache = psteps.make_prefill_step(lm, 24, flags)(
+            pparams, {"tokens": torch.from_numpy(prompts).int()})
+        plain = tree_map(lambda t: t.clone(), cache)
+        decode = psteps.make_serve_step(lm, flags)
+        tok = torch.argmax(logits, -1)[:, None].int()
+        launches = ssd_decode_step_cuda.launches
+        runner = pserve._DecodeRunner(decode, pparams, cache, tok)
+        ptrs = [t.data_ptr() for _, t in tree_leaves(cache)]
+        for _ in range(5):
+            got_logits, got_tok = runner.step()
+            want_logits, plain = decode(pparams, plain, tok)
+            tok = torch.argmax(want_logits, -1)[:, None].int()
+            assert torch.equal(got_logits, want_logits) and torch.equal(got_tok, tok)
+        assert runner.cache is cache and [t.data_ptr() for _, t in tree_leaves(cache)] == ptrs
+        assert int(cache["pos"]) == 16 + 5
+        assert runner.graph is None and runner.timing == {}
+        assert ssd_decode_step_cuda.launches == launches
+
+    @pytest.mark.parametrize("family", list(FAMILIES))
+    def test_graph_on_cpu_raises(self, family):
+        cfg, _ = FAMILIES[family]
+        with pytest.raises(ValueError, match="CUDA"):
+            pserve.serve_batch(cfg, 2, 8, 3, device="cpu", _graph=True)
+        with pytest.raises(ValueError, match="CUDA"):
+            pserve._DecodeRunner(None, None, None, torch.zeros((2, 1), dtype=torch.int32),
+                                 graph=True)
+

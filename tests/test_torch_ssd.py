@@ -112,6 +112,21 @@ class TestDecodeStep:
         np.testing.assert_allclose(_f32(y), _f32(y_k), atol=tol, rtol=tol)
         np.testing.assert_allclose(s.numpy(), np.asarray(s_k), atol=1e-4, rtol=1e-4)
 
+    @pytest.mark.parametrize("name", list(DTYPES))
+    @pytest.mark.parametrize("b,h,p,n", SWEEP)
+    def test_plain_in_place(self, b, h, p, n, name):
+        """``out=state`` writes the new state into the given tensor, bit-equal
+        to the out-of-place call, and matches the reference as that does."""
+        inp = decode_inputs(b * 1000 + n + 2, b, h, p, n)
+        j, t = _sides(inp, name)
+        y, s = ssd_decode_step(*(t[k] for k in ORDER))
+        state = t["state"].clone()
+        y_in, s_in = ssd_decode_step(*(t[k] for k in ORDER[:-1]), state, out=state)
+        assert s_in is state
+        assert torch.equal(y_in, y) and torch.equal(s_in, s)
+        _, s_ref = ssd_decode_step_reference(*(j[k] for k in ORDER))
+        np.testing.assert_allclose(s_in.numpy(), np.asarray(s_ref), atol=1e-5, rtol=1e-5)
+
     def test_dispatch(self):
         inp = decode_inputs(0, 2, 6, 16, 32)
         _, t = _sides(inp, "float32")

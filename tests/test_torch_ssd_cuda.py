@@ -10,7 +10,9 @@ its Pallas kernel against ``ref.py``, ``tests/test_kernels.py``): ``y``
 within ``3 * tol_for(dtype)`` (the kernel rounds ``y + D*x`` once in
 float32, the plain version rounds ``y`` to the working dtype first, and
 the kernel may contract multiply-adds), the float32 state at
-``atol=rtol=1e-4``.
+``atol=rtol=1e-4``.  The update in place (``out=state``) is bit-equal to
+the out-of-place call: the kernel computes each element with the same
+expression either way.
 """
 
 import numpy as np
@@ -18,12 +20,15 @@ import pytest
 import torch
 
 from repro_torch.kernels.ssd import ssd_decode_step
-from repro_torch.kernels.ssd.kernel import ssd_decode_step_cuda
+from repro_torch.kernels.ssd.kernel import empty_launch, rows_per_cta, ssd_decode_step_cuda
 
 #: tests/test_kernels.py's sweep, the serve shapes (B 8 and 64 at
-#: mamba2-130m's H 24, P 64, N 128), and N = 30 (the scalar path)
+#: mamba2-130m's H 24, P 64, N 128), N = 30 (the scalar path), and P that
+#: is not a multiple of the main path's rows per CTA (16 at N 128, 32 at
+#: N 64): the last CTA of each (b, h) block takes fewer rows
 SHAPES = [(2, 8, 64, 128), (2, 6, 16, 32), (3, 12, 32, 64), (1, 24, 64, 128),
-          (8, 24, 64, 128), (64, 24, 64, 128), (2, 4, 16, 30)]
+          (8, 24, 64, 128), (64, 24, 64, 128), (2, 4, 16, 30), (2, 4, 24, 128),
+          (3, 5, 40, 128), (2, 3, 40, 64)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ORDER = ("x", "dt", "a", "b", "c", "d", "state")
 
@@ -85,6 +90,24 @@ class TestCudaKernel:
         assert ssd_decode_step_cuda.launches == launches + 1
         _compare((y, s), plain, name)
 
+    @pytest.mark.parametrize("name", list(DTYPES))
+    @pytest.mark.parametrize("b,h,p,n", SHAPES)
+    def test_in_place_equals_out_of_place(self, cuda_device, b, h, p, n, name):
+        t = make_inputs(b * 1000 + n + 1, b, h, p, n, DTYPES[name], cuda_device)
+        y, s = ssd_decode_step(*(t[k] for k in ORDER))
+        state = t["state"].clone()
+        launches = ssd_decode_step_cuda.launches
+        y_in, s_in = ssd_decode_step(*(t[k] for k in ORDER[:-1]), state, out=state)
+        torch.cuda.synchronize()
+        assert ssd_decode_step_cuda.launches == launches + 1
+        assert s_in is state, "the new state is written into the given tensor"
+        assert torch.equal(y_in, y) and torch.equal(s_in, s), "in place == out of place, bit for bit"
+        plain_state = t["state"].clone()
+        plain = ssd_decode_step(*(t[k] for k in ORDER[:-1]), plain_state, impl="ref",
+                                out=plain_state)
+        assert plain[1] is plain_state
+        _compare((y_in, s_in), plain, name)
+
     def test_unaligned_state_takes_scalar_path(self, cuda_device):
         t = make_inputs(5, 2, 8, 64, 128, torch.float32, cuda_device)
         flat = torch.empty(t["state"].numel() + 1, dtype=torch.float32, device=cuda_device)
@@ -92,6 +115,24 @@ class TestCudaKernel:
         t["state"] = flat[1:].view(t["state"].shape)  # 4-byte aligned only
         got = ssd_decode_step(*(t[k] for k in ORDER))
         _compare(got, ssd_decode_step(*(t[k] for k in ORDER), impl="ref"), "float32")
+
+    def test_unaligned_state_in_place(self, cuda_device):
+        t = make_inputs(6, 2, 8, 64, 128, torch.float32, cuda_device)
+        flat = torch.empty(t["state"].numel() + 1, dtype=torch.float32, device=cuda_device)
+        flat[1:] = t["state"].reshape(-1)
+        t["state"] = flat[1:].view(t["state"].shape)  # 4-byte aligned only
+        want = ssd_decode_step(*(t[k] for k in ORDER), impl="ref")
+        got = ssd_decode_step(*(t[k] for k in ORDER), out=t["state"])
+        torch.cuda.synchronize()
+        assert got[1] is t["state"]
+        _compare(got, want, "float32")
+
+    def test_empty_launch_is_not_counted(self, cuda_device):
+        launches = ssd_decode_step_cuda.launches
+        empty_launch(8, 24, 64, 128, cuda_device)
+        torch.cuda.synchronize()
+        assert ssd_decode_step_cuda.launches == launches
+        assert rows_per_cta(128, 64) == 16 and rows_per_cta(30, 16) == 16
 
     def test_kernel_rejects_what_it_does_not_take(self, cuda_device):
         t = make_inputs(0, 2, 6, 16, 32, torch.float32, cuda_device)
@@ -107,3 +148,11 @@ class TestCudaKernel:
         bad = dict(t, c=t["c"].cpu())
         with pytest.raises(ValueError, match="cpu"):
             ssd_decode_step(*(bad[k] for k in ORDER))
+        flat = torch.zeros(2 * t["state"].numel(), dtype=torch.float32, device=cuda_device)
+        flat[:t["state"].numel()] = t["state"].reshape(-1)
+        state = flat[:t["state"].numel()].view(t["state"].shape)
+        shifted = flat[4:4 + t["state"].numel()].view(t["state"].shape)
+        with pytest.raises(ValueError, match="overlap"):
+            ssd_decode_step(*(t[k] for k in ORDER[:-1]), state, out=shifted)
+        with pytest.raises(ValueError, match="dtype"):
+            ssd_decode_step(*(t[k] for k in ORDER), out=t["state"].double())

@@ -165,10 +165,12 @@ class TestLayers:
         cache = {k: jnp.asarray(rng.standard_normal(v.shape).astype(np.float32) * 0.5, v.dtype)
                  for k, v in cache.items()}
         pcache = params_from_numpy(jax.tree.map(np.asarray, cache))
+        given = dict(pcache)
         y, nc = pssm.ssm_decode_step(tx, ts, pcache, CFG)
         y_ref, nc_ref = jssm.ssm_decode_step(jx, js, cache, JCFG)
         _close(y, y_ref, BAR[name]["logits"])
         for k in nc_ref:
+            assert nc[k] is given[k], f"{k} is updated in place"
             _close(nc[k], nc_ref[k], BAR[name]["state"], k)
 
 
@@ -212,18 +214,21 @@ class TestLM:
 
     def test_decode_steps(self, model):
         """8 decode steps from the prefill cache, teacher-forced with the
-        same numpy tokens on both sides."""
+        same numpy tokens on both sides.  The cache is donated: every step
+        writes into the given cache's tensors (pos too)."""
         name, jp, pp = model
         jt, tt = _prompt(8)
         jlm_, plm_ = jlm.LM(JCFG), plm.LM(CFG)
         _, jcache = jlm_.prefill_fn(jp, {"tokens": jt}, max_seq=S + 8, flags=FLAGS)
         _, pcache = plm_.prefill_fn(pp, {"tokens": tt}, max_seq=S + 8)
+        ptrs = {k: t.data_ptr() for k, t in pcommon.tree_leaves(pcache)}
         jdec = jax.jit(lambda p, c, t: jlm_.decode_fn(p, c, t, FLAGS))
         forced = np.random.default_rng(9).integers(0, CFG.vocab_size, (8, B, 1))
         for step in range(8):
             lj, jcache = jdec(jp, jcache, jnp.asarray(forced[step], jnp.int32))
             lt, pcache = plm_.decode_fn(pp, pcache, torch.from_numpy(forced[step]).int())
             assert tuple(lt.shape) == (B, CFG.vocab_size)
+            assert {k: t.data_ptr() for k, t in pcommon.tree_leaves(pcache)} == ptrs
             _close(lt, lj, BAR[name]["logits"], f"step {step}")
         _compare_cache(pcache, jcache, name)
         assert int(pcache["pos"]) == S + 8
