@@ -32,10 +32,10 @@ Phases (any failed check raises, so the exit code is non-zero):
    CUDA graph, captured once per batch shape (capture and instantiation
    seconds printed).  Every job must finish, and the kernel must have
    launched exactly once per executed tick, counted over graph replays;
-5. the ada batch twice more: with the plain step core in the graph, and
-   with the kernel run eagerly on the card: finished mask, every finish
-   tick and chunk count identical to the main path's run (the batches
-   run one at a time, each alone on the card);
+5. the ada batch again with the plain step core in the graph (alone on
+   the card), and with the kernel run eagerly on the card (in a worker
+   process during phase 10): finished mask, every finish tick and chunk
+   count identical to the main path's run;
 6. small inputs on the card against the same runs on the CPU (identical
    finish ticks); the CPU path is the one the tests hold to the JAX
    reference;
@@ -44,53 +44,79 @@ Phases (any failed check raises, so the exit code is non-zero):
    wall and CUDA-event time per tick, device time per tick from the
    profiler, device idle share; before that, blocks of 8, 16, 32 and 256
    ticks: capture and instantiation seconds against wall per tick;
-8. the SSD decode-step kernel against its plain PyTorch version on the
-   card over ``tests/test_kernels.py``'s (B, H, P, N) sweep, P 24 and 40
-   (not multiples of the kernel's 16 rows per CTA) and the serve shapes
-   (8 and 64, 24, 64, 128), float32 and bfloat16, at the JAX suite's bars
-   (y within 3 x tol_for, state 1e-4), max abs error printed, and in place
-   (``out=state``, as the decode step calls it) bit-equal to out of place;
-   then the kernel in place and out of place, its plain version and an
-   empty kernel on the kernel's grid (the launch floor) timed with CUDA
-   events at B 8 and B 64, states rotated so that each call finds its
-   state cold in L2, beside the bound and the kernel's time before its
-   redesign;
-9. the serving main path, with the SSD launch count reset just before it:
-   ``repro_torch.launch.serve.serve_batch`` at full-width mamba2-130m,
-   batch 8, prompt 512, 64 new tokens, greedy, bf16, each decode step
-   replayed from a CUDA graph (prefill and decode tok/s, ms per decode
-   step, capture seconds); exactly 24 x 63 = 1,512 launches counted over
-   the replays, every token in the vocab, finite logits; then the same
-   batch decoded eagerly (``_graph=False``): identical tokens;
-10. from copies of one prefill cache (a decode step updates its cache in
+8. the fluid step kernel with its (L, J, J) overlap plane (the WFBP and
+   exact k-way step's call) against its plain version at the new main path's
+   shapes, 8 lanes x 48 jobs x 8 servers (model_zoo) and 8 x 160 x 16
+   (paper): every plane exact; then timed in a CUDA graph with and without
+   the plane, beside its plain version and the launch floor, and its bound
+   with the plane counted;
+9. the WFBP and exact k-way main path through ``monte_carlo_fluid``, each
+   batch alone on the card through the CUDA graph, the launch count set to
+   0 just before it: ``model_zoo`` at its registered width (48 jobs on 8 x
+   4 GPUs, 64 MB buckets) with iterations cut 10x (6-40) under ada and srsf2,
+   ``fusion_sweep`` at its registered size under ada at fusion "all",
+   "none" and 32 MB, and kway2 on the paper batch of phase 4 (8 seeds
+   each): every job finishes, one launch per executed tick; wall, chunks,
+   captures and the bucket-axis width before and after compaction;
+10. the model_zoo ada and paper kway2 batches again with the plain step
+    core in the graph and with the kernel eagerly (the eager runs, and
+    phase 5's, in worker processes): finished mask, every finish tick and
+    chunk count identical to phase 9;
+11. fusion_sweep (2 seeds, 32 MB) and model_zoo (2 seeds, 12 jobs) under
+    ada, srsf2, kway2 and ada with ``gating="rounds"``, on the card and on
+    the CPU (worker processes): identical finish ticks; on a difference,
+    the first tick and job where the two devices part are printed and the
+    phase fails;
+12. one model_zoo chunk (8 lanes, 64 MB buckets) alone on the card,
+    through the graph and eagerly: wall, CUDA-event and device ms per tick,
+    kernels and copies per tick, idle share, beside phase 7's paper tick;
+13. the SSD decode-step kernel against its plain PyTorch version on the
+    card over ``tests/test_kernels.py``'s (B, H, P, N) sweep, P 24 and 40
+    (not multiples of the kernel's 16 rows per CTA) and the serve shapes
+    (8 and 64, 24, 64, 128), float32 and bfloat16, at the JAX suite's bars
+    (y within 3 x tol_for, state 1e-4), max abs error printed, and in place
+    (``out=state``, as the decode step calls it) bit-equal to out of place;
+    then the kernel in place and out of place, its plain version and an
+    empty kernel on the kernel's grid (the launch floor) timed with CUDA
+    events at B 8 and B 64, states rotated so that each call finds its
+    state cold in L2, beside the bound and the kernel's time before its
+    redesign;
+14. the serving main path, with the SSD launch count reset just before it:
+    ``repro_torch.launch.serve.serve_batch`` at full-width mamba2-130m,
+    batch 8, prompt 512, 64 new tokens, greedy, bf16, each decode step
+    replayed from a CUDA graph (prefill and decode tok/s, ms per decode
+    step, capture seconds); exactly 24 x 63 = 1,512 launches counted over
+    the replays, every token in the vocab, finite logits; then the same
+    batch decoded eagerly (``_graph=False``): identical tokens;
+15. from copies of one prefill cache (a decode step updates its cache in
     place), decode teacher-forced over those tokens with the kernel and
     with the plain step on the card: every step's logits within the bf16
     bar (0.15), top-1 agreement printed;
-11. the reduced config in float32 with the plain path, on the card and on
+16. the reduced config in float32 with the plain path, on the card and on
     the CPU: identical generated tokens;
-12. decode steps through the CUDA graph and eagerly, in turns: wall per
+17. decode steps through the CUDA graph and eagerly, in turns: wall per
     step, then one step under the profiler: device time, the SSD kernel's
     share, device kernels, device idle share, and the graph's capture
     seconds;
-13. the flash-attention kernel against its plain PyTorch version on the
+18. the flash-attention kernel against its plain PyTorch version on the
     card over ``tests/test_kernels.py::TestFlashAttention``'s shapes (slow
     ones included), causal attention with S != T both ways (also not
     multiples of the 64-row tiles), D 128 and D 30 causal, and the serve
     shape (BH 256 = batch 8 x 32 heads, S = T 512, D 64), float32 at 2e-5
     and bfloat16 at 3e-2 (``tol_for``), the scale override (0.05) and the
     peaked regime (bf16 q x 8, k x 16); max abs error printed;
-14. the kernel, its plain version and ``F.scaled_dot_product_attention``
+19. the kernel, its plain version and ``F.scaled_dot_product_attention``
     (the yardstick, never on the path) timed with CUDA events at the serve
     shape in bfloat16, beside the bound: device time from a CUDA graph of
     10 calls (the number kept), and eager calls (host launch included);
-15. the dense serving main path, with the flash launch count reset just
+20. the dense serving main path, with the flash launch count reset just
     before it: ``serve_batch`` at full-width llama3.2-1b (random weights
     from seed 0, their making timed), batch 8, prompt 512, 64 new tokens,
     greedy, bf16, each decode step replayed from a CUDA graph; exactly 16
     flash launches (one per layer in prefill; decode runs none), every
     token in the vocab, finite logits; then decoded eagerly: identical
     tokens;
-16. the kernel against the plain attention inside the model on the card:
+21. the kernel against the plain attention inside the model on the card:
     at full width, each layer's attention from the same input (along the
     plain path's residual stream), and end to end on the reduced config in
     bf16 (last-token logits and teacher-forced decode from each path's
@@ -98,11 +124,11 @@ Phases (any failed check raises, so the exit code is non-zero):
     float32 weights) printed but not held, since the random full-width
     model is chaotic, with the kernel path's teacher-forced logits against
     the served ones;
-17. llama's reduced config in float32 with the plain path, on the card and
+22. llama's reduced config in float32 with the plain path, on the card and
     on the CPU: identical generated tokens;
-18. one full-width prefill under the profiler (wall, device time, the
+23. one full-width prefill under the profiler (wall, device time, the
     flash kernel's share, device kernels, device idle share), then decode
-    steps through the CUDA graph and eagerly as in phase 12.
+    steps through the CUDA graph and eagerly as in phase 17.
 
 Then the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -224,10 +250,9 @@ def _summary(tag, res, chunk_steps):
     return ticks
 
 
-def _paper_batch(comm: str, impl: str, entry: str, graph: bool = True) -> dict:
-    """One 8-seed paper batch, from a launch count of 0: each chunk
-    replayed from a CUDA graph (the main path) or, with ``graph=False``
-    (``simulate_traces_batched`` only), run eagerly on the card."""
+def _paper_batch(comm: str, impl: str, entry: str) -> dict:
+    """One 8-seed paper batch, from a launch count of 0, each chunk
+    replayed from a CUDA graph (the main path)."""
     import torch
 
     from repro_torch.core import fluidsim
@@ -246,7 +271,7 @@ def _paper_batch(comm: str, impl: str, entry: str, graph: bool = True) -> dict:
         batch = fluidsim.stack_traces(
             [fluidsim.trace_from_jobs(s.job_list(), device=cfg.device) for s in paper]
         )
-        res = fluidsim.simulate_traces_batched(batch, cfg, _graph=None if graph else False)
+        res = fluidsim.simulate_traces_batched(batch, cfg)
         recs = [
             from_jcts(res["jct"][i][res["finished"][i]].tolist(), scenario="paper",
                       backend="fluid", placement="gang-consolidate", comm=comm, seed=s,
@@ -317,14 +342,14 @@ def _ssd_bound(b, h, p, n, elt):
 
 
 def _ssd_kernel_phase(torch, dev) -> dict:
-    """Phase 8: the kernel against its plain version over the sweep
+    """Phase 13: the kernel against its plain version over the sweep
     (f32 and bf16), out of place and in place, then both timed at B 8 and
     B 64 beside the launch floor.  Returns the kernels line's entry
     (launches are filled in by the serving phase)."""
     from repro_torch.kernels.ssd import ssd_decode_step
     from repro_torch.kernels.ssd.kernel import empty_launch
 
-    # ---- 8. kernel vs plain version -----------------------------------------
+    # ---- 13. kernel vs plain version -----------------------------------------
     max_abs = 0.0
     for b, h, p, n in SSD_SWEEP:
         for name, dtype, tol in (("float32", torch.float32, 3 * 2e-5),
@@ -357,7 +382,7 @@ def _ssd_kernel_phase(torch, dev) -> dict:
             _require(ok_y and ok_s, f"SSD kernel vs plain at {(b, h, p, n)} {name}")
             max_abs = max(max_abs, err_y, err_s)
 
-    # ---- 8. timing, states cold in L2 ------------------------------------
+    # ---- 13. timing, states cold in L2 ------------------------------------
     def _time(impl, graph, t, states, reps):
         """ms per call over rotating states: in a CUDA graph (device time)
         or eagerly (what a decode step pays, host launch included).  impl
@@ -463,7 +488,7 @@ def _serve_both(torch, tag, cfg, params, counter) -> dict:
 
 
 def _decode_modes(torch, tag, lm, params, cache0, tok, flags, key, expect_key) -> None:
-    """Phases 12 and 18: decode steps through the runner's CUDA graph and
+    """Phases 17 and 23: decode steps through the runner's CUDA graph and
     eagerly, from copies of one prefill cache, each mode's steps greedy
     from ``tok``: wall per step (3 rounds of 10, modes in turns), then one
     step under the profiler: device time, kernels and copies per step, the
@@ -515,7 +540,7 @@ def _decode_modes(torch, tag, lm, params, cache0, tok, flags, key, expect_key) -
 
 
 def _serve_phases(torch, dev) -> int:
-    """Phases 9-12: the main path (full-width mamba2-130m served through
+    """Phases 14-17: the main path (full-width mamba2-130m served through
     ``serve_batch``), the kernel path against the plain path teacher-forced
     over its tokens, the card against the CPU on the reduced config, and
     one decode step under the profiler.  Returns the SSD kernel's launches
@@ -541,7 +566,7 @@ def _serve_phases(torch, dev) -> int:
     warm = serve_batch(cfg, bsz, plen, 2, seed, params=params)  # cuBLAS, allocator
     _log(f"serve warm-up (gen 2): prefill {warm['prefill_s']:.4f} s")
 
-    # ---- 9. the main path, through the decode graph; then eagerly ----------
+    # ---- 14. the main path, through the decode graph; then eagerly ----------
     res = _serve_both(torch, cfg.name, cfg, params, ssd_decode_step_cuda)
     launches = res["launches"]
     generated, logits = res["generated"], res["logits"]
@@ -553,7 +578,7 @@ def _serve_phases(torch, dev) -> int:
     _require(tuple(logits.shape) == (bsz, gen, cfg.vocab_size), "logits shape")
     _require(bool(torch.isfinite(logits).all()), "finite logits")
 
-    # ---- 10. kernel path vs plain path, teacher-forced on the card ---------
+    # ---- 15. kernel path vs plain path, teacher-forced on the card ---------
     flags = {impl: RunFlags(remat="none", q_chunk=min(512, plen), ssd_impl=impl)
              for impl in ("cuda", "ref")}
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (bsz, plen))
@@ -582,7 +607,7 @@ def _serve_phases(torch, dev) -> int:
          f"{agree / (bsz * (gen - 1)):.6f}; kernel replay vs the served logits max abs "
          f"difference {replay}")
 
-    # ---- 11. the reduced config in f32, plain path: card vs CPU -----------
+    # ---- 16. the reduced config in f32, plain path: card vs CPU -----------
     red = get_config("mamba2-130m", reduced=True)
     on_card = serve_batch(red, 2, 32, 8, 0, device=dev, dtype=torch.float32, ssd_impl="ref")
     on_cpu = serve_batch(red, 2, 32, 8, 0, device="cpu", dtype=torch.float32)
@@ -591,7 +616,7 @@ def _serve_phases(torch, dev) -> int:
     _log(f"{red.name} f32, plain path, card vs CPU: identical generated tokens "
          f"{on_card['generated'].tolist()}, max abs logit difference {diff}")
 
-    # ---- 12. decode steps: the graph against eager ---------------------------
+    # ---- 17. decode steps: the graph against eager ---------------------------
     _decode_modes(torch, cfg.name, lm, params, cache0, gen_t[:, :1], flags["cuda"], "ssd_step",
                   True)
     return launches
@@ -649,14 +674,14 @@ def _flash_bound(bh, s, t, d, elt):
 
 
 def _flash_kernel_phase(torch, dev) -> dict:
-    """Phases 13-14: the kernel against its plain version over the sweep,
+    """Phases 18-19: the kernel against its plain version over the sweep,
     then the kernel, the plain version and SDPA timed at the serve shape.
-    Returns the kernels line's entry (launches are filled in by phase 15)."""
+    Returns the kernels line's entry (launches are filled in by phase 20)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
 
-    # ---- 13. kernel vs plain version ----------------------------------------
+    # ---- 18. kernel vs plain version ----------------------------------------
     max_abs = 0.0
     ones = (1.0, 1.0, 1.0)
     cases = ([(shape, None, ones) for shape in FLASH_SWEEP]
@@ -681,7 +706,7 @@ def _flash_kernel_phase(torch, dev) -> dict:
             _require(ok, f"flash kernel vs plain at {(bh, s, t, d, causal, scale)} {name}")
             max_abs = max(max_abs, err)
 
-    # ---- 14. timing at the serve shape, bf16 ---------------------------------
+    # ---- 19. timing at the serve shape, bf16 ---------------------------------
     bh, s, t, d = FLASH_SERVE
     q, k, v = _qkv(torch, 14, bh, s, t, d, torch.bfloat16, dev)
     fns = {
@@ -734,7 +759,7 @@ def _flash_kernel_phase(torch, dev) -> dict:
 
 
 def _dense_serve_phases(torch, dev) -> int:
-    """Phases 15-18: full-width llama3.2-1b served through ``serve_batch``,
+    """Phases 20-23: full-width llama3.2-1b served through ``serve_batch``,
     kernel against plain prefill attention (and teacher-forced decode from
     each path's cache), the reduced config's card against the CPU, and one
     profiled prefill.  Returns the flash kernel's launches on the main
@@ -763,7 +788,7 @@ def _dense_serve_phases(torch, dev) -> int:
     _log(f"serve warm-up (gen 2): prefill {warm['prefill_s']:.4f} s")
     del warm
 
-    # ---- 15. the main path, through the decode graph; then eagerly ---------
+    # ---- 20. the main path, through the decode graph; then eagerly ---------
     res = _serve_both(torch, cfg.name, cfg, params, flash_attention_cuda)
     launches = res["launches"]
     generated, logits = res["generated"], res["logits"]
@@ -775,7 +800,7 @@ def _dense_serve_phases(torch, dev) -> int:
     _require(tuple(logits.shape) == (bsz, gen, cfg.vocab_size), "logits shape")
     _require(bool(torch.isfinite(logits).all()), "finite logits")
 
-    # ---- 16. kernel vs plain prefill attention --------------------------
+    # ---- 21. kernel vs plain prefill attention --------------------------
     # (a) full width, layer by layer along the plain path's residual stream:
     #     each layer's attention from the same input, kernel vs plain;
     # (b) end to end on the reduced config in bf16: last-token logits and
@@ -891,7 +916,7 @@ def _dense_serve_phases(torch, dev) -> int:
         del p, xs, last
     torch.cuda.empty_cache()
 
-    # ---- 17. the reduced config in f32, plain path: card vs CPU -----------
+    # ---- 22. the reduced config in f32, plain path: card vs CPU -----------
     on_card = serve_batch(red, 2, 32, 8, 0, device=dev, dtype=torch.float32, attn_impl="ref")
     on_cpu = serve_batch(red, 2, 32, 8, 0, device="cpu", dtype=torch.float32)
     _require((on_card["generated"] == on_cpu["generated"]).all(), "reduced f32: card vs CPU")
@@ -899,7 +924,7 @@ def _dense_serve_phases(torch, dev) -> int:
     _log(f"{red.name} f32, plain path, card vs CPU: identical generated tokens "
          f"{on_card['generated'].tolist()}, max abs logit difference {diff}")
 
-    # ---- 18. one prefill, then decode steps: the graph against eager --------
+    # ---- 23. one prefill, then decode steps: the graph against eager --------
     from torch.profiler import ProfilerActivity, profile
 
     prefill = make_prefill_step(lm, plen + gen, flags["cuda"])
@@ -931,6 +956,401 @@ def _dense_serve_phases(torch, dev) -> int:
     _decode_modes(torch, cfg.name, lm, params, cache0, gen_t[:, :1], flags["cuda"], "flash_fwd",
                   False)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# WFBP bucket streams, the gating closures and exact k-way (phases 8-12)
+# ---------------------------------------------------------------------------
+
+#: the step kernel with its (L, J, J) overlap plane, at the shapes of the
+#: WFBP and k-way main path: model_zoo (8 lanes x 48 jobs on 8 servers,
+#: NIC-only, so D 8) and the paper batch (160 jobs, 16 servers, D 16)
+OVERLAP_SHAPES = {"model_zoo": (8, 48, 8, 8), "paper": (8, 160, 16, 16)}
+#: model_zoo at its registered width (48 jobs on 8 x 4 GPUs, 64 MB
+#: buckets, arrivals over 2400 s) with iterations cut 10x, as the paper
+#: batch's: at 60-400 iterations a 16-GPU olmoe job of seed 0 still has 66
+#: of 368 iterations left at the 400,000-tick horizon (the reference's
+#: max_steps), and the batch takes ~146,000 executed ticks
+ZOO_CUT = dict(min_iters=6, max_iters=40)
+#: the paper batch under kway2 (phase 9): its seeds, cut from SEEDS only
+#: where the batch would not fit the time limit (jobs are never cut)
+KWAY_SEEDS = SEEDS
+#: phase 9's batches, each through monte_carlo_fluid: (tag, scenario,
+#: seeds, comm, overrides); fusion_sweep at its registered size (6 jobs of
+#: 8 GPUs on 4 x 4, 32-48 iterations)
+MAIN_WFBP = (
+    ("model_zoo ada", "model_zoo", SEEDS, "ada", ZOO_CUT),
+    ("model_zoo srsf2", "model_zoo", SEEDS, "srsf2", ZOO_CUT),
+    ("fusion_sweep ada fusion all", "fusion_sweep", SEEDS, "ada", {"fusion": "all"}),
+    ("fusion_sweep ada fusion none", "fusion_sweep", SEEDS, "ada", {"fusion": "none"}),
+    ("fusion_sweep ada fusion 32e6", "fusion_sweep", SEEDS, "ada", {"fusion": 32e6}),
+    ("paper kway2", "paper", KWAY_SEEDS, "kway2", PAPER_CUT),
+)
+#: phase 11's cells, each on the card and on the CPU: (scenario, seeds,
+#: overrides), under ada, srsf2, kway2 and ada with gating="rounds"
+CARD_CPU_CELLS = (("fusion_sweep", (0, 1), {"fusion": 32e6}),
+                  ("model_zoo", (0, 1), {"n_jobs": 12, "min_iters": 15, "max_iters": 60,
+                                         "horizon_s": 600.0}))
+CARD_CPU_POLICIES = (("ada", {}), ("srsf2", {}), ("kway2", {}), ("ada", {"gating": "rounds"}))
+
+
+def _tick_cost(torch, tag, batch, cfg, blocks=(), plain=True) -> dict:
+    """Phases 7 and 12: one chunk of a batch alone on the card, from the
+    state after its first chunk, through the graph and eagerly (and, with
+    ``plain``, through the graph with the plain step core): wall and
+    CUDA-event ms per tick, device ms per tick from the profiler, device
+    kernels and copies per tick, idle share.  Before that, for each block
+    size in ``blocks``, capture and instantiation seconds against wall per
+    tick.  Returns {mode: (wall ms, device ms, kernels per tick)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import fluidsim
+
+    dev = batch["arrival"].device
+    statics = fluidsim._Statics(cfg, dev)
+    state0 = fluidsim._init_lane_state(batch, cfg, statics.n_domains)
+    state0 = fluidsim._lane_chunk(batch, state0, cfg, statics)  # past the start
+    ticks = cfg.chunk_steps
+
+    def _runner(graph: bool, block: int = fluidsim.BLOCK_TICKS, impl: str = ""):
+        """A chunk runner from ``state0``; a graph runner is captured by a
+        first chunk, timed here."""
+        r = fluidsim._ChunkRunner(batch, {n: v.clone() for n, v in state0.items()},
+                                  dataclasses.replace(cfg, kernel=impl), statics,
+                                  block=block, graph=graph)
+        t1 = time.perf_counter()
+        r.run_chunk()
+        torch.cuda.synchronize()
+        r.first_chunk_s = time.perf_counter() - t1
+        return r
+
+    def _chunk(r):
+        """(host wall ms, CUDA-event ms) per tick of one chunk from state0."""
+        for n, v in r.state.items():
+            v.copy_(state0[n])
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        start.record()
+        r.run_chunk()
+        stop.record()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) / ticks * 1e3, start.elapsed_time(stop) / ticks
+
+    def _device_ms(r):
+        """Device time per tick by the profiler (kernels and copies), and
+        their number per tick."""
+        for n, v in r.state.items():
+            v.copy_(state0[n])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            r.run_chunk()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        return (sum(e.self_device_time_total for e in on_device) / 1e3 / ticks,
+                sum(e.count for e in on_device) / ticks)
+
+    # ticks per captured block: capture and instantiation cost against replay
+    for block in blocks:
+        r = _runner(True, block=block)
+        walls = [_chunk(r) for _ in range(2)]
+        _log(f"block of {block} ticks: first chunk (eager block, capture, instantiation, "
+             f"replays) {r.first_chunk_s:.4f} s: eager block {r.timing['warmup_s']:.4f} s, "
+             f"recording {r.timing['capture_s']:.4f} s, instantiation "
+             f"{r.timing['instantiate_s']:.4f} s; then wall per tick "
+             f"{[round(w, 6) for w, _ in walls]} ms")
+        r.release()
+
+    runners = {"graph": _runner(True), "eager": _runner(False)}
+    order = ["graph", "eager", "eager", "graph"]
+    if plain:
+        runners["graph, plain step core"] = _runner(True, impl="ref")
+        order.append("graph, plain step core")
+    per_tick, out = {}, {}
+    for mode in order:
+        per_tick.setdefault(mode, []).append(_chunk(runners[mode]))
+    for mode, r in runners.items():
+        wall = min(w for w, _ in per_tick[mode])
+        events = min(e for _, e in per_tick[mode])
+        dev_ms, n_ops = _device_ms(r)
+        idle = f"{1 - dev_ms / wall:.4f}" if dev_ms > 0 else "not measured"
+        _log(f"host cost, {mode} ({tag}, one chunk of {ticks} ticks in blocks of {r.block}, "
+             f"alone on the card): wall per tick {[round(w, 6) for w, _ in per_tick[mode]]} ms, "
+             f"CUDA events per tick {[round(e, 6) for _, e in per_tick[mode]]} ms; device time "
+             f"per tick (profiler) {dev_ms:.6f} ms in {n_ops:.2f} kernels and copies; device "
+             f"idle share {idle} (events: {1 - dev_ms / events:.4f})")
+        if mode == "eager":
+            _require(dev_ms > 0, "the profiler saw the eager chunk's device time")
+        out[mode] = (wall, dev_ms, n_ops)
+        r.release()
+    return out
+
+
+def _fluid_bound(L, J, S, D, need_overlap: bool):
+    """(bound ms, "bytes" or "operations", bytes, ops) of one call of the
+    fluid step core: each input read once and each output written once
+    (the (L, J, J) bool overlap plane too, where asked); the float32
+    operations of the counts, k, rates and minima, plus a J x J x D
+    product per lane for the overlap plane."""
+    nbytes = (L * J * D + L * J * S * 4 + L * J + L * J * 4 + S * 4 + D * 4
+              + L * D * 4 + 4 * L * J * 4)
+    ops = L * (5 * J * D + J * S + 5 * J + D)
+    if need_overlap:
+        nbytes += L * J * J
+        ops += 2 * L * J * J * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def _overlap_kernel_phase(torch, dev) -> dict:
+    """Phase 8: the kernel with the overlap plane against its plain
+    version at the WFBP and k-way main path's shapes (random inputs, and
+    every domain loaded and active), every plane exact; then timed in a
+    CUDA graph with and without the plane, beside its plain version and
+    the launch floor.  Returns {shape tag: timings}."""
+    from repro_torch.kernels.fluidstep import fluid_step_core
+    from repro_torch.kernels.fluidstep import kernel as fs_kernel
+
+    names = ("loads", "member", "active", "rem", "bw", "oversub")
+    kw = dict(b=8.53e-10, eta=1.706e-10)
+    rng = np.random.default_rng(8)
+    rows = {}
+    for tag, (L, J, S, D) in OVERLAP_SHAPES.items():
+        for trial in range(4):
+            x = _rand_inputs(rng, L, J, S, D)
+            if trial == 3:
+                _special(x, "all_loaded", rng)
+            args = [torch.as_tensor(x[k], device=dev) for k in names]
+            got = fluid_step_core(*args, impl="cuda", need_overlap=True, **kw)
+            want = fluid_step_core(*args, impl="ref", need_overlap=True, **kw)
+            torch.cuda.synchronize()
+            _require(got.keys() == want.keys(), "step core outputs")
+            for k, v in want.items():
+                _require(got[k].dtype == v.dtype and torch.equal(got[k], v),
+                         f"{k} of the kernel with the overlap plane differs at {tag} "
+                         f"(L={L} J={J} S={S} D={D}, trial {trial})")
+            _require(bool(got["overlap"].any()), "the overlap plane is not empty")
+        x = _rand_inputs(rng, L, J, S, D)
+        args = [torch.as_tensor(x[k], device=dev) for k in names]
+
+        def _time(impl, overlap, reps=40, calls=50):
+            def run():
+                for _ in range(calls):
+                    if impl == "empty":
+                        fs_kernel.empty_launch(L, dev)
+                    else:
+                        fluid_step_core(*args, impl=impl, need_overlap=overlap, **kw)
+            return _cuda_ms(torch, run, True, reps) / calls
+
+        cases = (("cuda", True), ("cuda", False), ("ref", True), ("empty", False))
+        timings = {}
+        for case in cases + cases[::-1]:
+            timings.setdefault(case, []).append(_time(*case))
+        best = {case: min(v) for case, v in timings.items()}
+        bound_ms, bound_by, nbytes, ops = _fluid_bound(L, J, S, D, True)
+        rows[tag] = {"ms": best[("cuda", True)], "ms_no_overlap": best[("cuda", False)],
+                     "plain_ms": best[("ref", True)], "floor_ms": best[("empty", False)],
+                     "bound_ms": bound_ms}
+        _log(f"step kernel with the overlap plane, {tag} shape (L={L} J={J} S={S} D={D}): "
+             f"4 cases bit-equal to the plain version (overlap exact); device time in a CUDA "
+             f"graph of 50 calls, ms per call, in the order kernel with plane / without / plain "
+             f"with plane / empty kernel (launch floor), then back: with the plane "
+             f"{timings[('cuda', True)]}, without {timings[('cuda', False)]}, plain "
+             f"{timings[('ref', True)]}, launch floor {timings[('empty', False)]}; bound "
+             f"{bound_ms:.8f} ms ({bound_by}: {nbytes} B, {ops} ops); with the plane / without "
+             f"{best[('cuda', True)] / best[('cuda', False)]:.4f}, / launch floor "
+             f"{best[('cuda', True)] / best[('empty', False)]:.4f}")
+    return rows
+
+
+def _spy_batches() -> list:
+    """Record each result of ``simulate_traces_batched`` that
+    ``monte_carlo_fluid`` gets (finish ticks, chunks, captures, bucket-axis
+    widths: more than its ``RunMetrics`` carry); returns the list."""
+    from repro_torch.scenarios import sweep as sweep_mod
+
+    seen = []
+    real = sweep_mod.simulate_traces_batched
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out)
+        return out
+
+    sweep_mod.simulate_traces_batched = spy
+    return seen
+
+
+def _batch_worker(job) -> dict:
+    """One batch through ``simulate_traces_batched`` (phases 10 and 11; in
+    a worker process or this one): ``job`` = (scenario, seeds, overrides,
+    comm, fast_kw, device, graph).  Returns the finished mask, finish
+    ticks, chunks, the kernel's launches and the wall seconds."""
+    import torch
+
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    torch.set_num_threads(1)
+    from repro_torch.core import fluidsim
+    from repro_torch.kernels.fluidstep import kernel as fs_kernel
+    from repro_torch.scenarios import fluid_config, get_scenario
+
+    name, seeds, over, comm, fast_kw, device, graph = job
+    scns = [get_scenario(name, seed=s, **over) for s in seeds]
+    cfg = fluid_config(scns[0], comm=comm, placement="lwf", device=device, **fast_kw)
+    batch = fluidsim.stack_traces([fluidsim.trace_from_jobs(s.job_list(), fusion=s.fusion,
+                                                            device=cfg.device) for s in scns])
+    fs_kernel.fluid_step_core_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = fluidsim.simulate_traces_batched(batch, cfg, _graph=graph)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"jct": out["jct"], "finished": out["finished"], "chunks": out["chunks"],
+            "launches": fs_kernel.fluid_step_core_cuda.launches,
+            "wall": time.perf_counter() - t0}
+
+
+def _main_wfbp_phase(torch, chunk_steps) -> tuple:
+    """Phase 9: the WFBP and exact k-way main path through
+    ``monte_carlo_fluid``, each batch alone on the card through the CUDA
+    graph, the launch count set to 0 just before it and read just after.
+    Returns ({tag: the driver's result}, launches, executed ticks)."""
+    from repro_torch.kernels.fluidstep import kernel as fs_kernel
+    from repro_torch.scenarios import monte_carlo_fluid
+
+    seen = _spy_batches()
+    results, launches, executed = {}, 0, 0
+    for tag, name, seeds, comm, over in MAIN_WFBP:
+        fs_kernel.fluid_step_core_cuda.launches = 0
+        t0 = time.perf_counter()
+        recs = monte_carlo_fluid(name, seeds, comm=comm, placement="lwf", overrides=over)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = fs_kernel.fluid_step_core_cuda.launches
+        res = seen[-1]
+        res.update(recs=[dataclasses.asdict(r) for r in recs], wall=wall, launches=n)
+        ticks = _summary(f"{tag} (monte_carlo_fluid, {recs[0].n_jobs} jobs, CUDA graph)", res,
+                         chunk_steps)
+        _require(n == ticks, f"{tag}: one launch per executed tick")
+        caps = res["captures"]
+        widths = res["bucket_widths"]
+        _log(f"  {len(caps)} captures: recording {sum(c['capture_s'] for c in caps):.4f} s, "
+             f"instantiation {sum(c['instantiate_s'] for c in caps):.4f} s, eager first blocks "
+             f"{sum(c['warmup_s'] for c in caps):.4f} s; bucket-axis width "
+             + (f"{widths[0]} before compaction, {widths[-1]} after (per batch shape: {widths})"
+                if widths else "none (monolithic trace)"))
+        _require(len(caps) >= 1, f"{tag}: captured")
+        _require(not widths or min(widths) >= 2, f"{tag}: the bucket axis keeps 2 columns")
+        results[tag] = res
+        launches += n
+        executed += ticks
+    if len(KWAY_SEEDS) < len(SEEDS):
+        _log(f"paper kway2 batch cut to {len(KWAY_SEEDS)} seeds (of {len(SEEDS)}) to fit the "
+             f"time limit; its jobs are not cut")
+    return results, launches, executed
+
+
+def _check_same(tag, got, want) -> None:
+    _require((got["finished"] == want["finished"]).all(), f"finished mask differs: {tag}")
+    _require((got["jct"] == want["jct"]).all(), f"finish ticks differ: {tag}")
+    _require(got["chunks"] == want["chunks"], f"chunk counts differ: {tag}")
+
+
+def _first_divergence(torch, name, seeds, over, comm, fast_kw, dev, max_ticks=400_000):
+    """Where a cell's finish ticks differ between the card and the CPU:
+    from the same state, one tick on each device, leaf by leaf, until
+    the first difference; prints the tick, the leaf and the jobs, and the
+    jobs' remainders and k-way inputs there."""
+    from repro_torch.core import fluidsim
+    from repro_torch.scenarios import fluid_config, get_scenario
+
+    scns = [get_scenario(name, seed=s, **over) for s in seeds]
+    cfgs, traces, statics, consts = {}, {}, {}, {}
+    for d in (dev, torch.device("cpu")):
+        cfgs[d.type] = fluid_config(scns[0], comm=comm, placement="lwf", device=str(d), **fast_kw)
+        traces[d.type] = fluidsim.stack_traces(
+            [fluidsim.trace_from_jobs(s.job_list(), fusion=s.fusion, device=d) for s in scns])
+        statics[d.type] = fluidsim._Statics(cfgs[d.type], d)
+        consts[d.type] = fluidsim._trace_consts(traces[d.type], cfgs[d.type],
+                                                statics[d.type].inv_dt)
+    n_jobs = traces["cpu"]["arrival"].shape[1]
+    st = fluidsim._init_lane_state(traces["cpu"], cfgs["cpu"], statics["cpu"].n_domains)
+    for _ in range(max_ticks):
+        out = {}
+        for d in ("cuda", "cpu"):
+            prev = {k: v.to(d) for k, v in st.items()}
+            out[d] = fluidsim._live_tick(traces[d], consts[d], prev, statics[d], cfgs[d], n_jobs)
+        for k, v in out["cpu"].items():
+            g = out["cuda"][k].cpu()
+            if not torch.equal(g, v):
+                diff = (g != v).nonzero().tolist()[:8]
+                _log(f"card vs CPU, {name} {comm} {fast_kw}: first difference after tick "
+                     f"{st['i'].tolist()} in {k!r} at (lane, job, ...) {diff}; card "
+                     f"{[g[tuple(i)].item() for i in diff]}, CPU "
+                     f"{[v[tuple(i)].item() for i in diff]}; remainders of those lanes' jobs "
+                     f"before the tick {[st['rem'][i[0]].tolist() for i in diff[:1]]}")
+                return
+        st = out["cpu"]
+        if bool((st["n_done"] >= n_jobs).all()):
+            break
+    _log(f"card vs CPU, {name} {comm} {fast_kw}: no tick differs from the same state")
+
+
+def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> None:
+    """Phases 10 and 11, and phase 5's eager run.  The host-bound runs
+    (the eager runs of the paper ada, model_zoo ada and paper kway2
+    batches, and the CPU side of phase 11) go to worker processes,
+    started together, while this process replays the plain step core's
+    graphs and phase 11's card side, so the card is shared meanwhile
+    (their walls are printed, not kept; phase 7 times an eager tick
+    alone)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    reruns = (("model_zoo ada", "model_zoo", SEEDS, ZOO_CUT, "ada"),
+              ("paper kway2", "paper", KWAY_SEEDS, PAPER_CUT, "kway2"))
+    cpu_jobs = [(name, seeds, over, comm, fast_kw, "cpu", None)
+                for name, seeds, over in CARD_CPU_CELLS for comm, fast_kw in CARD_CPU_POLICIES]
+    eager_runs = (("paper kway2", "paper", KWAY_SEEDS, PAPER_CUT, "kway2"),
+                  ("paper ada", "paper", SEEDS, PAPER_CUT, "ada"),
+                  ("model_zoo ada", "model_zoo", SEEDS, ZOO_CUT, "ada"))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=6,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        eager = [pool.submit(_batch_worker, (name, seeds, over, comm, {}, "cuda", False))
+                 for _, name, seeds, over, comm in eager_runs]
+        on_cpu = [pool.submit(_batch_worker, job) for job in cpu_jobs]
+        # ---- 10. the plain step core in the graph ---------------------------
+        for tag, name, seeds, over, comm in reruns:
+            res = _batch_worker((name, seeds, over, comm, {"kernel": "ref"}, "cuda", None))
+            _require(res["launches"] == 0, f"{tag}: the plain run launched the kernel")
+            _check_same(f"{tag}, plain step core in the graph", res, main[tag])
+            _log(f"{tag}, plain step core in the graph: identical finished mask, finish ticks "
+                 f"and chunk count ({res['chunks']}); wall {res['wall']:.3f} s (card shared)")
+        # ---- 11. card side ---------------------------------------------------
+        on_card = [_batch_worker((name, seeds, over, comm, fast_kw, "cuda", None))
+                   for name, seeds, over, comm, fast_kw, _, _ in cpu_jobs]
+        for job, card, fut in zip(cpu_jobs, on_card, on_cpu):
+            name, seeds, over, comm, fast_kw = job[:5]
+            cpu = fut.result()
+            tag = f"{name} {comm} {fast_kw or ''} ({len(seeds)} seeds)"
+            if not ((card["finished"] == cpu["finished"]).all()
+                    and (card["jct"] == cpu["jct"]).all()):
+                _first_divergence(torch, name, seeds, over, comm, fast_kw, dev)
+            _check_same(f"{tag}: card vs CPU", card, cpu)
+            _log(f"{tag}: card == CPU on every finish tick ({int(card['finished'].sum())} "
+                 f"jobs, {card['chunks']} chunks)")
+        for (tag, *_), fut in zip(eager_runs, eager):
+            res = fut.result()
+            ticks = res["chunks"] * chunk_steps
+            _require(res["launches"] == ticks, f"{tag} eager: one launch per executed tick")
+            _check_same(f"{tag}, kernel eagerly", res, main[tag])
+            _log(f"{tag}, kernel eagerly (worker process, card shared): identical finished "
+                 f"mask, finish ticks and chunk count; wall {res['wall']:.3f} s, "
+                 f"{res['wall'] / ticks * 1e3:.4f} ms per tick, {res['launches']} launches")
+    _log(f"phases 10-11: {time.perf_counter() - t0:.3f} s wall")
 
 
 def main() -> int:
@@ -1058,13 +1478,7 @@ def main() -> int:
     kernel_ms = min(timings[("cuda", True)])
     plain_ms = min(timings[("ref", True)])
     floor_ms = min(timings[("empty", True)])
-    bytes_moved = (L * J * D + L * J * S * 4 + L * J + L * J * 4 + S * 4 + D * 4
-                   + L * D * 4 + 4 * L * J * 4)
-    ops = L * (5 * J * D + J * S + 5 * J + D)
-    bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = ops / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
-    bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    bound_ms, bound_by, bytes_moved, ops = _fluid_bound(L, J, S, D, False)
     _log(f"timing (L={L} J={J} S={S} D={D}, ms per call, plain/kernel/empty/empty/kernel/"
          f"plain): device time in a CUDA graph of 50 calls: kernel {timings[('cuda', True)]}, "
          f"plain {timings[('ref', True)]}, empty kernel on the same grid (launch floor) "
@@ -1078,10 +1492,8 @@ def main() -> int:
     # One batch at a time, alone on the card: graph replays from separate
     # processes would take turns on it.  Each batch starts with a launch
     # count of 0 and reports its count just after its run.
-    jobs = [("ada", "", "simulate_traces_batched", True),
-            ("srsf1", "", "monte_carlo_fluid", True), ("srsf2", "", "monte_carlo_fluid", True),
-            ("ada", "ref", "simulate_traces_batched", True),
-            ("ada", "", "simulate_traces_batched", False)]
+    jobs = [("ada", "", "simulate_traces_batched"), ("srsf1", "", "monte_carlo_fluid"),
+            ("srsf2", "", "monte_carlo_fluid"), ("ada", "ref", "simulate_traces_batched")]
     t0 = time.perf_counter()
     results = [_paper_batch(*job) for job in jobs]
     launches.launches = 0
@@ -1091,7 +1503,7 @@ def main() -> int:
     torch.cuda.synchronize()
     over = {"recs": [dataclasses.asdict(r) for r in recs], "chunks": recs[0].chunks,
             "wall": time.perf_counter() - t1, "launches": launches.launches}
-    _log(f"main path: 5 paper batches + oversub_fabric, one at a time, wall "
+    _log(f"main path: 4 paper batches + oversub_fabric, one at a time, wall "
          f"{time.perf_counter() - t0:.3f} s")
 
     # ---- 6. small inputs: card vs CPU ---------------------------------------
@@ -1108,127 +1520,74 @@ def main() -> int:
 
     chunk_steps = fluidsim.FluidSimConfig().chunk_steps
     main_launches, executed = 0, 0
-    for (comm, impl, entry, graph), res in zip(jobs, results):
-        tag = (f"paper {comm} ({entry}{', plain step core' if impl else ''}"
-               f"{', CUDA graph' if graph else ', eager'})")
+    for (comm, impl, entry), res in zip(jobs, results):
+        tag = f"paper {comm} ({entry}{', plain step core' if impl else ''}, CUDA graph)"
         ticks = _summary(tag, res, chunk_steps)
         for cap in res.get("captures", []):
             _log(f"  capture at {cap['lanes']} lanes x {cap['jobs']} jobs: eager first block "
                  f"{cap['warmup_s']:.4f} s, recording {cap['capture_s']:.4f} s, "
                  f"instantiation {cap['instantiate_s']:.4f} s")
-        _require(bool(res.get("captures")) == (graph and entry == "simulate_traces_batched"),
+        _require(bool(res.get("captures")) == (entry == "simulate_traces_batched"),
                  f"{tag}: captures")
         if impl:
             _require(res["launches"] == 0, f"{tag}: the plain run launched the kernel")
-        elif not graph:
-            _require(res["launches"] == ticks, f"{tag}: one launch per executed tick")
         else:
             main_launches += res["launches"]
             executed += ticks
     executed += _summary("oversub_fabric ada rack_pack (monte_carlo_fluid, D=20, CUDA graph)",
                          over, chunk_steps)
     main_launches += over["launches"]
-    ada, ada_ref, ada_eager = results[0], results[3], results[4]
+    ada, ada_ref = results[0], results[3]
     _log(f"paper ada: port chunks {ada['chunks']}, JAX reference on the CPU "
          f"{REFERENCE_CPU_CHUNKS_ADA}")
     _log(f"main path: fluid_step_core launches {main_launches} (counted over graph replays), "
          f"executed ticks {executed}")
     _require(main_launches > 0 and main_launches == executed, "one launch per executed tick")
-    for other, what in ((ada_ref, "plain step core in the graph"), (ada_eager, "eager kernel")):
-        _require((other["finished"] == ada["finished"]).all(), f"finished mask differs: {what}")
-        _require((other["jct"] == ada["jct"]).all(), f"finish ticks differ: {what}")
-        _require(other["chunks"] == ada["chunks"], f"chunk counts differ: {what}")
-    _log("paper ada on the card, kernel in the graph vs plain step core in the graph vs kernel "
-         "eagerly: identical finished mask, finish ticks and chunk count")
+    _check_same("paper ada, plain step core in the graph", ada_ref, ada)
+    _log("paper ada on the card, kernel in the graph vs plain step core in the graph: "
+         "identical finished mask, finish ticks and chunk count (the eager run is in phase 10)")
 
     # ---- 7. host cost: one chunk of the ada batch, alone on the card --------
-    from torch.profiler import ProfilerActivity, profile
-
     paper = [get_scenario("paper", seed=s, **PAPER_CUT) for s in SEEDS]
     cfg = fluid_config(paper[0], comm="ada", placement="lwf")
     batch = fluidsim.stack_traces(
         [fluidsim.trace_from_jobs(s.job_list(), device=dev) for s in paper]
     )
-    statics = fluidsim._Statics(cfg, dev)
-    state0 = fluidsim._init_lane_state(batch, cfg, statics.n_domains)
-    state0 = fluidsim._lane_chunk(batch, state0, cfg, statics)  # past the start
-    ticks = cfg.chunk_steps
+    paper_tick = _tick_cost(torch, "paper ada batch, 8 lanes x 160 jobs", batch, cfg,
+                            blocks=(8, 16, 32, cfg.chunk_steps))
 
-    def _runner(graph: bool, block: int = fluidsim.BLOCK_TICKS, impl: str = ""):
-        """A chunk runner from ``state0``; a graph runner is captured by a
-        first chunk, timed here."""
-        r = fluidsim._ChunkRunner(batch, {n: v.clone() for n, v in state0.items()},
-                                  dataclasses.replace(cfg, kernel=impl), statics,
-                                  block=block, graph=graph)
-        t1 = time.perf_counter()
-        r.run_chunk()
-        torch.cuda.synchronize()
-        r.first_chunk_s = time.perf_counter() - t1
-        return r
+    # ---- 8. the step kernel with its overlap plane --------------------------
+    overlap_rows = _overlap_kernel_phase(torch, dev)
 
-    def _chunk(r):
-        """(host wall ms, CUDA-event ms) per tick of one chunk from state0."""
-        for n, v in r.state.items():
-            v.copy_(state0[n])
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        start.record()
-        r.run_chunk()
-        stop.record()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t1) / ticks * 1e3, start.elapsed_time(stop) / ticks
+    # ---- 9. the WFBP and exact k-way main path -------------------------------
+    t0 = time.perf_counter()
+    wfbp_main, wfbp_launches, wfbp_ticks = _main_wfbp_phase(torch, chunk_steps)
+    _log(f"main path, WFBP and k-way: {len(MAIN_WFBP)} batches, one at a time, wall "
+         f"{time.perf_counter() - t0:.3f} s; fluid_step_core launches {wfbp_launches} "
+         f"(counted over graph replays), executed ticks {wfbp_ticks}")
+    _require(wfbp_launches == wfbp_ticks > 0, "one launch per executed tick")
 
-    def _device_ms(r):
-        """Device time per tick by the profiler (kernels and copies), and
-        their number per tick."""
-        for n, v in r.state.items():
-            v.copy_(state0[n])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            r.run_chunk()
-            torch.cuda.synchronize()
-        on_device = [e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-        return (sum(e.self_device_time_total for e in on_device) / 1e3 / ticks,
-                sum(e.count for e in on_device) / ticks)
+    # ---- 10./11. plain core and eager; card against CPU ----------------------
+    _wfbp_checks_phase(torch, dev, {**wfbp_main, "paper ada": ada}, chunk_steps)
 
-    # ticks per captured block: capture and instantiation cost against replay
-    for block in (8, 16, 32, ticks):
-        r = _runner(True, block=block)
-        walls = [_chunk(r) for _ in range(2)]
-        _log(f"block of {block} ticks: first chunk (eager block, capture, instantiation, "
-             f"replays) {r.first_chunk_s:.4f} s: eager block {r.timing['warmup_s']:.4f} s, "
-             f"recording {r.timing['capture_s']:.4f} s, instantiation "
-             f"{r.timing['instantiate_s']:.4f} s; then wall per tick "
-             f"{[round(w, 6) for w, _ in walls]} ms")
-        r.release()
+    # ---- 12. per tick: one model_zoo chunk through the graph -----------------
+    zoo = [get_scenario("model_zoo", seed=s, **ZOO_CUT) for s in SEEDS]
+    zoo_cfg = fluid_config(zoo[0], comm="ada", placement="lwf")
+    zoo_batch = fluidsim.stack_traces(
+        [fluidsim.trace_from_jobs(s.job_list(), fusion=s.fusion, device=dev) for s in zoo])
+    zoo_tick = _tick_cost(torch, "model_zoo ada batch, 8 lanes x 48 jobs, 64 MB buckets",
+                          zoo_batch, zoo_cfg, plain=False)
+    for mode in ("graph", "eager"):
+        (w, d, n), (pw, pd, pn) = zoo_tick[mode], paper_tick[mode]
+        _log(f"per tick, {mode}: WFBP model_zoo tick wall {w:.6f} ms, device {d:.6f} ms in "
+             f"{n:.2f} kernels and copies; monolithic paper tick (phase 7) wall {pw:.6f} ms, "
+             f"device {pd:.6f} ms in {pn:.2f}")
 
-    runners = {"graph": _runner(True), "eager": _runner(False),
-               "graph, plain step core": _runner(True, impl="ref")}
-    per_tick = {}
-    for mode in ("graph", "eager", "eager", "graph", "graph, plain step core"):
-        per_tick.setdefault(mode, []).append(_chunk(runners[mode]))
-    for mode, r in runners.items():
-        wall = min(w for w, _ in per_tick[mode])
-        events = min(e for _, e in per_tick[mode])
-        dev_ms, n_ops = _device_ms(r)
-        idle = f"{1 - dev_ms / wall:.4f}" if dev_ms > 0 else "not measured"
-        _log(f"host cost, {mode} (paper ada batch, 8 lanes x 160 jobs, one chunk of {ticks} "
-             f"ticks in blocks of {r.block}, alone on the card): wall per tick "
-             f"{[round(w, 6) for w, _ in per_tick[mode]]} ms, CUDA events per tick "
-             f"{[round(e, 6) for _, e in per_tick[mode]]} ms; device time per tick (profiler) "
-             f"{dev_ms:.6f} ms in {n_ops:.2f} kernels and copies; device idle share {idle} "
-             f"(events: {1 - dev_ms / events:.4f})")
-        if mode == "eager":
-            _require(dev_ms > 0, "the profiler saw the eager chunk's device time")
-        r.release()
-    del runners
-    # ---- 8.-12. the SSD decode-step kernel and the serving path -----------
+    # ---- 13.-17. the SSD decode-step kernel and the serving path ----------
     ssd = _ssd_kernel_phase(torch, dev)
     ssd["launches"] = _serve_phases(torch, dev)
 
-    # ---- 13.-18. the flash-attention kernel and dense serving --------------
+    # ---- 18.-23. the flash-attention kernel and dense serving --------------
     flash = _flash_kernel_phase(torch, dev)
     flash["launches"] = _dense_serve_phases(torch, dev)
 
@@ -1237,7 +1596,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/fluidstep/csrc/fluid_step.cu",
         "replaces": "src/repro/kernels/fluidstep/kernel.py:35",
-        "launches": main_launches,
+        "launches": main_launches + wfbp_launches,
         "max_abs_err": max_abs,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -20,12 +20,16 @@ coefficients taken as float32, first-index ``argmin`` ties, and the same
 next-event skip, live freeze and lane/job compaction, so the finished mask
 and every finish tick match the reference.
 
-The slice ported so far: monolithic traces (``fusion="all"``), the
-threshold gating policies (``ada``, ``srsfN``), the deterministic gang
-placements (``consolidate``/``first_fit``/``least_loaded``/``rack_pack``),
-any static fabric.  WFBP bucket streams, ``gating="rounds"``, exact k-way
-policies and the ``random`` placement raise ``NotImplementedError`` (see
-ROADMAP.md queue 1).
+Ported: monolithic traces and WFBP bucket streams (``fusion`` "all",
+"none" or a byte threshold: each job's gradient exchange drains as a FIFO
+stream of buckets, gated per bucket, with the one-shot gating closure
+``gating="fixedpoint"`` or the legacy four rounds ``gating="rounds"``),
+the threshold gating policies (``ada``, ``srsfN``) and the exact k-way
+lookahead (``kwayK``), the deterministic gang placements
+(``consolidate``/``first_fit``/``least_loaded``/``rack_pack``), any static
+fabric.  Under WFBP or exact k-way the step core also returns the ``(L, J,
+J)`` overlap plane.  The ``random`` placement needs a threefry port and
+raises ``NotImplementedError`` (ROADMAP.md queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -59,9 +63,8 @@ _F32 = torch.float32
 _I32 = torch.int32
 
 #: State leaves that carry the job axis (second axis), compacted with it.
-_JOB_LEAVES = ("phase", "loads", "iters_left", "rem", "servers", "finish", "started")
-
-_NOT_PORTED = "not ported yet; see ROADMAP.md queue 1"
+_JOB_LEAVES = ("phase", "loads", "iters_left", "rem", "servers", "finish", "started",
+               "bucket")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +78,7 @@ class FluidSimConfig:
     gpus_per_server: int = 4
     dt: float = 0.05          # [s]
     max_steps: int = 400_000  # dt * max_steps = simulated horizon cap
-    policy: str = "ada"       # ada | srsfN (kwayK not ported)
+    policy: str = "ada"       # ada | srsfN | kwayK
     placement: str = "consolidate"
     a: float = ContentionParams().a
     b: float = ContentionParams().b
@@ -97,16 +100,14 @@ class FluidSimConfig:
                 f"unknown gating mode {self.gating!r}: expected "
                 "'fixedpoint' or 'rounds'"
             )
-        if self.gating == "rounds":
-            raise NotImplementedError(f"gating='rounds' is {_NOT_PORTED}")
         if self.chunk_steps < 1:
             raise ValueError(f"chunk_steps must be >= 1, got {self.chunk_steps}")
-        if netmodel.parse_policy(self.policy).exact_lookahead:
-            raise NotImplementedError(
-                f"exact k-way policy {self.policy!r} is {_NOT_PORTED}"
-            )
+        netmodel.parse_policy(self.policy)
         if netmodel.canonical_placement(self.placement) == "random":
-            raise NotImplementedError(f"placement 'random' is {_NOT_PORTED}")
+            raise NotImplementedError(
+                "placement 'random' draws from jax.random and is not ported yet; "
+                "see ROADMAP.md queue 1, item 4 (threefry)"
+            )
         if self.kernel and self.kernel not in FLUID_KERNEL_IMPLS:
             raise ValueError(
                 f"unknown fluid step impl {self.kernel!r}; expected '' or one "
@@ -132,6 +133,8 @@ class _Statics:
         spec = netmodel.parse_policy(cfg.policy)
         self.max_ways = spec.max_ways
         self.gated = spec.threshold_gated
+        self.exact_kway = spec.exact_lookahead
+        self.eta_over_b = cfg.eta / cfg.b
         self.placement = netmodel.canonical_placement(cfg.placement)
         self.bw = torch.tensor(
             netmodel.server_bandwidth_array(cfg.server_bandwidth, ns),
@@ -156,17 +159,39 @@ class _Statics:
         self.compute, self.comm, self.done = i32(COMPUTE), i32(COMM), i32(DONE)
 
 
+def _is_wfbp(trace: Dict[str, torch.Tensor]) -> bool:
+    """A multi-bucket trace: the reference keys its WFBP step on a bucket
+    axis wider than 1 (a ``(L, J, 1)`` plane runs the monolithic step)."""
+    bb = trace.get("bucket_bytes")
+    return bb is not None and int(bb.shape[-1]) > 1
+
+
 def _trace_consts(trace: Dict[str, torch.Tensor], cfg: FluidSimConfig, inv_dt: float):
     """Per-trace constants the reference derives inside its step:
-    contention-free comm seconds, GPU counts as float, the ticks of one
-    compute segment, and the job index."""
+    contention-free comm seconds of a whole iteration (under WFBP the sum
+    over live buckets, each paying the latency ``a``) and of each bucket,
+    GPU counts as float, the ticks of one compute segment, the job index
+    and, where the step needs the overlap plane, ``~eye(J)``.  Built once
+    per batch shape, as a CUDA graph reads them by address."""
     n_jobs = trace["arrival"].shape[1]
-    return {
-        "comm_total": trace["msg_bytes"] * cfg.b + cfg.a,
+    dev = trace["arrival"].device
+    out = {
         "n_gpus_f": trace["n_gpus"].to(_F32),
         "k_iter": torch.clamp(_ticks_to_zero(trace["t_iter"], inv_dt), min=1),
-        "job_index": torch.arange(n_jobs, device=trace["arrival"].device),
+        "job_index": torch.arange(n_jobs, device=dev),
+        "wfbp": _is_wfbp(trace),
     }
+    if out["wfbp"]:
+        bucket_t = trace["bucket_bytes"] * cfg.b + cfg.a  # (L, J, B)
+        b_max = int(bucket_t.shape[-1])
+        live = torch.arange(b_max, device=dev) < trace["n_buckets"][..., None]
+        out["bucket_t"] = bucket_t
+        out["comm_total"] = torch.where(live, bucket_t, torch.zeros((), device=dev)).sum(-1)
+    else:
+        out["comm_total"] = trace["msg_bytes"] * cfg.b + cfg.a
+    if out["wfbp"] or netmodel.parse_policy(cfg.policy).exact_lookahead:
+        out["not_eye"] = ~torch.eye(n_jobs, dtype=torch.bool, device=dev)
+    return out
 
 
 def _place(free, free_total, want, rank_key, k: _Statics):
@@ -186,7 +211,8 @@ def _place(free, free_total, want, rank_key, k: _Statics):
 def _init_lane_state(trace: Dict[str, torch.Tensor], cfg: FluidSimConfig,
                      n_domains: int) -> Dict[str, torch.Tensor]:
     """Initial state of every lane (the reference's layout with a lane
-    axis): padded jobs (``valid`` False) start DONE."""
+    axis, and each job's current ``bucket`` under WFBP): padded jobs
+    (``valid`` False) start DONE."""
     n_lanes, n_jobs = trace["arrival"].shape
     dev = trace["arrival"].device
     ns = cfg.n_servers
@@ -203,6 +229,8 @@ def _init_lane_state(trace: Dict[str, torch.Tensor], cfg: FluidSimConfig,
         "n_done": torch.zeros((n_lanes,), dtype=_I32, device=dev),
         "i": torch.zeros((n_lanes,), dtype=_I32, device=dev),
         "started": torch.zeros((n_lanes, n_jobs), dtype=torch.bool, device=dev),
+        **({"bucket": torch.zeros((n_lanes, n_jobs), dtype=_I32, device=dev)}
+           if _is_wfbp(trace) else {}),
     }
 
 
@@ -211,6 +239,7 @@ def _lane_step(tr, c, st, k: _Statics, cfg: FluidSimConfig):
     (``cfg.skip``) the bulk advance of the following eventless ticks.  Each
     line mirrors ``jaxsim._make_lane_step.step``."""
     dt = cfg.dt
+    wfbp, exact = c["wfbp"], k.exact_kway
     i_new = st["i"] + 1
     # clock derived from the integer tick counter (no accumulated drift)
     t = i_new.to(_F32) * dt
@@ -268,8 +297,9 @@ def _lane_step(tr, c, st, k: _Statics, cfg: FluidSimConfig):
     active = in_comm & started & (rem > 0)
     core = fluid_step_core(
         loads, member.to(_F32), active, rem, k.bw, k.oversub,
-        b=cfg.b, eta=cfg.eta, need_overlap=False, impl=cfg.kernel,
+        b=cfg.b, eta=cfg.eta, need_overlap=wfbp or exact, impl=cfg.kernel,
     )
+    overlap = core["overlap"]
 
     # ---- drain compute -----------------------------------------------------
     is_comp = phase == COMPUTE
@@ -278,16 +308,55 @@ def _lane_step(tr, c, st, k: _Statics, cfg: FluidSimConfig):
     to_comm = comp_done & spans
     iter_done_direct = comp_done & ~spans
 
-    # ---- comm gating: one start per tick, smallest remaining service -----
+    # ---- comm gating -------------------------------------------------------
+    # a waiting WFBP job's rem is its current bucket's cost: gating decides
+    # per bucket
+    new_cost = rem if wfbp else comm_total
     waiting = in_comm & ~started
-    start_ok = waiting & netmodel.may_start_dynamic(
-        core["k_would"], comm_total, core["min_old_rem"], k.max_ways, k.gated,
-        cfg.dual_threshold,
-    )
-    pick_c = torch.where(start_ok, rem_service, k.inf).argmin(-1, keepdim=True)
-    start_now = (c["job_index"] == pick_c) & start_ok
-    started = started | start_now
-    leftover = start_ok & ~start_now
+
+    def may_start_vs(k_would, min_old_rem, olds):
+        if exact:
+            return netmodel.may_start_dynamic(
+                k_would, new_cost, min_old_rem, k.max_ways, k.gated, cfg.dual_threshold,
+                exact_kway_olds=olds, rem=rem, eta_over_b=k.eta_over_b,
+            )
+        return netmodel.may_start_dynamic(
+            k_would, new_cost, min_old_rem, k.max_ways, k.gated, cfg.dual_threshold,
+        )
+
+    # round 1 against the base active set, on the core's outputs
+    olds0 = overlap & active[:, None, :] if overlap is not None else None
+    start_ok = waiting & may_start_vs(core["k_would"], core["min_old_rem"], olds0)
+    if wfbp and cfg.gating == "fixedpoint":
+        # the one-shot greedy closure in place of the four rounds
+        accept = netmodel.gating_fixed_point(
+            start_ok, rem_service, loads, core["counts"], overlap, active, rem,
+            new_cost, k.max_ways, k.gated, cfg.dual_threshold,
+            exact_kway=exact, eta_over_b=k.eta_over_b,
+            not_eye=c["not_eye"], job_index=c["job_index"],
+        )
+        started = started | accept
+        leftover = start_ok & ~accept
+    else:
+        # one start per tick, smallest remaining service first
+        pick_c = torch.where(start_ok, rem_service, k.inf).argmin(-1, keepdim=True)
+        start_now = (c["job_index"] == pick_c) & start_ok
+        started = started | start_now
+        leftover = start_ok & ~start_now
+        if wfbp:
+            # gating="rounds": three more rounds, each against the contention
+            # state with the earlier rounds' starts, one start each
+            for _ in range(3):
+                active_now = in_comm & started & (rem > 0)
+                counts_now = netmodel.domain_counts(loads, active_now)
+                k_would = netmodel.domain_k(loads, counts_now, extra=1)
+                olds_now = overlap & active_now[:, None, :]
+                min_old_rem = torch.where(olds_now, rem[:, None, :], k.inf).amin(-1)
+                ok = (in_comm & ~started) & may_start_vs(k_would, min_old_rem, olds_now)
+                pick_c = torch.where(ok, rem_service, k.inf).argmin(-1, keepdim=True)
+                started = started | ((c["job_index"] == pick_c) & ok)
+            # the skip's guard: any waiter blocks bulk advancement
+            leftover = in_comm & ~started
 
     # ---- drain comm at the slowest-member-scaled Eq. 5 rate ---------------
     ratio = core["ratio"]
@@ -296,14 +365,31 @@ def _lane_step(tr, c, st, k: _Statics, cfg: FluidSimConfig):
     comm_done = draining & (rem <= 0)
 
     # ---- iteration bookkeeping --------------------------------------------
-    iter_done = iter_done_direct | comm_done
+    # WFBP bucket stream: a finished bucket with buckets left hands the next
+    # one to gating afresh; only the last bucket ends the iteration
+    if wfbp:
+        next_b = st["bucket"] + 1
+        more_buckets = comm_done & (next_b < tr["n_buckets"])
+        iter_done = iter_done_direct | (comm_done & ~more_buckets)
+    else:
+        iter_done = iter_done_direct | comm_done
     iters_left = st["iters_left"] - iter_done.to(_F32)
     job_done = iter_done & (iters_left <= 0)
     next_compute = iter_done & ~job_done
 
     phase = torch.where(to_comm, k.comm, phase)
-    rem = torch.where(to_comm, comm_total, rem)
-    started = started & ~(to_comm | iter_done)
+    if wfbp:
+        bucket_t = c["bucket_t"]
+        rem = torch.where(to_comm, bucket_t[..., 0], rem)
+        bucket = torch.where(to_comm, k.zero_i, st["bucket"])
+        last = bucket_t.shape[-1] - 1
+        next_t = bucket_t.gather(-1, next_b.clamp(0, last).long()[..., None])[..., 0]
+        rem = torch.where(more_buckets, next_t, rem)
+        bucket = torch.where(more_buckets, next_b, bucket)
+        started = started & ~(to_comm | iter_done | more_buckets)
+    else:
+        rem = torch.where(to_comm, comm_total, rem)
+        started = started & ~(to_comm | iter_done)
     phase = torch.where(next_compute, k.compute, phase)
     rem = torch.where(next_compute, tr["t_iter"], rem)
     phase = torch.where(job_done, k.done, phase)
@@ -325,6 +411,8 @@ def _lane_step(tr, c, st, k: _Statics, cfg: FluidSimConfig):
         "i": i_new,
         "started": started,
     }
+    if wfbp:
+        new_state["bucket"] = bucket
     if not cfg.skip:
         return new_state
 
@@ -338,7 +426,14 @@ def _lane_step(tr, c, st, k: _Statics, cfg: FluidSimConfig):
     ratio2 = (ratio / netmodel.rate_ratio(core["k_eff"], cfg.b, cfg.eta)) * netmodel.rate_ratio(
         k_eff2, cfg.b, cfg.eta
     )
+    # gating must re-run next tick after a passing candidate was left, a
+    # completion while transfers wait, a barrier or fresh bucket, and under
+    # exact k-way (a cost comparison, not monotone in time) while any waits
     gate_block = leftover.any(-1) | (comm_done.any(-1) & waiting2) | to_comm.any(-1)
+    if wfbp:
+        gate_block = gate_block | more_buckets.any(-1)
+    if exact:
+        gate_block = gate_block | waiting2
     fits2 = n_gpus_f <= free.sum(-1, keepdim=True)
     cap_arr = torch.where(
         (phase == QUEUED) & fits2,
@@ -506,10 +601,12 @@ def _next_pow2(n: int) -> int:
 
 def _drive_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig, *,
                    graph: Optional[bool] = None) -> Dict[str, object]:
-    """Host driver: chunks with early exit and (``cfg.compact``) lane/job
-    compaction, as the reference's ``_drive_batched``.  Returns numpy
-    result planes shaped like the input batch, the number of chunks, and
-    per batch shape the seconds its graph capture took (``captures``).
+    """Host driver: chunks with early exit and (``cfg.compact``)
+    lane/job/bucket compaction, as the reference's ``_drive_batched``.
+    Returns numpy result planes shaped like the input batch, the number of
+    chunks, per batch shape the seconds its graph capture took
+    (``captures``), and the bucket-axis width of each batch shape run
+    (``bucket_widths``, empty for monolithic traces).
 
     ``graph`` is for the tests and chip_smoke.py: None (the default)
     replays each chunk's blocks from a CUDA graph on the card and runs them
@@ -535,6 +632,8 @@ def _drive_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig, *,
     state = _init_lane_state(traces, cfg, k.n_domains)
     runner = _ChunkRunner(traces, state, cfg, k, block=block, graph=graph)
     captures = []
+    wfbp = _is_wfbp(traces)
+    bucket_widths = [int(traces["bucket_bytes"].shape[-1])] if wfbp else []
     chunks = 0
     while True:
         fresh = runner.graph is None
@@ -591,6 +690,12 @@ def _drive_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig, *,
             for name, v in state.items()
         }
         state["n_done"] = (state["phase"] == DONE).sum(1, dtype=_I32)
+        if wfbp:
+            # keep >= 2 bucket columns: one would turn the WFBP step off
+            b_need = max(2, int(traces["n_buckets"].max()))
+            if b_need < traces["bucket_bytes"].shape[-1]:
+                traces["bucket_bytes"] = traces["bucket_bytes"][..., :b_need].contiguous()
+            bucket_widths.append(int(traces["bucket_bytes"].shape[-1]))
         orig = np.concatenate([orig[live], np.full(lanes_new - n_live, -1, orig.dtype)])
         # the new shape's buffers, and a new capture; the old graph and
         # its memory pool go
@@ -599,13 +704,8 @@ def _drive_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig, *,
     runner.release()
     results["chunks"] = chunks
     results["captures"] = captures
+    results["bucket_widths"] = bucket_widths
     return results
-
-
-def _check_monolithic(traces: Dict[str, object]) -> None:
-    bb = traces.get("bucket_bytes")
-    if bb is not None and int(bb.shape[-1]) > 1:
-        raise NotImplementedError(f"WFBP multi-bucket traces are {_NOT_PORTED}")
 
 
 def simulate_traces_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig, *,
@@ -613,15 +713,12 @@ def simulate_traces_batched(traces: Dict[str, torch.Tensor], cfg: FluidSimConfig
     """Simulate a stacked batch of traces (leading axis = seed, see
     :func:`stack_traces`) on ``cfg.device``.  Returns numpy ``jct`` and
     ``finished`` ``(L, J)``, ``makespan`` ``(L,)``, the number of
-    ``chunks`` the driver ran and the graph ``captures``.  On the card each
-    chunk is replayed from a CUDA graph; ``_graph=False`` (for the tests
-    and chip_smoke.py) runs it eagerly, see :func:`_drive_batched`."""
-    _check_monolithic(traces)
+    ``chunks`` the driver ran, the graph ``captures`` and the
+    ``bucket_widths``.  On the card each chunk is replayed from a CUDA
+    graph; ``_graph=False`` (for the tests and chip_smoke.py) runs it
+    eagerly, see :func:`_drive_batched`."""
     device = resolve_device(cfg.device)
-    traces = {
-        name: torch.as_tensor(v).to(device)
-        for name, v in traces.items() if name not in ("bucket_bytes", "n_buckets")
-    }
+    traces = {name: torch.as_tensor(v).to(device) for name, v in traces.items()}
     return _drive_batched(traces, cfg, graph=_graph)
 
 
@@ -638,38 +735,64 @@ def simulate_trace(trace: Dict[str, torch.Tensor], cfg: FluidSimConfig):
 
 def trace_from_jobs(jobs, fusion: object = "all", device=None) -> Dict[str, torch.Tensor]:
     """``JobSpec`` list -> the struct-of-arrays trace the simulator
-    consumes, on ``device`` (None = CUDA).  Only monolithic traces
-    (``fusion="all"``) are ported."""
-    if netmodel.fusion_threshold(fusion) != float("inf"):
-        raise NotImplementedError(f"WFBP fusion {fusion!r} is {_NOT_PORTED}")
+    consumes, on ``device`` (None = CUDA).  A ``fusion`` other than "all"
+    adds the WFBP planes: ``bucket_bytes`` ``(J, B)`` (zero-padded) and
+    ``n_buckets`` ``(J,)`` from :func:`netmodel.fusion_plan` over each
+    model's layers; a model without layers is one bucket."""
     dev = resolve_device(device)
-    return {
+    tr = {
         "arrival": torch.tensor([j.arrival for j in jobs], dtype=_F32, device=dev),
         "iters": torch.tensor([j.iterations for j in jobs], dtype=_F32, device=dev),
         "t_iter": torch.tensor([j.model.t_iter_compute for j in jobs], dtype=_F32, device=dev),
         "msg_bytes": torch.tensor([j.model.size_bytes for j in jobs], dtype=_F32, device=dev),
         "n_gpus": torch.tensor([j.n_gpus for j in jobs], dtype=_I32, device=dev),
     }
+    thr = netmodel.fusion_threshold(fusion)
+    if thr == float("inf"):
+        return tr
+    plans = [
+        netmodel.fusion_plan(j.model.layer_grad_bytes, j.model.layer_t_b, thr)[0]
+        if j.model.has_layers else (j.model.size_bytes,)
+        for j in jobs
+    ]
+    bb = np.zeros((len(plans), max(len(p) for p in plans)), np.float32)
+    for i, plan in enumerate(plans):
+        bb[i, : len(plan)] = plan
+    tr["bucket_bytes"] = torch.from_numpy(bb).to(dev)
+    tr["n_buckets"] = torch.tensor([len(p) for p in plans], dtype=_I32, device=dev)
+    return tr
 
 
 def stack_traces(traces: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     """Stack per-seed traces into one rectangular batch, padding ragged job
-    counts with inert jobs masked out by a boolean ``valid`` plane."""
+    counts with inert jobs masked out by a boolean ``valid`` plane.  WFBP
+    planes are padded along the job and the bucket axis; when any lane
+    carries them, lanes without get monolithic ones."""
     if not traces:
         raise ValueError("need at least one trace to stack")
-    for tr in traces:
-        _check_monolithic(tr)
     n_max = max(int(tr["arrival"].shape[0]) for tr in traces)
+    has_buckets = any("bucket_bytes" in tr for tr in traces)
+    b_max = max((int(tr["bucket_bytes"].shape[-1]) for tr in traces if "bucket_bytes" in tr),
+                default=1)
     fills = {"arrival": 0.0, "iters": 1.0, "t_iter": 1.0, "msg_bytes": 0.0,
-             "n_gpus": 1, "valid": False}
+             "n_gpus": 1, "valid": False, "bucket_bytes": 0.0, "n_buckets": 1}
     out: Dict[str, List[torch.Tensor]] = {}
     for tr in traces:
         n = int(tr["arrival"].shape[0])
+        dev = tr["arrival"].device
         lane = dict(tr)
-        lane.setdefault("valid", torch.ones((n,), dtype=torch.bool, device=tr["arrival"].device))
+        lane.setdefault("valid", torch.ones((n,), dtype=torch.bool, device=dev))
+        if has_buckets and "bucket_bytes" not in lane:
+            lane["bucket_bytes"] = lane["msg_bytes"][:, None]
+            lane["n_buckets"] = torch.ones((n,), dtype=_I32, device=dev)
         for name, v in lane.items():
-            pad = torch.full((n_max - n,), fills[name], dtype=v.dtype, device=v.device)
-            out.setdefault(name, []).append(torch.cat([v, pad]))
+            if v.dim() == 2:  # (J, B): zero-fill both axes
+                v = torch.nn.functional.pad(v, (0, b_max - v.shape[1], 0, n_max - n),
+                                            value=fills[name])
+            else:
+                pad = torch.full((n_max - n,), fills[name], dtype=v.dtype, device=v.device)
+                v = torch.cat([v, pad])
+            out.setdefault(name, []).append(v)
     return {name: torch.stack(vs) for name, vs in out.items()}
 
 

@@ -3,27 +3,26 @@
 
 The scalar helpers (:class:`PolicySpec`, :func:`parse_policy`,
 :func:`canonical_placement`, :func:`server_bandwidth_array`,
-:func:`fusion_threshold`) are plain-Python copies.  The array functions are
-written for torch tensors with any number of leading batch axes (the fluid
-simulator puts its lane axis first); constants are built on the tensor's
+:func:`fusion_threshold`, :func:`fusion_plan`, :func:`plan_for_model`) are
+plain-Python copies.  The array functions are written for torch tensors
+with any number of leading batch axes (the fluid simulator puts its lane
+axis first, so a ``(J, J)`` matrix of the reference is ``(L, J, J)`` here
+and ``olds @ m`` a batched product); constants are built on the tensor's
 device.  Each one rounds as the reference does: same operations, same
 order, Python-float coefficients taken as float32.
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md queue
-1): the WFBP gating closure (:func:`gating_fixed_point`) and the exact
-k-way lookahead (:func:`kway_exact_start`).
+The ``random`` placement needs a threefry port and raises
+``NotImplementedError`` (ROADMAP.md queue 1, item 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-_NOT_PORTED = "not ported yet; see ROADMAP.md queue 1 (port of repro.core.netmodel.{})"
 
 # ---------------------------------------------------------------------------
 # Eq. (5) rate model and contention levels
@@ -73,7 +72,7 @@ def slowest_member_scale(bw: torch.Tensor, member_mask: torch.Tensor) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# Tensor fusion spec (only fusion="all" is ported)
+# Tensor fusion (wait-free backpropagation, WFBP)
 # ---------------------------------------------------------------------------
 
 
@@ -93,6 +92,48 @@ def fusion_threshold(fusion) -> float:
     if thr < 0:
         raise ValueError(f"fusion threshold must be >= 0, got {fusion}")
     return thr
+
+
+def fusion_plan(
+    layer_bytes: Sequence[float],
+    layer_t_b: Sequence[float],
+    threshold: float,
+) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
+    """Greedy WFBP tensor fusion over layers in backward-ready order:
+    layers accumulate into a bucket until it reaches ``threshold`` bytes,
+    then it seals (PyTorch DDP's ``bucket_cap``).  Returns per-bucket
+    gradient bytes and backward seconds; ``threshold=inf`` gives one
+    bucket, ``0`` one per layer, and both sums are preserved."""
+    if len(layer_bytes) != len(layer_t_b):
+        raise ValueError(
+            f"layer_bytes ({len(layer_bytes)}) and layer_t_b "
+            f"({len(layer_t_b)}) must align"
+        )
+    if not layer_bytes:
+        raise ValueError("fusion_plan needs at least one layer")
+    sizes: list = []
+    times: list = []
+    acc_b = acc_t = 0.0
+    for lb, lt in zip(layer_bytes, layer_t_b):
+        acc_b += float(lb)
+        acc_t += float(lt)
+        if acc_b >= threshold:
+            sizes.append(acc_b)
+            times.append(acc_t)
+            acc_b = acc_t = 0.0
+    if acc_b > 0.0 or acc_t > 0.0 or not sizes:
+        sizes.append(acc_b)
+        times.append(acc_t)
+    return tuple(sizes), tuple(times)
+
+
+def plan_for_model(model, fusion) -> Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]]:
+    """The fusion plan of one ``ModelProfile``, or None where the
+    monolithic path applies (``fusion="all"``, or no per-layer data)."""
+    thr = fusion_threshold(fusion)
+    if thr == float("inf") or not getattr(model, "layer_grad_bytes", ()):
+        return None
+    return fusion_plan(model.layer_grad_bytes, model.layer_t_b, thr)
 
 
 # ---------------------------------------------------------------------------
@@ -139,14 +180,19 @@ def may_start_dynamic(
     exact_kway_olds=None,
     rem=None,
     eta_over_b=None,
+    exact_tol: float = 1e-9,
 ):
     """Threshold gating predicate with runtime policy parameters: a start
     is allowed when uncontended (``k_would <= 1``), or under the cap
     ``max_ways`` and, for gated policies, passing Theorem 2's
     ``new_cost < dual_threshold * min_old_rem``.  ``threshold_gated`` is
-    a Python bool or a bool tensor."""
+    a Python bool or a bool tensor.  With ``exact_kway_olds`` (the
+    ``(..., J, J)`` in-flight overlap rows), ``rem`` and ``eta_over_b``
+    the test is :func:`kway_exact_start` instead."""
     if exact_kway_olds is not None:
-        raise NotImplementedError(_NOT_PORTED.format("kway_exact_start"))
+        return kway_exact_start(
+            new_cost, rem, exact_kway_olds, max_ways, eta_over_b, tol=exact_tol
+        )
     uncontended = k_would <= 1
     under_cap = k_would <= max_ways
     ratio_ok = new_cost < dual_threshold * min_old_rem
@@ -157,14 +203,106 @@ def may_start_dynamic(
     return uncontended | contended_ok
 
 
-def gating_fixed_point(*args, **kwargs):
-    """WFBP one-shot gating closure — not ported yet."""
-    raise NotImplementedError(_NOT_PORTED.format("gating_fixed_point"))
+def gating_fixed_point(
+    r1,
+    priority,
+    loads,
+    counts,
+    overlap,
+    active,
+    rem,
+    new_cost,
+    max_ways,
+    threshold_gated,
+    dual_threshold: float,
+    *,
+    exact_kway: bool = False,
+    eta_over_b=None,
+    not_eye,
+    job_index,
+):
+    """One-shot greedy closure of the per-tick WFBP re-gating loop: the
+    start set ``(r1 & r2) | c1``, where ``r1`` passes against the base
+    active set, ``r2`` passes the pessimistic test against the base set
+    plus every other ``r1`` candidate, and ``c1`` is the smallest-
+    ``priority`` ``r1`` candidate (first index on ties).  The reference's
+    docstring gives the antitone argument why this equals the sequential
+    loop's closure.
+
+    Shapes: ``r1``/``priority``/``active``/``rem``/``new_cost`` ``(..., J)``,
+    ``loads`` ``(..., J, D)``, ``counts`` ``(..., D)`` int32, ``overlap``
+    ``(..., J, J)`` bool.  ``not_eye`` (``~eye(J)``, bool) and
+    ``job_index`` (``arange(J)``) come prebuilt, so that a CUDA graph of
+    the tick allocates nothing for them."""
+    # pessimistic active set per candidate: base + (r1 minus itself)
+    counts2 = counts + domain_counts(loads, r1)
+    k_would2 = domain_k(loads, counts2)
+    olds2 = (overlap & (active | r1)[..., None, :]) & not_eye
+    big = 1e30  # finite "absent" sentinel: 0 * big stays NaN-free
+    o2 = olds2 * 1.0
+    min_old2 = (o2 * rem[..., None, :] + (1.0 - o2) * big).amin(-1)
+    if exact_kway:
+        r2 = kway_exact_start(new_cost, rem, olds2, max_ways, eta_over_b)
+    else:
+        r2 = may_start_dynamic(
+            k_would2, new_cost, min_old2, max_ways, threshold_gated, dual_threshold,
+        )
+    # greedy head: smallest-priority r1 candidate (round 1's start)
+    head = (r1 * priority + (1.0 - r1 * 1.0) * big).argmin(-1, keepdim=True)
+    c1 = r1 & (job_index == head)
+    return (r1 & r2) | c1
 
 
-def kway_exact_start(*args, **kwargs):
-    """Exact k-way lookahead gate — not ported yet."""
-    raise NotImplementedError(_NOT_PORTED.format("kway_exact_start"))
+def _pairwise_min(x, y):
+    """Elementwise min as the reference writes it, ``(x + y - |x - y|) / 2``
+    (broadcasting), so it rounds as the reference does."""
+    return 0.5 * (x + y - torch.abs(x - y))
+
+
+def kway_exact_start(
+    new_cost,
+    rem,
+    olds_mask,
+    max_ways,
+    eta_over_b,
+    tol: float = 1e-9,
+):
+    """Exact k-way AdaDUAL gate for every candidate: start now (option A,
+    ``olds + new`` simultaneous) iff its average finish time is strictly
+    smaller than waiting for the first old transfer to finish (option B),
+    or the candidate is uncontended; never when ``k + 1 > max_ways``.  The
+    closed form of the reference (finish time of ``x`` in a simultaneous
+    set: ``(1 + e) * sum_y min(s_x, s_y) - e * s_x``), with its quadratic
+    forms as batched products.
+
+    ``new_cost``/``rem`` are ``(..., J)`` float32, ``olds_mask`` the
+    ``(..., J, J)`` bool rows of in-flight tasks overlapping each
+    candidate; returns ``(..., J)`` bool."""
+    e = eta_over_b
+    big = 1e30  # f32-safe "no old task" sentinel
+    olds = olds_mask * 1.0  # (..., J, J) float mask
+    k = olds.sum(-1)  # (..., J) in-flight tasks overlapping each candidate
+    rem_row = rem[..., None, :]
+    m = _pairwise_min(rem[..., :, None], rem_row)  # (..., J, J) pairwise mins
+    # option A: olds + new simultaneous from now
+    q_a = ((olds @ m) * olds).sum(-1)
+    cross_a = (olds * _pairwise_min(new_cost[..., :, None], rem_row)).sum(-1)
+    pairmin_a = q_a + 2.0 * cross_a + new_cost
+    sum_a = (olds * rem_row).sum(-1) + new_cost
+    avg_a = ((1.0 + e) * pairmin_a - e * sum_a) / (k + 1.0)
+    # option B: wait for the first old to finish, then start
+    m_min = (rem_row * olds + big * (1.0 - olds)).amin(-1) * (k > 0)
+    t1 = m_min * (k + (k - 1.0) * e)
+    shifted = rem_row - m_min[..., :, None]  # survivor sizes after t1
+    sv = olds * (shifted > tol)
+    kp = sv.sum(-1)
+    q_sv = ((sv @ m) * sv).sum(-1) - kp * kp * m_min  # shifted quadratic form
+    cross_b = (sv * _pairwise_min(shifted, new_cost[..., :, None])).sum(-1)
+    pairmin_b = q_sv + 2.0 * cross_b + new_cost
+    sum_b = (sv * shifted).sum(-1) + new_cost
+    f_b = (1.0 + e) * pairmin_b - e * sum_b
+    avg_b = t1 + f_b / (k + 1.0)
+    return (k <= 0) | ((k + 1.0 <= max_ways) & (avg_a < avg_b))
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +367,7 @@ def placement_rank(mode: str, free: torch.Tensor, load: torch.Tensor,
     if mode == "random":
         raise NotImplementedError(
             "placement 'random' draws from jax.random and needs a threefry "
-            "port; see ROADMAP.md queue 1"
+            "port; see ROADMAP.md queue 1, item 4"
         )
     if mode == "rack_pack":
         if rank_extra is None:

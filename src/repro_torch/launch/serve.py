@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import served_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd.kernel import ssd_decode_step_cuda
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -201,7 +201,7 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu (plain PyTorch path)")
     args = ap.parse_args()
-    cfg = get_config(args.arch, reduced=args.reduced)
+    cfg = served_config(args.arch, reduced=args.reduced)
     res = serve_batch(cfg, args.batch, args.prompt_len, args.gen, args.seed,
                       device=args.device)
     print(

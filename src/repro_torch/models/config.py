@@ -1,9 +1,11 @@
 """Model configuration (port of ``repro/models/config.py``).
 
 A trimmed copy of ``ModelConfig``: the fields, derived sizes and analytic
-parameter count of the families the port serves so far, ``ssm``
-(mamba2-130m) and ``dense`` (llama3.2-1b).  The other families' fields
-(MoE, hybrid, enc-dec, vlm) come with their slices (ROADMAP).
+parameter count of the ``ssm``, ``dense`` and ``moe`` families.  The port
+serves ``ssm`` (mamba2-130m) and ``dense`` (llama3.2-1b) models; the MoE
+fields are here for the analytic per-layer counts the model zoo
+(:mod:`repro_torch.workloads`) reads, not for a model.  The hybrid, enc-dec
+and vlm fields come with their slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -38,12 +40,21 @@ class ModelConfig:
     # -- mlp ----------------------------------------------------------------
     d_ff: int = 0
     act: str = "swiglu"          # swiglu | geglu | gelu (plain 2-matrix MLP)
+    # -- MoE ----------------------------------------------------------------
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0            # 0 -> d_ff
+    moe_every: int = 1           # layer i is MoE iff i % moe_every == moe_offset
+    moe_offset: int = 0
+    dense_residual: bool = False  # arctic: dense FFN in parallel with MoE
     # -- SSM (Mamba-2 / SSD) --------------------------------------------------
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     ssm_conv_width: int = 4
     ssm_chunk: int = 128
+    # -- enc-dec (audio backbone) ---------------------------------------------
+    enc_layers: int = 0
     # -- sharding / padding ----------------------------------------------------
     padded_heads: int = 0        # pad q heads for TP divisibility (arctic)
     # -- bookkeeping ----------------------------------------------------------
@@ -71,6 +82,10 @@ class ModelConfig:
         return pad_to(self.vocab_size, VOCAB_PAD_MULTIPLE)
 
     @property
+    def moe_d_ff_(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
     def ssm_d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
@@ -78,20 +93,19 @@ class ModelConfig:
     def ssm_n_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
 
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        if self.n_experts == 0:
+            return False
+        return layer_idx % self.moe_every == self.moe_offset
+
     def param_count(self, padded: bool = False) -> int:
         """Total parameter count (analytic; excludes padding unless asked)."""
-        if self.family not in ("ssm", "dense"):
-            raise NotImplementedError(
-                f"the port's ModelConfig covers the ssm and dense families, not "
-                f"{self.family!r} (ROADMAP queue 1, item 8)"
-            )
         d = self.d_model
         vocab = self.padded_vocab if padded else self.vocab_size
         total = vocab * d  # tied embedding/lm-head
-        if self.family == "ssm":
-            total += self.n_layers * self._ssm_params()
-        else:
-            total += self.n_layers * (self._attn_params(padded) + self._mlp_params(self.d_ff))
+        total += sum(self._layer_params(i, padded) for i in range(self.n_layers))
+        if self.enc_layers:
+            total += self.enc_layers * self._enc_layer_params(padded)
         total += self.n_layers * 2 * d  # norms (approx: 2 per layer)
         return total
 
@@ -111,3 +125,26 @@ class ModelConfig:
         conv_dim = di + 2 * n
         in_proj = d * (2 * di + 2 * n + h)  # z, x, B, C, dt
         return in_proj + conv_dim * self.ssm_conv_width + di * d + 2 * h
+
+    def _layer_params(self, i: int, padded: bool, active_only: bool = False) -> int:
+        """Parameters of decoder layer ``i`` (``active_only``: a MoE layer's
+        routed experts only)."""
+        if self.family not in ("ssm", "dense", "moe"):
+            raise NotImplementedError(
+                f"the port's ModelConfig counts the ssm, dense and moe families, not "
+                f"{self.family!r} (ROADMAP queue 1, item 7)"
+            )
+        if self.family == "ssm":
+            return self._ssm_params()
+        mixer = self._attn_params(padded)
+        if self.is_moe_layer(i):
+            n_exp = self.experts_per_token if active_only else self.n_experts
+            mlp = n_exp * self._mlp_params(self.moe_d_ff_) + self.d_model * self.n_experts
+            if self.dense_residual:
+                mlp += self._mlp_params(self.d_ff)
+        else:
+            mlp = self._mlp_params(self.d_ff)
+        return mixer + mlp
+
+    def _enc_layer_params(self, padded: bool) -> int:
+        return self._attn_params(padded) + self._mlp_params(self.d_ff)

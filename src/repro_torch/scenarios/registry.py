@@ -1,6 +1,7 @@
 """Scenario registry (port of ``repro/scenarios/registry.py``, trimmed to
-what the fluid path reads: no event-engine scheduling, chaos or streaming
-fields — the reference's fluid path rejects those anyway).
+what the fluid path reads plus the event-engine fields the ported builders
+set; no chaos, checkpoint-cost or streaming fields, as the reference's
+fluid path rejects or ignores those).
 
 A scenario bundles a cluster shape, a job list and the contention model;
 builders are registered by name and instantiated with :func:`get_scenario`.
@@ -26,10 +27,21 @@ class Scenario:
     gpus_per_server: int
     jobs: Tuple[JobSpec, ...]
     params: ContentionParams
+    #: GPU memory [MB]; the event engine's admission reads it, the fluid
+    #: path (gang-exclusive placement) does not
+    gpu_mem_mb: float = 16160.0
     #: network fabric; None = the paper's NIC-only model
     topology: Optional[Topology] = None
-    #: WFBP tensor fusion; only 'all' (monolithic all-reduce) is ported
+    #: WFBP tensor fusion ('all' | 'none' | a byte threshold): how each
+    #: job's gradient exchange is bucketed (netmodel.fusion_plan) for models
+    #: with layer data; 'all' is the paper's monolithic all-reduce
     fusion: object = "all"
+    #: the event engine's job scheduling policy and its tick period, and
+    #: its one-job-per-GPU mode; the fluid path runs every scenario as
+    #: static gang scheduling and ignores them, as the reference's does
+    sched: str = "static"
+    preemption_quantum: Optional[float] = None
+    exclusive_gpus: bool = False
 
     def job_list(self) -> List[JobSpec]:
         return list(self.jobs)

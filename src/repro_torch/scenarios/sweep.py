@@ -33,8 +33,8 @@ COMM_ALIASES = {
     "ada_srsf": "ada",
 }
 
-#: The reference's fluid gating policies; kway2/kway3 (exact k-way) raise
-#: NotImplementedError in the port (FluidSimConfig).
+#: The reference's fluid gating policies: AdaDUAL, SRSF(n) and the exact
+#: k-way lookahead.
 FLUID_POLICIES = ("ada", "srsf1", "srsf2", "srsf3", "kway2", "kway3")
 
 
@@ -53,7 +53,10 @@ def fluid_config(
 ) -> FluidSimConfig:
     """FluidSimConfig for a scenario: bandwidth and fabric pass through,
     event placement names map to their gang analogues, ``fast_kw``
-    forwards ``skip``/``compact``/``chunk_steps``/``kernel``."""
+    forwards ``skip``/``gating``/``compact``/``chunk_steps``/``kernel``.
+    The scenario's event-engine scheduling fields (``sched``,
+    ``preemption_quantum``, ``exclusive_gpus``) do not reach the fluid
+    path: it runs static gang scheduling, as the reference's does."""
     comm = canonical_comm(comm)
     if comm not in FLUID_POLICIES:
         raise ValueError(f"fluid backend supports {FLUID_POLICIES}, got {comm!r}")

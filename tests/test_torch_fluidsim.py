@@ -26,7 +26,7 @@ from repro.core import jaxsim
 import repro_torch.scenarios as P
 from repro_torch.core import fluidsim
 
-from _torch_parity import CPU, lockstep, np_tree
+from _torch_parity import CPU, lockstep, np_tree, plain_chunk
 
 torch.set_num_threads(1)
 
@@ -83,18 +83,20 @@ class TestLockstep:
 
 class TestOutOfSlice:
     def test_not_ported_options_raise(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fluidsim.FluidSimConfig(policy="kway2")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        """Only the ``random`` placement (threefry, ROADMAP queue 1 item 4)
+        is left out of the fluid slice."""
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
             fluidsim.FluidSimConfig(placement="rand")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fluidsim.FluidSimConfig(gating="rounds")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fluidsim.trace_from_jobs(P.get_scenario("smoke").job_list(), fusion="none",
-                                     device="cpu")
-        bucketed = {"arrival": torch.zeros(2), "bucket_bytes": torch.ones(2, 3)}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fluidsim.stack_traces([bucketed])
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
+            fluidsim.FluidSimConfig(placement="random", policy="kway2", gating="rounds")
+        for kw in (dict(policy="kway2"), dict(policy="kway3"), dict(gating="rounds")):
+            fluidsim.FluidSimConfig(**kw)
+        tr = fluidsim.trace_from_jobs(P.get_scenario("smoke").job_list(), fusion="none",
+                                      device="cpu")
+        assert tr["bucket_bytes"].shape == (6, 1)
+        bucketed = {"arrival": torch.zeros(2), "bucket_bytes": torch.ones(2, 3),
+                    "n_buckets": torch.full((2,), 3, dtype=torch.int32)}
+        assert fluidsim.stack_traces([bucketed])["bucket_bytes"].shape == (1, 2, 3)
 
     def test_bad_options_raise(self):
         with pytest.raises(ValueError, match="gating"):
@@ -116,40 +118,30 @@ class TestOutOfSlice:
             fluidsim.simulate_traces_batched(tr, fluidsim.FluidSimConfig(n_servers=4))
 
 
-def _plain_chunk(trace, state, cfg, k):
-    """The chunk as one plain loop of ``chunk_steps`` ticks with the live
-    freeze, written out here independently of the block runner."""
-    c = fluidsim._trace_consts(trace, cfg, k.inv_dt)
-    n_jobs = trace["arrival"].shape[1]
-    for _ in range(cfg.chunk_steps):
-        live = (state["n_done"] < n_jobs) & (state["i"] < cfg.max_steps)
-        by_rank = (live, live[:, None], live[:, None, None])
-        new = fluidsim._lane_step(trace, c, state, k, cfg)
-        state = {name: torch.where(by_rank[v.dim() - 1], v, state[name])
-                 for name, v in new.items()}
-    return state
-
-
 class TestBlockRunner:
     @pytest.mark.parametrize("block", [1, 8, 256])
     @pytest.mark.parametrize(
         "name, comm, placement",
         [("paper", "ada", "lwf"), ("contended_residue", "srsf2", "ls"),
-         ("oversub_fabric", "srsf1", "rack_pack")],
+         ("oversub_fabric", "srsf1", "rack_pack"), ("model_zoo", "ada", "lwf"),
+         ("fusion_sweep", "kway2", "lwf"), ("contended_residue", "kway3", "ff")],
     )
     def test_blocks_match_plain_loop(self, name, comm, placement, block):
+        """Also with the ``bucket`` leaf (model_zoo at 64 MB buckets,
+        fusion_sweep at 32 MB) and the exact k-way lookahead."""
         scns = [P.get_scenario(name, seed=s, **P.QUICK_OVERRIDES[name]) for s in (0, 1)]
         cfg = P.fluid_config(scns[0], comm=comm, placement=placement, device="cpu")
         assert cfg.chunk_steps == 256
         trace = fluidsim.stack_traces(
-            [fluidsim.trace_from_jobs(s.job_list(), device="cpu") for s in scns])
+            [fluidsim.trace_from_jobs(s.job_list(), fusion=s.fusion, device="cpu")
+             for s in scns])
         k = fluidsim._Statics(cfg, CPU)
         want = fluidsim._init_lane_state(trace, cfg, k.n_domains)
         buffers = {n: v.clone() for n, v in want.items()}
         runner = fluidsim._ChunkRunner(trace, buffers, cfg, k, block=block)
         ptrs = {n: v.data_ptr() for n, v in buffers.items()}
         for chunk in range(2):
-            want = _plain_chunk(trace, want, cfg, k)
+            want = plain_chunk(trace, want, cfg, k)
             got = runner.run_chunk()
             assert got is buffers
             assert {n: v.data_ptr() for n, v in got.items()} == ptrs, "written in place"
@@ -167,7 +159,7 @@ class TestBlockRunner:
         state = fluidsim._init_lane_state(trace, cfg, k.n_domains)
         before = fluidsim.to_numpy(state)
         got = fluidsim._lane_chunk(trace, state, cfg, k)  # blocks of gcd(BLOCK_TICKS, 24)
-        want = _plain_chunk(trace, state, cfg, k)
+        want = plain_chunk(trace, state, cfg, k)
         for n, v in before.items():
             np.testing.assert_array_equal(state[n].numpy(), v, err_msg=n)
             np.testing.assert_array_equal(got[n].numpy(), want[n].numpy(), err_msg=n)

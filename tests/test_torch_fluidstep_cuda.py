@@ -11,10 +11,11 @@ contracted multiply-adds), int and bool planes exact.  Besides the main
 path's shapes, the grid holds the shapes a warp-parallel design gets wrong
 (J across warp edges, D at the 64-bit mask's edges, S that is not a
 half-warp), unaligned rows, and inputs with no active job, jobs without
-members, tied remainders and remainders over 34 decades.  The last test
-runs a small batch through ``simulate_traces_batched`` with each chunk
-replayed from a CUDA graph and eagerly: identical results, and the kernel
-counted once per executed tick.
+members, tied remainders and remainders over 34 decades, and the overlap
+plane at the WFBP and exact k-way main path's shapes.  The last tests run
+small batches through ``simulate_traces_batched`` with each chunk replayed
+from a CUDA graph and eagerly (and, on the WFBP and k-way paths, on the
+CPU): identical results, and the kernel counted once per executed tick.
 """
 
 import numpy as np
@@ -106,6 +107,18 @@ class TestCudaKernel:
             else:
                 np.testing.assert_array_equal(got[k], v, err_msg=k)  # bit-equal
 
+    @pytest.mark.parametrize("seed", range(3))
+    @pytest.mark.parametrize("shape", [(8, 48, 8, 8), (8, 160, 16, 16)],
+                             ids=["model_zoo", "paper"])
+    def test_overlap_plane_at_main_path_shapes(self, cuda_device, shape, seed):
+        """The WFBP and exact k-way step's call (``need_overlap=True``) at
+        the shapes chip_smoke.py's main path gives it: 8 lanes of 48 jobs
+        on 8 servers (model_zoo, NIC-only) and 8 x 160 jobs on 16 servers
+        (the paper batch under kway2)."""
+        lanes, n_jobs, n_servers, n_domains = shape
+        x = _rand_inputs(seed * 31 + n_jobs, lanes, n_jobs, n_servers, n_domains)
+        _assert_bit_equal(x, cuda_device, True)
+
     @pytest.mark.parametrize("n_jobs", [1, 31, 33, 1000])
     @pytest.mark.parametrize("n_domains", [1, 63, MAX_DOMAINS])
     @pytest.mark.parametrize("n_servers", [1, 16, 40])
@@ -174,3 +187,39 @@ def test_graph_matches_eager(cuda_device, kernel):
     assert len(g["captures"]) >= 2 and e["captures"] == []
     expected = g["chunks"] * cfg.chunk_steps if kernel == "" else 0
     assert g_launches == e_launches == expected
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name, comm, gating, overrides",
+    [("model_zoo", "ada", "fixedpoint", dict(n_jobs=12, min_iters=15, max_iters=60,
+                                             horizon_s=600.0, fusion=16e6)),
+     ("model_zoo", "kway2", "rounds", dict(n_jobs=12, min_iters=15, max_iters=60,
+                                           horizon_s=600.0, fusion="none")),
+     ("paper", "kway2", "fixedpoint", dict(n_jobs=24, min_iters=30, max_iters=120,
+                                           horizon_s=150.0))],
+)
+def test_wfbp_and_kway_graph_eager_cpu(cuda_device, name, comm, gating, overrides):
+    """WFBP bucket streams (both gating closures) and the exact k-way
+    lookahead through ``simulate_traces_batched``: the graph, eager on the
+    card and the CPU give identical finished masks, finish ticks and chunk
+    counts, and the kernel (with its overlap plane) is counted once per
+    executed tick."""
+    scns = [P.get_scenario(name, seed=s, **overrides) for s in range(3)]
+    runs = {}
+    for device, graph in ((cuda_device, True), (cuda_device, False), (torch.device("cpu"), None)):
+        cfg = P.fluid_config(scns[0], comm=comm, gating=gating, device=str(device))
+        batch = fluidsim.stack_traces([
+            fluidsim.trace_from_jobs(s.job_list(), fusion=s.fusion, device=device) for s in scns])
+        fluid_step_core_cuda.launches = 0
+        runs[(device.type, graph)] = (fluidsim.simulate_traces_batched(batch, cfg, _graph=graph),
+                                      fluid_step_core_cuda.launches)
+    g, g_launches = runs[("cuda", True)]
+    for key in (("cuda", False), ("cpu", None)):
+        other, launches = runs[key]
+        np.testing.assert_array_equal(other["finished"], g["finished"], err_msg=str(key))
+        np.testing.assert_array_equal(other["jct"], g["jct"], err_msg=str(key))
+        assert other["chunks"] == g["chunks"], key
+    assert g["finished"].sum() == sum(s.n_jobs for s in scns)
+    assert g_launches == runs[("cuda", False)][1] == g["chunks"] * 256
+    assert runs[("cpu", None)][1] == 0

@@ -253,14 +253,15 @@ class TestReferenceCases:
 
 class TestNotPorted:
     def test_raise_not_implemented(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            netmodel.gating_fixed_point()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            netmodel.kway_exact_start()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        """Only the ``random`` placement (threefry) is left; the gating
+        closure and the exact k-way lookahead run (held to the reference in
+        ``test_torch_wfbp.py``)."""
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
             netmodel.placement_rank("random", torch.ones(4), torch.ones(4), torch.arange(4.0))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            netmodel.may_start_dynamic(
-                torch.ones(2), torch.ones(2), torch.ones(2), 2, True, 0.4,
-                exact_kway_olds=torch.ones(2, 2, dtype=torch.bool),
-            )
+        olds = torch.ones(2, 2, dtype=torch.bool)
+        got = netmodel.may_start_dynamic(
+            torch.ones(2), torch.ones(2), torch.ones(2), 2, True, 0.4,
+            exact_kway_olds=olds, rem=torch.ones(2), eta_over_b=0.2,
+        )
+        assert torch.equal(got, netmodel.kway_exact_start(torch.ones(2), torch.ones(2), olds,
+                                                          2, 0.2))

@@ -27,15 +27,19 @@ import repro_torch.scenarios as P
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-NAMES = ("paper", "hetero_bandwidth", "contended_residue", "oversub_fabric", "smoke")
+NAMES = ("paper", "philly_heavy_tail", "bursty_diurnal", "hetero_bandwidth",
+         "large_job_dominated", "adversarial_allbig", "contended_residue", "oversub_fabric",
+         "rack_locality", "model_zoo", "fusion_sweep", "preemption_gain", "elastic_surge",
+         "smoke")
 #: a paper cut small enough for seconds-long CPU runs
 SMALL_PAPER = dict(n_jobs=12, min_iters=30, max_iters=120, horizon_s=150.0)
 
 
 def _job_tuple(j):
     m = j.model
-    return (j.job_id, j.arrival, j.n_gpus, j.iterations,
-            m.name, m.size_bytes, m.mem_mb, m.batch_size, m.t_f, m.t_b)
+    return (j.job_id, j.arrival, j.n_gpus, j.iterations, j.min_gpus, j.max_gpus,
+            m.name, m.size_bytes, m.mem_mb, m.batch_size, m.t_f, m.t_b,
+            m.layer_grad_bytes, m.layer_t_b)
 
 
 class TestScenarioCopies:
@@ -54,9 +58,10 @@ class TestScenarioCopies:
             assert [_job_tuple(j) for j in got.job_list()] == [
                 _job_tuple(j) for j in ref.job_list()
             ]
-            assert (got.n_servers, got.gpus_per_server, got.fusion) == (
-                ref.n_servers, ref.gpus_per_server, ref.fusion
-            )
+            fields = ("n_servers", "gpus_per_server", "fusion", "gpu_mem_mb", "sched",
+                      "preemption_quantum", "exclusive_gpus")
+            assert [getattr(got, f) for f in fields] == [getattr(ref, f) for f in fields]
+            assert ref.chaos is None and ref.source is None
             assert dataclasses.astuple(got.params) == dataclasses.astuple(ref.params)
             if ref.topology is None:
                 assert got.topology is None
@@ -99,8 +104,16 @@ class TestFluidConfig:
             P.fluid_config(P.get_scenario("smoke"), comm="fifo", device="cpu")
 
     def test_kway_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.fluid_config(P.get_scenario("smoke"), comm="kway2", device="cpu")
+        """The exact k-way policies and ``gating="rounds"`` are ported; only
+        the ``random`` placement raises."""
+        for comm in ("kway2", "kway3"):
+            ref = ref_fluid_config(R.get_scenario("fusion_sweep"), comm=comm, gating="rounds")
+            got = P.fluid_config(P.get_scenario("fusion_sweep"), comm=comm, gating="rounds",
+                                 device="cpu")
+            for f in dataclasses.fields(ref):
+                assert getattr(got, f.name) == getattr(ref, f.name), f.name
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
+            P.fluid_config(P.get_scenario("smoke"), placement="rand", device="cpu")
 
 
 def _assert_records(got, ref):

@@ -85,8 +85,19 @@ class TestConfig:
             assert got.param_count(padded=True) == ref.param_count(padded=True)
 
     def test_other_archs_raise(self):
+        """The zoo's archs have configs (their counts feed the model zoo),
+        but the port serves no model of them; the other archs have none."""
+        from repro_torch.configs import served_config
+
+        assert get_config("olmoe-1b-7b").family == "moe"
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config("olmoe-1b-7b")
+            plm.LM(get_config("olmoe-1b-7b"))
+        for arch in ("olmoe-1b-7b", "gemma-7b", "yi-9b", "phi4-mini-3.8b"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                served_config(arch)
+        assert served_config("mamba2-130m") is get_config("mamba2-130m")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config("jamba-v0.1-52b")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config("no-such-arch")
 
