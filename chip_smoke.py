@@ -128,19 +128,69 @@ Phases (any failed check raises, so the exit code is non-zero):
     on the CPU: identical generated tokens;
 23. one full-width prefill under the profiler (wall, device time, the
     flash kernel's share, device kernels, device idle share), then decode
-    steps through the CUDA graph and eagerly as in phase 17.
+    steps through the CUDA graph and eagerly as in phase 17;
+24. the threefry (``repro_torch.prng``) on the card against the CPU at odd
+    and large shapes: the bits of ``split``, ``fold_in`` (a key and a
+    vector of lane ticks), ``random_bits``, ``uniform`` (float32, bf16,
+    [1, 1200)), ``randint`` (a range wider than 2**24), ``choice(p=...)``,
+    ``categorical`` over (8, 128256) logits in float32 and bf16, and
+    ``gumbel`` identical; ``normal``'s max ulp printed (held to 2); then
+    the normal draw of llama's embedding table timed on the card;
+25. the training main path, with the flash launch count reset just before
+    it: ``repro_torch.launch.train.train`` at full-width llama3.2-1b (16
+    layers, 1,237,387,264 parameters, bf16 weights from ``PRNGKey(0)``,
+    float32 moments, lr 3e-4, batch 8 x seq 512, ``remat="none"``, 8
+    steps): exactly 16 x 8 flash launches (the forward's; the backward
+    recomputes the plain attention), every loss finite, the mean of the
+    last 3 below the first; step ms, tok/s and peak memory printed; then
+    mamba2-130m at full width (24 layers) with the same settings;
+26. the kernel against the plain attention in training on the card: the
+    reduced config in bf16, the loss of one step with the kernel and with
+    the plain attention within the bf16 bar (0.15), and every grad leaf
+    within 0.15 of its scale or, where larger, within the plain path's own
+    distance from the float32 gradient (this random model's bf16 gradient
+    is chaotic, ROADMAP R8: each path lies 0.4-1.2 of scale from the
+    float32 one), every leaf's numbers printed; at full width, layer by
+    layer along the plain path's residual stream, each layer's attention
+    output and its input grads from the same input and cotangent;
+27. the reduced config in float32 on the plain path, 4 training steps on
+    the card and on the CPU: losses to round-off (1e-5); a checkpoint at
+    step 2 on the card, the run resumed from it repeats the uninterrupted
+    run's losses (deterministic algorithms on for both runs: the
+    embedding's backward adds with atomics otherwise);
+28. one full-width llama training step under the profiler: device time,
+    the flash kernel's share, the backward recompute's share (a named
+    range), the AdamW update's share and its kernel count per leaf, device
+    idle share;
+29. the random placement on the card: the paper batch of phase 4 under
+    ``placement="random"`` (8 seeds, ada, through the CUDA graph; every job
+    finishes, one step-kernel launch per executed tick, counted from 0
+    just before), a small paper batch under ada and srsf2 on the card and
+    the CPU (identical finish ticks), and ``monte_carlo_jct(n_seeds=8,
+    n_jobs=64)`` on the card and on the CPU (a worker process started
+    before phase 13): identical sampled traces and ``per_seed``;
+30. sampled serving (``greedy=False``, temperature 0.8) at full width for
+    both families (every token in the vocab), and on the reduced float32
+    configs on the card (plain path) and the CPU: identical tokens, or the
+    step and the logit margin where they part, and the phase fails.
 
-Then the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
+Then the kernels line (JSON; the flash kernel's launches are the serving
+and the training main paths', the fluid step's include phase 29's) and,
+last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -250,7 +300,7 @@ def _summary(tag, res, chunk_steps):
     return ticks
 
 
-def _paper_batch(comm: str, impl: str, entry: str) -> dict:
+def _paper_batch(comm: str, impl: str, entry: str, placement: str = "lwf") -> dict:
     """One 8-seed paper batch, from a launch count of 0, each chunk
     replayed from a CUDA graph (the main path)."""
     import torch
@@ -267,21 +317,21 @@ def _paper_batch(comm: str, impl: str, entry: str) -> dict:
         paper = [get_scenario("paper", seed=s, **PAPER_CUT) for s in SEEDS]
         _require(paper[0].total_gpus == 64 and paper[0].n_jobs == 160,
                  "paper cluster and job count")
-        cfg = fluid_config(paper[0], comm=comm, placement="lwf", kernel=impl)
+        cfg = fluid_config(paper[0], comm=comm, placement=placement, kernel=impl)
         batch = fluidsim.stack_traces(
             [fluidsim.trace_from_jobs(s.job_list(), device=cfg.device) for s in paper]
         )
         res = fluidsim.simulate_traces_batched(batch, cfg)
         recs = [
             from_jcts(res["jct"][i][res["finished"][i]].tolist(), scenario="paper",
-                      backend="fluid", placement="gang-consolidate", comm=comm, seed=s,
+                      backend="fluid", placement=f"gang-{cfg.placement}", comm=comm, seed=s,
                       n_jobs=scn.n_jobs, makespan=float(res["makespan"][i]))
             for i, (s, scn) in enumerate(zip(SEEDS, paper))
         ]
         out.update(jct=res["jct"], finished=res["finished"], chunks=res["chunks"],
                    captures=res["captures"])
     else:
-        recs = monte_carlo_fluid("paper", SEEDS, comm=comm, placement="lwf",
+        recs = monte_carlo_fluid("paper", SEEDS, comm=comm, placement=placement,
                                  overrides=PAPER_CUT, kernel=impl)
         out["chunks"] = recs[0].chunks
     torch.cuda.synchronize()
@@ -545,6 +595,7 @@ def _serve_phases(torch, dev) -> int:
     over its tokens, the card against the CPU on the reduced config, and
     one decode step under the profiler.  Returns the SSD kernel's launches
     on the main path."""
+    from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd.kernel import ssd_decode_step_cuda
     from repro_torch.launch.serve import serve_batch
@@ -556,12 +607,14 @@ def _serve_phases(torch, dev) -> int:
     bsz, plen, gen, seed = (SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
     lm = LM(cfg)
     t0 = time.perf_counter()
-    params = lm.init(torch.Generator().manual_seed(seed), torch.bfloat16, dev)
+    params = lm.init(prng.PRNGKey(seed, dev), torch.bfloat16, dev)
+    torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in tree_leaves(params))
     _log(f"serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
          f"{cfg.ssm_n_heads} heads x P {cfg.ssm_head_dim}, N {cfg.ssm_state}, vocab "
          f"{cfg.vocab_size} padded to {cfg.padded_vocab}), {n_params} parameters in bf16 "
-         f"from seed {seed}, made in {time.perf_counter() - t0:.2f} s")
+         f"from PRNGKey({seed}), drawn by the threefry on the card in "
+         f"{time.perf_counter() - t0:.2f} s")
     _require(n_params == param_count(lm.schema()), "parameters of the schema")
     warm = serve_batch(cfg, bsz, plen, 2, seed, params=params)  # cuBLAS, allocator
     _log(f"serve warm-up (gen 2): prefill {warm['prefill_s']:.4f} s")
@@ -764,6 +817,7 @@ def _dense_serve_phases(torch, dev) -> int:
     each path's cache), the reduced config's card against the CPU, and one
     profiled prefill.  Returns the flash kernel's launches on the main
     path."""
+    from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.launch.serve import serve_batch
@@ -775,14 +829,14 @@ def _dense_serve_phases(torch, dev) -> int:
     bsz, plen, gen, seed = (SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
     lm = LM(cfg)
     t0 = time.perf_counter()
-    params = lm.init(torch.Generator().manual_seed(seed), torch.bfloat16, dev)
+    params = lm.init(prng.PRNGKey(seed, dev), torch.bfloat16, dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in tree_leaves(params))
     _log(f"serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
          f"query heads over {cfg.n_kv_heads} kv heads of dim {cfg.head_dim_}, d_ff {cfg.d_ff}, "
          f"vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, rope theta {cfg.rope_theta}), "
-         f"{n_params} parameters in bf16 from seed {seed}, made on the host's CPU generator "
-         f"and moved to the card in {time.perf_counter() - t0:.2f} s")
+         f"{n_params} parameters in bf16 from PRNGKey({seed}), drawn by the threefry on the "
+         f"card in {time.perf_counter() - t0:.2f} s")
     _require(n_params == param_count(lm.schema()), "parameters of the schema")
     warm = serve_batch(cfg, bsz, plen, 2, seed, params=params)  # cuBLAS, allocator
     _log(f"serve warm-up (gen 2): prefill {warm['prefill_s']:.4f} s")
@@ -873,7 +927,7 @@ def _dense_serve_phases(torch, dev) -> int:
 
     red = get_config("llama3.2-1b", reduced=True)
     red_lm = LM(red)
-    red_params = red_lm.init(torch.Generator().manual_seed(seed), torch.bfloat16, dev)
+    red_params = red_lm.init(prng.PRNGKey(seed, dev), torch.bfloat16, dev)
     red_toks = torch.as_tensor(np.random.default_rng(seed).integers(0, red.vocab_size, (2, 32)),
                                dtype=torch.int32).to(dev)
     red_forced = torch.as_tensor(np.random.default_rng(seed + 1).integers(
@@ -1353,6 +1407,432 @@ def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> None:
     _log(f"phases 10-11: {time.perf_counter() - t0:.3f} s wall")
 
 
+# ---------------------------------------------------------------------------
+# The threefry, training, and the threefry's users (phases 24-30)
+# ---------------------------------------------------------------------------
+
+#: the training main path: batch 8 x seq 512 (the serve shape: BH 256, S = T
+#: 512, D 64 in llama's attention), the reference's default lr, 8 steps
+TRAIN = dict(steps=8, batch=8, seq=512, lr=3e-4, seed=0)
+#: the paper batch of phase 4 under the random placement (phase 29)
+MC_JCT = dict(n_seeds=8, n_jobs=64)
+SAMPLE_T = 0.8
+
+
+def _prng_phase(torch, dev) -> None:
+    """Phase 24: the threefry on the card against the CPU, at odd and large
+    shapes: every function's bits identical, ``normal``'s max ulp printed
+    (and held to 2)."""
+    from repro_torch import prng
+
+    t0 = time.perf_counter()
+    cases = 0
+    logits = np.random.default_rng(0).standard_normal((8, 128256)).astype(np.float32)
+    p = np.array([80, 14, 26, 30, 8, 2], np.float64)
+    p = (p / p.sum()).astype(np.float32)
+    a = np.array([1, 2, 4, 8, 16, 32], np.int32)
+    def draws(seed, on):
+        key = prng.PRNGKey(seed, on)
+        keys = prng.split(key, 7)
+        ticks = torch.arange(1000, device=on) * 7919
+        out = {
+            "split": prng.split(key, 1000),
+            "fold_in": prng.fold_in(keys, 2**31 + 5),
+            "fold_in lanes": prng.fold_in(key, ticks),
+            "bits": prng.random_bits(keys, (3, 5)),
+            "bits large": prng.random_bits(key, (1_000_003,)),
+            "uniform": prng.uniform(keys, (1001,)),
+            "uniform 1-1200": prng.uniform(key, (2**20 + 3,), minval=1.0, maxval=1200.0),
+            "uniform bf16": prng.uniform(key, (4097,), torch.bfloat16),
+            "randint": prng.randint(keys, (999,), 1000, 6001),
+            "randint wide": prng.randint(key, (100003,), -5, 2**25 + 3),
+            "choice": prng.choice(key, torch.from_numpy(a).to(on), (100003,),
+                                  p=torch.from_numpy(p).to(on)),
+            "categorical": prng.categorical(key, torch.from_numpy(logits).to(on)),
+            "categorical bf16": prng.categorical(
+                key, torch.from_numpy(logits).to(on, torch.bfloat16)),
+            "gumbel": prng.gumbel(key, (4097,)),
+            "normal": prng.normal(key, (2**20 + 1,)),
+        }
+        torch.cuda.synchronize()
+        return {k: v.cpu() for k, v in out.items()}
+
+    for seed in (0, 2**31 + 5):
+        card, cpu = draws(seed, dev), draws(seed, torch.device("cpu"))
+        for k, v in card.items():
+            w = cpu[k]
+            _require(v.dtype == w.dtype and v.shape == w.shape, f"threefry {k}: dtype/shape")
+            if k == "normal":
+                ulps = int((v.view(torch.int32).long() - w.view(torch.int32).long()).abs().max())
+                _log(f"threefry normal, seed {seed}, {v.numel()} values: card vs CPU max ulp "
+                     f"{ulps}")
+                _require(ulps <= 2, "threefry normal within 2 ulp on the card")
+            else:
+                same = torch.equal(v.view(torch.int16) if v.dtype == torch.bfloat16 else
+                                   (v.view(torch.int32) if v.dtype == torch.float32 else v),
+                                   w.view(torch.int16) if w.dtype == torch.bfloat16 else
+                                   (w.view(torch.int32) if w.dtype == torch.float32 else w))
+                _require(same, f"threefry {k}, seed {seed}: card bits == CPU bits")
+            cases += 1
+    key = prng.PRNGKey(0, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    big = prng.normal(key, (128256 * 2048,))  # llama3.2-1b's embedding table
+    torch.cuda.synchronize()
+    t_big = time.perf_counter() - t1
+    del big
+    _log(f"threefry: {cases} cases (split, fold_in, bits, uniform, randint, choice(p=...), "
+         f"categorical, gumbel: bits identical on the card and the CPU; normal within 2 ulp) "
+         f"in {time.perf_counter() - t0:.2f} s; normal of llama's 262,668,288-entry embedding "
+         f"on the card in {t_big:.4f} s (slices of {prng.SLICE} counters)")
+
+
+def _train_main(torch, cfg, counter, remat="none") -> dict:
+    """One run of ``repro_torch.launch.train.train`` on the card (the user's
+    entry point), its printed log kept: losses, wall, per-step ms from the
+    logged tok/s (each step synchronises on its loss), peak memory and,
+    with ``counter``, the kernel's launches from a count of 0 just before."""
+    from repro_torch.launch.train import train
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    if counter is not None:
+        counter.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        losses = train(cfg, log_every=1, remat=remat, **TRAIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counter.launches if counter is not None else None
+    log = buf.getvalue()
+    tok_s = [float(v) for v in re.findall(r"tok/s=([0-9.]+)", log)]
+    gnorm = [float(v) for v in re.findall(r"gnorm=([0-9.e+-]+)", log)]
+    toks = TRAIN["batch"] * TRAIN["seq"]
+    step_ms = [toks / v * 1e3 for v in tok_s]
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"train {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}), batch "
+         f"{TRAIN['batch']} x seq {TRAIN['seq']}, bf16 weights from PRNGKey({TRAIN['seed']}), "
+         f"float32 moments, lr {TRAIN['lr']}, remat {remat!r}: losses {losses}; wall "
+         f"{wall:.3f} s (init and the first step's warm-up included); step ms {step_ms}; "
+         f"tok/s {tok_s}; steady state (steps 2-{TRAIN['steps']}) median "
+         f"{float(np.median(step_ms[1:])):.3f} ms per step = "
+         f"{float(np.median(tok_s[1:])):.1f} tok/s; torch.cuda.max_memory_allocated "
+         f"{peak} B ({peak / 2**30:.3f} GiB); grad norms before clipping {gnorm}; mean of the "
+         f"last 3 losses minus the first {float(np.mean(losses[-3:])) - losses[0]}")
+    _require(len(losses) == TRAIN["steps"] and len(tok_s) == TRAIN["steps"], "train steps")
+    _require(all(np.isfinite(losses)) and all(np.isfinite(gnorm)), f"{cfg.name}: finite losses")
+    return {"losses": losses, "step_ms": step_ms, "tok_s": tok_s, "peak": peak,
+            "launches": launches, "wall": wall, "gnorm": gnorm}
+
+
+def _cast(params, dtype):
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda t: t.to(dtype), params)
+
+
+def _grad_run(torch, lm, params, batch, flags):
+    """(loss, {flat key: grad}) of one forward and backward from copies of
+    ``params``."""
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    loss, _ = lm.loss_fn(p, batch, flags)
+    loss.backward()
+    return loss.detach(), {k: t.grad for k, t in tree_leaves(p)}
+
+
+def _close_to_scale(got, want) -> float:
+    """Max |got - want| / scale, scale the largest |want| (at least 1e-30)."""
+    got, want = got.float(), want.float()
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got - want).abs().max()) / scale
+
+
+def _train_phases(torch, dev) -> int:
+    """Phases 25-28: the training main path (full-width llama3.2-1b, then
+    mamba2-130m), the kernel against the plain attention in training, the
+    reduced float32 config on the card and the CPU with a checkpoint
+    resume, and one profiled training step.  Returns the flash kernel's
+    launches on the training main path."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import BACKWARD_RANGE
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.common import param_count, rms_norm, tree_leaves
+    from repro_torch.models.lm import LM, RunFlags, _layer
+    from repro_torch.optim.adamw import UPDATE_RANGE, AdamWConfig, adamw_init
+
+    # ---- 25. the training main path ----------------------------------------
+    cfg = get_config("llama3.2-1b")
+    _require(param_count(LM(cfg).schema()) == 1_237_387_264, "llama3.2-1b parameters")
+    main = _train_main(torch, cfg, flash_attention_cuda)
+    launches = main["launches"]
+    _log(f"train {cfg.name}: flash kernel launches {launches} (expected {cfg.n_layers} layers "
+         f"x {TRAIN['steps']} steps = {cfg.n_layers * TRAIN['steps']}: one per layer in each "
+         f"forward; the backward recomputes the plain version)")
+    _require(launches == cfg.n_layers * TRAIN["steps"], "one flash launch per layer per step")
+    # The reference's init makes this model's gradient explode with depth
+    # (ROADMAP R12): its norm is ~1e11, so the clipped step is ~1e-11 an
+    # entry, below AdamW's eps, and 8 steps at lr 3e-4 leave the loss at
+    # ln(vocab); it is held finite, not falling.  mamba2-130m's falls.
+    _log(f"train {cfg.name}: grad norm {min(main['gnorm']):.4g}-{max(main['gnorm']):.4g} "
+         f"before clipping to 1.0; losses within {max(main['losses']) - min(main['losses']):.4g} "
+         f"of each other, ln(vocab) = {math.log(cfg.vocab_size):.5f}")
+    ssm_cfg = get_config("mamba2-130m")
+    ssm = _train_main(torch, ssm_cfg, None)
+    _require(float(np.mean(ssm["losses"][-3:])) < ssm["losses"][0],
+             f"{ssm_cfg.name}: the mean of the last 3 losses is below the first")
+
+    # ---- 26. the kernel against the plain attention in training ------------
+    red = get_config("llama3.2-1b", reduced=True)
+    red_lm = LM(red)
+    red_params = red_lm.init(prng.PRNGKey(0, dev), torch.bfloat16, dev)
+    data = SyntheticLMDataset(red, 2, 128).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    runs = {impl: _grad_run(torch, red_lm, red_params, batch,
+                            RunFlags(remat="none", attn_impl=impl)) for impl in ("", "ref")}
+    (lk, gk), (lr_, gr) = runs[""], runs["ref"]
+    l32, g32 = _grad_run(torch, red_lm, _cast(red_params, torch.float32), batch,
+                         RunFlags(remat="none", attn_impl="ref"))
+    loss_err = abs(float(lk) - float(lr_)) / max(1.0, abs(float(lr_)))
+    per_leaf = {k: (_close_to_scale(gk[k], gr[k]), _close_to_scale(gk[k], g32[k]),
+                    _close_to_scale(gr[k], g32[k])) for k in gr}
+    worst = max(v[0] for v in per_leaf.values())
+    _log(f"train {red.name} bf16, one step, kernel vs plain attention on the card: loss "
+         f"{float(lk)} vs {float(lr_)} (relative {loss_err}; float32 plain {float(l32)}); worst "
+         f"grad leaf max abs difference / its scale {worst} (bar {BF16_BAR}, or the plain "
+         f"path's own distance from the float32 gradient where that is larger)")
+    for k, (kp, k32, p32_) in per_leaf.items():
+        _log(f"  {k}: kernel vs plain {kp:.5f}; against the float32 plain gradient: kernel "
+             f"{k32:.5f}, plain {p32_:.5f}")
+    # This random model's bf16 gradient is chaotic (ROADMAP R8): each bf16
+    # path lies 0.4-1.2 of a leaf's scale from the float32 gradient, so the
+    # two paths are held no further apart than the plain path is from it.
+    _require(loss_err <= BF16_BAR, "kernel vs plain attention: the loss")
+    _require(all(kp <= max(BF16_BAR, p32_) for kp, _, p32_ in per_leaf.values()),
+             "kernel vs plain attention grads")
+    del runs, gk, gr, g32
+
+    lm = LM(cfg)
+    params = lm.init(prng.PRNGKey(0, dev), torch.bfloat16, dev)
+    full = SyntheticLMDataset(cfg, TRAIN["batch"], TRAIN["seq"]).batch_at(0)
+    tokens = torch.from_numpy(full["tokens"]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out_worst, grad_worst, grad_exact = 0.0, 0.0, True
+    with torch.no_grad():
+        x = params["embed"][tokens.long()]
+    for i in range(lm.n_blocks):
+        bp = _layer(params["blocks"], i)
+        with torch.no_grad():
+            h = rms_norm(x, bp["attn_norm"])
+        cot = torch.randn(h.shape, generator=gen, device=dev).to(h.dtype)
+        res = {}
+        for impl in ("cuda", "ref"):
+            hh = h.detach().clone().requires_grad_()
+            y = attn_mod.attention_forward(hh, bp["attn"], cfg, impl=impl)
+            y.backward(cot)
+            res[impl] = (y.detach(), hh.grad)
+        out_worst = max(out_worst, _close_to_scale(res["cuda"][0], res["ref"][0]))
+        grad_worst = max(grad_worst, _close_to_scale(res["cuda"][1], res["ref"][1]))
+        grad_exact &= torch.equal(res["cuda"][1], res["ref"][1])
+        with torch.no_grad():  # along the plain path's residual stream
+            x = lm._apply_block(x, bp, flags=RunFlags(remat="none", attn_impl="ref"),
+                                collect_kv=False)[0]
+    _log(f"train {cfg.name}, layer by layer (batch {TRAIN['batch']} x seq {TRAIN['seq']}), "
+         f"kernel vs plain attention from the same input: worst output difference / scale "
+         f"{out_worst}, worst input-grad difference / scale {grad_worst} (bar {BF16_BAR}); "
+         f"input grads bit-identical: {grad_exact} (both backwards recompute the plain version "
+         f"from the same q, k, v)")
+    _require(out_worst <= BF16_BAR and grad_worst <= BF16_BAR, "layer-by-layer attention")
+    del params, x
+
+    # ---- 27. reduced float32, plain path: card vs CPU; checkpoint resume ----
+    losses = []
+    for on in (dev, torch.device("cpu")):
+        p32 = red_lm.init(prng.PRNGKey(0, on), torch.float32, on)
+        opt = AdamWConfig()
+        st = adamw_init(p32, opt)
+        step = make_train_step(red_lm, opt, RunFlags(remat="none", attn_impl="ref"))
+        ds = SyntheticLMDataset(red, 2, 64)
+        out = []
+        for i in range(4):
+            b = {k: torch.from_numpy(v).to(on) for k, v in ds.batch_at(i).items()}
+            p32, st, m = step(p32, st, b)
+            out.append(float(m["loss"]))
+        losses.append(out)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    _log(f"train {red.name} float32, plain path, 4 steps: card {losses[0]}, CPU "
+         f"{losses[1]}, max relative difference {rel}")
+    _require(rel <= 1e-5, "reduced float32 losses: card vs CPU to round-off")
+    torch.use_deterministic_algorithms(True, warn_only=True)  # the embedding's atomics
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            kw = dict(batch=2, seq=64, lr=3e-3, log_every=0, seed=0)
+            with contextlib.redirect_stdout(io.StringIO()):
+                whole = train(red, steps=4, ckpt_dir=d, ckpt_every=2, **kw)
+                Path(d, "step_00000004.npz").unlink()
+                resumed = train(red, steps=4, ckpt_dir=d, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _log(f"train {red.name} bf16 on the card, checkpoint at step 2: uninterrupted {whole}, "
+         f"resumed {resumed}")
+    _require(resumed == whole[2:], "the resumed run repeats the uninterrupted run's losses")
+
+    # ---- 28. one training step under the profiler ---------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    params = lm.init(prng.PRNGKey(0, dev), torch.bfloat16, dev)
+    opt = AdamWConfig(lr=TRAIN["lr"])
+    st = adamw_init(params, opt)
+    step = make_train_step(lm, opt, RunFlags(remat="none"))
+    ds = SyntheticLMDataset(cfg, TRAIN["batch"], TRAIN["seq"])
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in ds.batch_at(i).items()}
+               for i in range(5)]
+    params, st, _ = step(params, st, batches[0])  # warm-up
+    walls = []
+    for b in batches[1:4]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, st, m = step(params, st, b)
+        float(m["loss"])
+        walls.append((time.perf_counter() - t1) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, st, m = step(params, st, batches[4])
+        float(m["loss"])
+        torch.cuda.synchronize()
+    names = (BACKWARD_RANGE, UPDATE_RANGE)
+    # the named ranges also show as device-side annotations: not kernels
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in names]
+    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in on_device if "flash_fwd" in e.key) / 1e3
+    n_kernels = sum(e.count for e in on_device)
+
+    def kernels_in(e):
+        return len(e.kernels) + sum(kernels_in(c) for c in e.cpu_children)
+
+    ranges = {name: [e for e in prof.events() if e.name == name
+                     and e.device_type == torch.autograd.DeviceType.CPU] for name in names}
+    rec_ms = sum(e.device_time_total for e in ranges[BACKWARD_RANGE]) / 1e3
+    upd_ms = sum(e.device_time_total for e in ranges[UPDATE_RANGE]) / 1e3
+    upd_kernels = sum(kernels_in(e) for e in ranges[UPDATE_RANGE])
+    n_leaves = len(list(tree_leaves(params)))
+    _require(device_ms > 0 and flash_ms > 0, "the profiler saw the training step's flash kernel")
+    _require(len(ranges[BACKWARD_RANGE]) == cfg.n_layers and len(ranges[UPDATE_RANGE]) == 1,
+             "the profiler saw the recompute and update ranges")
+    _log(f"train step profile ({cfg.name}, batch {TRAIN['batch']} x seq {TRAIN['seq']}, "
+         f"remat 'none'): wall {walls} ms; device time {device_ms:.4f} ms in {n_kernels} "
+         f"kernels and copies; flash kernel {flash_ms:.4f} ms ({flash_ms / device_ms:.4f}); "
+         f"backward recompute of the plain attention {rec_ms:.4f} ms "
+         f"({rec_ms / device_ms:.4f}, {len(ranges[BACKWARD_RANGE])} ranges); AdamW update "
+         f"{upd_ms:.4f} ms ({upd_ms / device_ms:.4f}) in {upd_kernels} kernels over {n_leaves} "
+         f"leaves ({upd_kernels / n_leaves:.1f} per leaf); device idle share "
+         f"{1 - device_ms / min(walls):.4f}")
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        _log(f"  {e.key[:80]}: {e.count} x, {e.self_device_time_total / 1e3:.4f} ms")
+    del params, st, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mc_worker(device) -> dict:
+    """``monte_carlo_jct`` (phase 29) on ``device``, in a worker process or
+    this one."""
+    import torch
+
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    torch.set_num_threads(1)
+    from repro_torch.core import fluidsim
+
+    t0 = time.perf_counter()
+    out = fluidsim.monte_carlo_jct(device=device, **MC_JCT)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def _random_phase(torch, dev, chunk_steps, cpu_mc) -> tuple:
+    """Phase 29: the random placement on the card.  The paper batch of
+    phase 4 under ``placement="random"`` (the main path: launch count 0
+    just before, one launch per executed tick), a small batch on the card
+    and the CPU, and ``monte_carlo_jct`` on both (``cpu_mc``: the CPU
+    side's future, started in a worker process during the serving
+    phases).  Returns (launches, executed ticks)."""
+    from repro_torch.scenarios import get_scenario, run_scenario_fluid
+
+    res = _paper_batch("ada", "", "simulate_traces_batched", placement="random")
+    ticks = _summary("paper ada random placement (simulate_traces_batched, CUDA graph)", res,
+                     chunk_steps)
+    _require(res["launches"] == ticks > 0, "random placement: one launch per executed tick")
+    small = get_scenario("paper", seed=1, n_jobs=24, min_iters=60, max_iters=300,
+                         horizon_s=300.0)
+    for comm in ("ada", "srsf2"):
+        on_card = run_scenario_fluid(small, comm=comm, placement="random")
+        on_cpu = run_scenario_fluid(small, comm=comm, placement="random", device="cpu")
+        _require((on_card["finished"] == on_cpu["finished"]).all()
+                 and (on_card["jct"] == on_cpu["jct"]).all(), f"random {comm}: card vs CPU")
+        _log(f"paper (24 jobs, seed 1) {comm} random placement: card == CPU on every finish "
+             f"tick ({int(on_card['finished'].sum())} jobs)")
+    card = _mc_worker("cuda")
+    cpu = cpu_mc.result()
+    for k, v in card["traces"].items():
+        _require((v == cpu["traces"][k]).all(), f"monte_carlo_jct traces: {k}")
+    _require((card["per_seed"] == cpu["per_seed"]).all(), "monte_carlo_jct per_seed")
+    _log(f"monte_carlo_jct(n_seeds={MC_JCT['n_seeds']}, n_jobs={MC_JCT['n_jobs']}): sampled "
+         f"traces and per_seed identical on the card and the CPU; avg JCT "
+         f"{card['avg_jct_mean']:.4f} +- {card['avg_jct_std']:.4f} s, finished "
+         f"{card['finished_frac']}; wall card {card['wall']:.3f} s, CPU {cpu['wall']:.3f} s")
+    return res["launches"], ticks
+
+
+def _sampled_phase(torch, dev) -> None:
+    """Phase 30: sampled serving (``greedy=False``, temperature 0.8) at full
+    width for both families, then the reduced float32 configs on the card
+    (plain path) and the CPU: identical tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+
+    bsz, plen, gen, seed = (SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
+    for arch in ("mamba2-130m", "llama3.2-1b"):
+        cfg = get_config(arch)
+        res = serve_batch(cfg, bsz, plen, gen, seed, greedy=False, temperature=SAMPLE_T)
+        g = res["generated"]
+        _require(g.shape == (bsz, gen) and ((g >= 0) & (g < cfg.vocab_size)).all(),
+                 f"{arch}: sampled tokens in the vocab")
+        _log(f"serve {cfg.name} sampled (temperature {SAMPLE_T}, batch {bsz}, prompt {plen}, "
+             f"gen {gen}, bf16): decode {res['decode_tok_per_s']:.1f} tok/s, "
+             f"{res['decode_s'] / (gen - 1) * 1e3:.4f} ms per step (draw outside the graph); "
+             f"sample tokens {g[0][:16].tolist()}")
+        red = get_config(arch, reduced=True)
+        kw = dict(greedy=False, temperature=SAMPLE_T, dtype=torch.float32)
+        on_card = serve_batch(red, 2, 32, 8, seed, device=dev, ssd_impl="ref", attn_impl="ref",
+                              **kw)
+        on_cpu = serve_batch(red, 2, 32, 8, seed, device="cpu", **kw)
+        same = (on_card["generated"] == on_cpu["generated"])
+        if not same.all():
+            step = int(np.nonzero(~same.all(0))[0][0])
+            lg = on_cpu["logits"][:, step].float()
+            top2 = torch.topk(lg, 2, dim=-1).values
+            _log(f"{red.name} sampled f32: card and CPU part at step {step}: card "
+                 f"{on_card['generated'][:, step].tolist()}, CPU "
+                 f"{on_cpu['generated'][:, step].tolist()}; logit margin (top-1 - top-2) "
+                 f"{(top2[:, 0] - top2[:, 1]).tolist()}, max abs logit difference "
+                 f"{float((on_card['logits'][:, step].cpu() - lg).abs().max())}")
+        _require(same.all(), f"{red.name} sampled f32: card vs CPU tokens")
+        _log(f"{red.name} sampled f32, plain path: card == CPU tokens "
+             f"{on_card['generated'].tolist()}")
+
+
 def main() -> int:
     import torch
 
@@ -1583,13 +2063,35 @@ def main() -> int:
              f"{n:.2f} kernels and copies; monolithic paper tick (phase 7) wall {pw:.6f} ms, "
              f"device {pd:.6f} ms in {pn:.2f}")
 
-    # ---- 13.-17. the SSD decode-step kernel and the serving path ----------
-    ssd = _ssd_kernel_phase(torch, dev)
-    ssd["launches"] = _serve_phases(torch, dev)
+    # phase 29's CPU side, in a worker process while the card serves and trains
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
-    # ---- 18.-23. the flash-attention kernel and dense serving --------------
-    flash = _flash_kernel_phase(torch, dev)
-    flash["launches"] = _dense_serve_phases(torch, dev)
+    mc_pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    cpu_mc = mc_pool.submit(_mc_worker, "cpu")
+    try:
+        # ---- 13.-17. the SSD decode-step kernel and the serving path ------
+        ssd = _ssd_kernel_phase(torch, dev)
+        ssd["launches"] = _serve_phases(torch, dev)
+
+        # ---- 18.-23. the flash-attention kernel and dense serving ----------
+        flash = _flash_kernel_phase(torch, dev)
+        flash["launches"] = _dense_serve_phases(torch, dev)
+
+        # ---- 24. the threefry: card against CPU -----------------------------
+        _prng_phase(torch, dev)
+
+        # ---- 25.-28. training ---------------------------------------------
+        flash["launches"] += _train_phases(torch, dev)
+
+        # ---- 29. the random placement and monte_carlo_jct -------------------
+        random_launches, random_ticks = _random_phase(torch, dev, chunk_steps, cpu_mc)
+        main_launches += random_launches
+
+        # ---- 30. sampled serving --------------------------------------------
+        _sampled_phase(torch, dev)
+    finally:
+        mc_pool.shutdown(cancel_futures=True)
 
     line = {"kernels": [{
         "name": "fluid_step_core",

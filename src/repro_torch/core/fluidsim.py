@@ -25,11 +25,16 @@ Ported: monolithic traces and WFBP bucket streams (``fusion`` "all",
 stream of buckets, gated per bucket, with the one-shot gating closure
 ``gating="fixedpoint"`` or the legacy four rounds ``gating="rounds"``),
 the threshold gating policies (``ada``, ``srsfN``) and the exact k-way
-lookahead (``kwayK``), the deterministic gang placements
-(``consolidate``/``first_fit``/``least_loaded``/``rack_pack``), any static
-fabric.  Under WFBP or exact k-way the step core also returns the ``(L, J,
-J)`` overlap plane.  The ``random`` placement needs a threefry port and
-raises ``NotImplementedError`` (ROADMAP.md queue 1, item 4).
+lookahead (``kwayK``), every gang placement
+(``consolidate``/``first_fit``/``least_loaded``/``random``/``rack_pack``),
+any static fabric.  Under WFBP or exact k-way the step core also returns
+the ``(L, J, J)`` overlap plane.  The ``random`` placement draws its
+server order per lane and tick from the threefry port
+(:mod:`repro_torch.prng`), ``uniform(fold_in(PRNGKey(placement_seed),
+i))`` at the lane's own tick counter ``i``, as the reference does, inside
+the chunk's CUDA graph.  :func:`sample_trace`, :func:`simulate_one` and
+:func:`monte_carlo_jct` draw the paper's workload from a key, as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -42,9 +47,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import netmodel
+from repro_torch.core.cluster import TABLE_III
 from repro_torch.core.contention import ContentionParams
 from repro_torch.core.topology import Topology, nic_topology
+from repro_torch.core.trace import PAPER_GPU_DISTRIBUTION
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fluidstep import FLUID_KERNEL_IMPLS, fluid_step_core
 from repro_torch.kernels.fluidstep.kernel import fluid_step_core_cuda
@@ -103,16 +111,20 @@ class FluidSimConfig:
         if self.chunk_steps < 1:
             raise ValueError(f"chunk_steps must be >= 1, got {self.chunk_steps}")
         netmodel.parse_policy(self.policy)
-        if netmodel.canonical_placement(self.placement) == "random":
-            raise NotImplementedError(
-                "placement 'random' draws from jax.random and is not ported yet; "
-                "see ROADMAP.md queue 1, item 4 (threefry)"
-            )
+        netmodel.canonical_placement(self.placement)
         if self.kernel and self.kernel not in FLUID_KERNEL_IMPLS:
             raise ValueError(
                 f"unknown fluid step impl {self.kernel!r}; expected '' or one "
                 f"of {FLUID_KERNEL_IMPLS}"
             )
+
+
+def _sub_product(x: torch.Tensor, a, b: torch.Tensor) -> torch.Tensor:
+    """``x - a * b`` rounded once to float32, as the reference's compiled
+    CPU graph contracts the comm drains into a fused multiply-add (ROADMAP
+    R4): float32 operands, the product exact in float64."""
+    a = a.to(torch.float64) if isinstance(a, torch.Tensor) else a
+    return (x.to(torch.float64) - a * b.to(torch.float64)).to(_F32)
 
 
 def _ticks_to_zero(x: torch.Tensor, inv_dt: float) -> torch.Tensor:
@@ -148,8 +160,10 @@ class _Statics:
         self.server_rack = torch.tensor(topo.server_rack(), dtype=_I32, device=device)
         self.n_racks = len(topo.rack_groups())
         self.server_index = torch.arange(ns, dtype=_F32, device=device)
+        self.place_key = prng.PRNGKey(cfg.placement_seed, device)
         self.index_le = self.server_index[None, :] <= self.server_index[:, None]
         self.inv_dt = float(np.float32(1.0 / cfg.dt))
+        self.dt = float(np.float32(cfg.dt))  # the float32 tick, as a Python float
         # 0-dim operands for torch.where: a Python scalar there becomes a
         # fresh device tensor (one fill launch) on every call
         f32 = lambda v: torch.tensor(v, dtype=_F32, device=device)  # noqa: E731
@@ -267,6 +281,10 @@ def _lane_step(tr, c, st, k: _Statics, cfg: FluidSimConfig):
     if k.placement == "least_loaded":
         # per-server remaining workload (Alg. 3's L_S in gang form)
         load = (rem_service[..., None] * servers).sum(-2)
+    elif k.placement == "random":
+        # a fresh uniform server order per lane and tick, keyed on the
+        # lane's own tick counter (the skip advances it as the reference's)
+        rank_extra = prng.uniform(prng.fold_in(k.place_key, st["i"]), (cfg.n_servers,))
     elif k.placement == "rack_pack":
         rank_extra = netmodel.rack_pack_rank(
             st["free"], k.server_rack, k.n_racks, cfg.gpus_per_server
@@ -361,7 +379,7 @@ def _lane_step(tr, c, st, k: _Statics, cfg: FluidSimConfig):
     # ---- drain comm at the slowest-member-scaled Eq. 5 rate ---------------
     ratio = core["ratio"]
     draining = in_comm & started
-    rem = torch.where(draining, rem - dt * ratio, rem)
+    rem = torch.where(draining, _sub_product(rem, k.dt, ratio), rem)
     comm_done = draining & (rem <= 0)
 
     # ---- iteration bookkeeping --------------------------------------------
@@ -473,7 +491,7 @@ def _lane_step(tr, c, st, k: _Statics, cfg: FluidSimConfig):
         torch.where(
             is_comp2,
             rem - nf * dt,
-            torch.where(active2, rem - nf * dt * ratio2, rem),
+            torch.where(active2, _sub_product(rem, nf * dt, ratio2), rem),
         ),
     )
     new_state["iters_left"] = torch.where(cross, iters_left - (1 + aq).to(_F32), iters_left)
@@ -817,3 +835,61 @@ def from_reference(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 def to_numpy(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Inverse of :func:`from_reference`."""
     return {name: v.detach().cpu().numpy() for name, v in tensors.items()}
+
+
+def sample_trace(key, n_jobs: int, horizon: float = 1200.0, min_iters: int = 1000,
+                 max_iters: int = 6000) -> Dict[str, torch.Tensor]:
+    """The paper's workload as arrays, drawn from a threefry ``key``
+    (batched keys give a leading lane axis), as the reference's
+    ``sample_trace``: arrivals ``floor(U[1, horizon))``, iterations
+    ``U{min_iters..max_iters}``, a Table III model per job and GPU counts by
+    the paper's distribution; on the key's device."""
+    key = prng.as_key(key)
+    dev = key.device
+    models = list(TABLE_III.values())
+    t_iter = torch.tensor([m.t_iter_compute for m in models], dtype=_F32, device=dev)
+    sizes = torch.tensor([m.size_bytes for m in models], dtype=_F32, device=dev)
+    total = sum(c for _, c in PAPER_GPU_DISTRIBUTION)
+    gpu_choices = torch.tensor([g for g, _ in PAPER_GPU_DISTRIBUTION], dtype=_I32, device=dev)
+    probs = torch.tensor([c / total for _, c in PAPER_GPU_DISTRIBUTION], dtype=_F32, device=dev)
+    keys = prng.split(key, 4)
+    k1, k2, k3, k4 = (keys[..., i, :] for i in range(4))
+    arrival = torch.floor(prng.uniform(k1, (n_jobs,), minval=1.0, maxval=horizon))
+    iters = prng.randint(k2, (n_jobs,), min_iters, max_iters + 1)
+    midx = prng.randint(k3, (n_jobs,), 0, len(models)).long()
+    gidx = prng.choice(k4, gpu_choices, (n_jobs,), p=probs)
+    return {
+        "arrival": arrival,
+        "iters": iters.to(_F32),
+        "t_iter": t_iter[midx],
+        "msg_bytes": sizes[midx],
+        "n_gpus": gidx.to(_I32),
+    }
+
+
+def simulate_one(key, n_jobs: int, cfg: FluidSimConfig):
+    """Simulate one sampled paper workload (:func:`sample_trace` of ``key``)."""
+    dev = resolve_device(cfg.device)
+    return simulate_trace(sample_trace(prng.as_key(key).to(dev), n_jobs), cfg)
+
+
+def monte_carlo_jct(n_seeds: int = 16, n_jobs: int = 64, policy: str = "ada",
+                    base_seed: int = 0, **cfg_kw) -> Dict[str, object]:
+    """Mean and std of avg-JCT over ``n_seeds`` sampled paper workloads
+    (keys ``split(PRNGKey(base_seed), n_seeds)``), all in one batch, as the
+    reference's ``monte_carlo_jct``.  Also returns the sampled ``traces``
+    (numpy) beside the reference's keys."""
+    cfg = FluidSimConfig(policy=policy, **cfg_kw)
+    dev = resolve_device(cfg.device)
+    keys = prng.split(prng.PRNGKey(base_seed, dev), n_seeds)
+    traces = sample_trace(keys, n_jobs)
+    out = simulate_traces_batched(traces, cfg)
+    jct, fin = out["jct"], out["finished"]
+    avg = np.array([jct[i][fin[i]].mean() for i in range(n_seeds)])
+    return {
+        "avg_jct_mean": float(avg.mean()),
+        "avg_jct_std": float(avg.std()),
+        "per_seed": avg,
+        "finished_frac": float(fin.mean()),
+        "traces": to_numpy(traces),
+    }

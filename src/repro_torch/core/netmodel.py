@@ -9,10 +9,8 @@ with any number of leading batch axes (the fluid simulator puts its lane
 axis first, so a ``(J, J)`` matrix of the reference is ``(L, J, J)`` here
 and ``olds @ m`` a batched product); constants are built on the tensor's
 device.  Each one rounds as the reference does: same operations, same
-order, Python-float coefficients taken as float32.
-
-The ``random`` placement needs a threefry port and raises
-``NotImplementedError`` (ROADMAP.md queue 1, item 4).
+order, Python-float coefficients taken as float32.  The ``random``
+placement's draws come from the caller (``repro_torch.prng``).
 """
 
 from __future__ import annotations
@@ -355,21 +353,16 @@ def placement_rank(mode: str, free: torch.Tensor, load: torch.Tensor,
                    server_index: torch.Tensor, rank_extra=None) -> torch.Tensor:
     """Primary sort key per server for gang placement (ascending, ties by
     server index): ``consolidate`` -> ``-free``, ``first_fit`` -> index,
-    ``least_loaded`` -> remaining-service load, ``rack_pack`` -> the
-    caller's :func:`rack_pack_rank`.  ``random`` needs a threefry port and
-    is not ported yet."""
+    ``least_loaded`` -> remaining-service load, ``random`` -> the caller's
+    uniform draw per server (a fresh random server order per admission),
+    ``rack_pack`` -> the caller's :func:`rack_pack_rank`."""
     if mode == "consolidate":
         return -free
     if mode == "first_fit":
         return server_index.expand_as(free)
     if mode == "least_loaded":
         return load
-    if mode == "random":
-        raise NotImplementedError(
-            "placement 'random' draws from jax.random and needs a threefry "
-            "port; see ROADMAP.md queue 1, item 4"
-        )
-    if mode == "rack_pack":
+    if mode in ("random", "rack_pack"):
         if rank_extra is None:
             raise ValueError(f"mode {mode!r} needs a caller-supplied rank_extra key")
         return rank_extra

@@ -1,1 +1,1 @@
-"""Serving entry points of the port (port of ``repro.launch``)."""
+"""Training and serving entry points of the port (port of ``repro.launch``)."""

@@ -1,5 +1,5 @@
-"""Serving entry point: batched prefill + greedy decode with the KV or SSM
-cache (port of ``repro/launch/serve.py``).
+"""Serving entry point: batched prefill + greedy or sampled decode with the
+KV or SSM cache (port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch {mamba2-130m,llama3.2-1b} [--reduced] \
@@ -9,10 +9,12 @@ Runs on CUDA unless asked for the CPU.  On the card each decode step is
 replayed from a CUDA graph (:class:`_DecodeRunner`), the port's counterpart
 of the reference's jitted step with its donated cache; on the CPU the same
 steps run eagerly.  The prompts are the reference's draws for the same
-seed.  Without ``params`` the weights are initialised
-from a ``torch.Generator`` seeded with ``seed`` (not JAX's threefry draws,
-ROADMAP queue 1, item 3); pass the reference's weights (``models/
-convert.py``) to serve the same model as ``repro.launch.serve``.
+seed, and without ``params`` the weights are the reference's too
+(``LM.init(PRNGKey(seed))``, the threefry of ``repro_torch.prng``).  With
+``greedy=False`` each token is drawn by ``categorical`` from the logits over
+``temperature``, the first from ``PRNGKey(seed)`` and each later one from a
+split of it, as the reference draws; the draw runs outside the decode
+step's graph and overwrites the graph's token buffer.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import served_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd.kernel import ssd_decode_step_cuda
@@ -120,11 +123,13 @@ class _DecodeRunner:
 
 def serve_batch(
     cfg, batch: int = 4, prompt_len: int = 64, gen: int = 32, seed: int = 0,
-    greedy: bool = True, params=None, device=None, dtype: torch.dtype = torch.bfloat16,
-    ssd_impl: str = "", attn_impl: str = "", _graph: Optional[bool] = None,
+    greedy: bool = True, temperature: float = 1.0, params=None, device=None,
+    dtype: torch.dtype = torch.bfloat16, ssd_impl: str = "", attn_impl: str = "",
+    _graph: Optional[bool] = None,
 ):
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
-    ``gen`` tokens greedily.  Returns the reference's dict (``generated``
+    ``gen`` tokens, greedily or (``greedy=False``) sampled at
+    ``temperature``.  Returns the reference's dict (``generated``
     (B, gen) int32 numpy, ``prefill_s``, ``decode_s``, ``decode_tok_per_s``,
     ``prefill_tok_per_s``) plus ``logits``, every step's logits
     (B, gen, vocab) on the device, and ``capture_s``, the seconds of
@@ -137,18 +142,14 @@ def serve_batch(
     replays each decode step from a CUDA graph on the card and runs it
     eagerly on the CPU; False runs it eagerly on the card too; True on the
     CPU raises."""
-    if not greedy:
-        raise NotImplementedError(
-            "sampling (jax.random.categorical in the reference) waits for the "
-            "threefry port (ROADMAP queue 1, item 3); serve with greedy=True"
-        )
     dev = resolve_device(device)
     graph = dev.type == "cuda" if _graph is None else bool(_graph)
     if graph and dev.type != "cuda":
         raise ValueError("_graph=True needs a CUDA device: the CPU decodes eagerly")
     lm = LM(cfg)
+    key = prng.PRNGKey(seed, dev)
     if params is None:
-        params = lm.init(torch.Generator().manual_seed(seed), dtype, dev)
+        params = lm.init(key, dtype, dev)
     else:
         params = tree_map(lambda t: t.to(dev), params)
     flags = RunFlags(remat="none", q_chunk=min(512, prompt_len), ssd_impl=ssd_impl,
@@ -167,12 +168,26 @@ def serve_batch(
         _sync(dev)
         t_prefill = time.perf_counter() - t0
 
-        tok = _greedy(logits)
+        def sample(lg, k):
+            if greedy:
+                return _greedy(lg)
+            # a tensor divisor in the logits' dtype: the reference divides by
+            # its weakly typed scalar in that dtype, and a Python divisor would
+            # be a multiply by the reciprocal on the card
+            temp = torch.tensor(temperature, dtype=lg.dtype, device=lg.device)
+            return prng.categorical(k, lg / temp)[:, None]
+
+        tok = sample(logits, key)
         out_tokens, out_logits = [tok], [logits]
         t0 = time.perf_counter()
         runner = _DecodeRunner(decode, params, cache, tok, graph=graph)
         for _ in range(gen - 1):
+            if not greedy:
+                key, sub = prng.split(key)
             logits, tok = runner.step()
+            if not greedy:  # replaces the step's greedy token
+                tok = sample(logits, sub)
+                runner.token.copy_(tok)
             out_tokens.append(tok.clone())
             out_logits.append(logits.clone())
         _sync(dev)

@@ -5,7 +5,9 @@ Prefill (:func:`attention_forward`) projects q, k and v, applies RoPE as
 the reference does, repeats the kv heads, folds (B, S, H, hd) to
 (B*H, S, hd) and hands the causal attention to the flash-attention kernel
 (``repro_torch.kernels.flash_attention``): the CUDA kernel for CUDA
-tensors, its plain version for CPU tensors.  The reference computes the
+tensors, its plain version for CPU tensors.  With grad enabled it goes
+through ``flash_attention_train``, whose backward recomputes the plain
+version (the reference has no attention backward kernel either).  The reference computes the
 same attention inline, query chunk by query chunk (``lax.map``); its
 logits and probabilities are rounded to the activation dtype there, while
 the kernel and its plain version keep them in float32 (ROADMAP R7), so
@@ -27,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_train
 from repro_torch.models.common import ParamSpec, apply_rope
 from repro_torch.models.config import ModelConfig
 
@@ -89,7 +91,10 @@ def attention_forward(
     def fold(t):  # (B, S, H, hd) -> (B*H, S, hd), contiguous for the kernel
         return t.transpose(1, 2).reshape(b * h, t.shape[1], hd).contiguous()
 
-    out = flash_attention(fold(q), fold(k), fold(v), causal=True, impl=impl)
+    # with grad enabled (training) the autograd Function around the same
+    # kernel call; under torch.no_grad() (serving) the kernel call alone
+    attend = flash_attention_train if torch.is_grad_enabled() else flash_attention
+    out = attend(fold(q), fold(k), fold(v), causal=True, impl=impl)
     out = out.reshape(b, h, s, hd).transpose(1, 2)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 

@@ -14,6 +14,9 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import prng
+from repro_torch.device import resolve_device
+
 Params = Any  # nested dict of tensors
 
 
@@ -50,28 +53,30 @@ def tree_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
-def init_params(schema: Schema, generator: torch.Generator,
-                dtype: torch.dtype = torch.bfloat16,
-                device: Union[str, torch.device] = "cpu") -> Params:
-    """Materialize parameters with the reference's rule (normal with std
-    ``scale / sqrt(fan_in)``, zeros, ones).  Draws come from ``generator``
-    (a CPU generator: the same seed gives the same weights on every
-    device) in sorted-key order; they are not JAX's threefry draws, so
-    parity tests carry JAX's weights across instead (``convert.py``)."""
+def init_params(schema: Schema, key, dtype: torch.dtype = torch.bfloat16,
+                device: Optional[Union[str, torch.device]] = None) -> Params:
+    """Materialize parameters with the reference's rule and draws:
+    ``split(key, n_leaves)``, the i-th key to the i-th leaf in the
+    reference's flatten order (sorted keys, depth first), and for a
+    ``normal`` leaf ``normal(k, shape, float32) * scale / sqrt(fan_in)``
+    cast to ``dtype``; ``zeros`` and ``ones`` leaves draw nothing.  ``key``
+    is a :mod:`repro_torch.prng` key (or the reference's, as numpy); the
+    draws run on ``device`` (None = CUDA) and give the reference's weights
+    there (``repro_torch.prng``)."""
+    dev = resolve_device(device)
+    specs = list(tree_leaves(schema))
+    keys = prng.split(prng.as_key(key).to(dev), len(specs))
 
-    def make(spec: ParamSpec) -> torch.Tensor:
+    def make(spec: ParamSpec, k: torch.Tensor) -> torch.Tensor:
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dtype, device=device)
+            return torch.zeros(spec.shape, dtype=dtype, device=dev)
         if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=dtype, device=device)
+            return torch.ones(spec.shape, dtype=dtype, device=dev)
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale / math.sqrt(max(fan_in, 1))
-        w = torch.randn(spec.shape, generator=generator, dtype=torch.float32) * std
-        return w.to(dtype).to(device)
+        return (prng.normal(k, spec.shape) * std).to(dtype)
 
-    # draw in sorted-key order, so the weights do not depend on dict order
-    flat = {k: make(spec) for k, spec in tree_leaves(schema)}
-    return tree_unflatten(flat)
+    return tree_unflatten({name: make(spec, keys[i]) for i, (name, spec) in enumerate(specs)})
 
 
 def tree_unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
@@ -116,3 +121,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab_size: int) -> torch.Tensor:
+    """Mean CE over valid labels in float32; labels >= vocab_size or < 0
+    are masked (the padded-vocab convention), as in the reference."""
+    logits = logits.to(torch.float32)
+    valid = (labels >= 0) & (labels < vocab_size)
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - gold) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)

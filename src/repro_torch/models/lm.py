@@ -1,11 +1,15 @@
 """Model assembly (port of ``repro/models/lm.py``) for the ``ssm`` and
 ``dense`` families.
 
-One :class:`LM` object per config provides what serving needs, as plain
-functions of nested dicts of tensors:
+One :class:`LM` object per config provides what training and serving
+need, as plain functions of nested dicts of tensors:
 
 * ``schema()`` / ``init`` — the reference's parameter schema (same flat
-  keys, so JAX-initialised weights carry across leaf by leaf);
+  keys) and its initialisation from a threefry key (``repro_torch.prng``),
+  so the same seed gives the reference's weights;
+* ``loss_fn`` — the causal-LM training loss, dense or chunked over the
+  sequence, with per-block rematerialisation (``torch.utils.checkpoint``
+  in place of ``jax.checkpoint``);
 * ``prefill_fn`` — prompt pass producing last-token logits + the cache;
 * ``decode_fn`` — one-token serve step, updating the cache in place;
 * ``init_cache`` — ``{"pos", "layers": ...}``, each leaf stacked over
@@ -24,12 +28,13 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
-    ParamSpec, Schema, apply_rope, init_params, rms_norm, tree_map,
+    ParamSpec, Schema, apply_rope, cross_entropy_loss, init_params, rms_norm, tree_map,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -57,22 +62,40 @@ def _stack(trees):
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
-    """The reference's run flags that serving reads, plus the port's choice
-    of kernel implementations.
+    """The reference's run flags that training and serving read, plus the
+    port's choice of kernel implementations.
 
-    ``remat`` and ``q_chunk`` have no effect on serving (no autograd; the
-    attention kernel tiles the queries itself); they are kept so callers
-    build flags as for the reference.  ``ssd_impl`` as in
+    ``remat``: "none", or "block" to recompute each block's forward in the
+    backward pass (``torch.utils.checkpoint`` per block, as the reference
+    wraps its scan body in ``jax.checkpoint``); "dots" raises.
+    ``loss_impl``: "dense" materialises the (B, S, V) logits, "chunked"
+    computes the loss over sequence chunks of ``loss_chunk`` (each chunk
+    recomputed in the backward pass), as the reference does.  ``q_chunk``
+    has no effect (the attention kernel tiles the queries itself); it is
+    kept so callers build flags as for the reference.  ``ssd_impl`` as in
     :func:`repro_torch.kernels.ssd.ssd_decode_step` and ``attn_impl`` (the
-    prefill attention) as in
+    prefill and training attention) as in
     :func:`repro_torch.kernels.flash_attention.flash_attention`: "" lets
     the device decide (CUDA kernel on the card, plain version on the CPU),
     "ref" forces the plain version."""
 
     remat: str = "block"
     q_chunk: int = 512
+    loss_impl: str = "dense"
+    loss_chunk: int = 512
     ssd_impl: str = ""
     attn_impl: str = ""
+
+    def __post_init__(self) -> None:
+        if self.remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save the matmul outputs, recompute the rest) waits; the "
+                "port has 'none' and 'block' (ROADMAP queue 1, item 9)")
+        if self.remat not in ("none", "block"):
+            raise ValueError(f"unknown remat {self.remat!r}; expected 'none' or 'block'")
+        if self.loss_impl not in ("dense", "chunked"):
+            raise ValueError(f"unknown loss_impl {self.loss_impl!r}; expected 'dense' "
+                             "or 'chunked'")
 
 
 class LM:
@@ -106,9 +129,11 @@ class LM:
             "final_norm": _norm_spec(cfg.d_model),
         }
 
-    def init(self, generator: torch.Generator, dtype: torch.dtype = torch.bfloat16,
-             device="cpu"):
-        return init_params(self.schema(), generator, dtype, device)
+    def init(self, key, dtype: torch.dtype = torch.bfloat16, device=None):
+        """The reference's ``LM.init(key, dtype)``: weights drawn from the
+        threefry ``key`` (:func:`repro_torch.prng.PRNGKey`), on ``device``
+        (None = CUDA)."""
+        return init_params(self.schema(), key, dtype, device)
 
     # -- prefill blocks -------------------------------------------------------
     def _apply_block(self, x, bp, *, flags: RunFlags, collect_kv: bool):
@@ -135,12 +160,62 @@ class LM:
         return x + ssm_mod.ssm_forward(h, bp["ssm"], cfg), None
 
     def _run_blocks(self, x, blocks, *, flags: RunFlags, collect_kv: bool = False):
+        remat = flags.remat == "block" and not collect_kv and torch.is_grad_enabled()
         caches = []
         for i in range(self.n_blocks):
-            x, cache = self._apply_block(x, _layer(blocks, i), flags=flags,
-                                         collect_kv=collect_kv)
+            bp = _layer(blocks, i)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    self._block_out, x, bp, flags, use_reentrant=False)
+                continue
+            x, cache = self._apply_block(x, bp, flags=flags, collect_kv=collect_kv)
             caches.append(cache)
         return x, (_stack(caches) if collect_kv else None)
+
+    def _block_out(self, x, bp, flags: RunFlags):
+        return self._apply_block(x, bp, flags=flags, collect_kv=False)[0]
+
+    # -- training loss --------------------------------------------------------
+    def loss_fn(self, params, batch: Dict[str, Any], flags: RunFlags = RunFlags()):
+        """batch: tokens (B,S) and labels (B,S), integers.  Returns
+        ``(loss, {"ce": loss, "aux": 0})``: the two families have no
+        auxiliary loss."""
+        cfg = self.cfg
+        x = params["embed"][batch["tokens"].long()]
+        x, _ = self._run_blocks(x, params["blocks"], flags=flags)
+        x = rms_norm(x, params["final_norm"])
+        if flags.loss_impl == "chunked":
+            loss = self._chunked_ce(x, params["embed"], batch["labels"], flags)
+        else:
+            logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+            loss = cross_entropy_loss(logits, batch["labels"], cfg.vocab_size)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return loss + aux, {"ce": loss, "aux": aux}
+
+    def _chunked_ce(self, x, embed, labels, flags: RunFlags):
+        """CE over sequence chunks: only one (B, chunk, V) logits tile is
+        live, forward and (each chunk recomputed) backward."""
+        s = x.shape[1]
+        chunk = min(flags.loss_chunk, s)
+        while s % chunk:
+            chunk //= 2
+        nll = torch.zeros((), dtype=torch.float32, device=x.device)
+        n = torch.zeros((), dtype=torch.int64, device=x.device)
+        for lo in range(0, s, chunk):
+            part, valid = torch.utils.checkpoint.checkpoint(
+                self._chunk_nll, x[:, lo:lo + chunk], embed, labels[:, lo:lo + chunk],
+                use_reentrant=False)
+            nll = nll + part
+            n = n + valid
+        return nll / torch.clamp(n, min=1)
+
+    def _chunk_nll(self, xc, embed, lc):
+        logits = torch.einsum("bsd,vd->bsv", xc, embed).to(torch.float32)
+        valid = (lc >= 0) & (lc < self.cfg.vocab_size)
+        safe = torch.where(valid, lc, torch.zeros_like(lc)).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        return ((lse - gold) * valid).sum(), valid.sum()
 
     # -- caches ---------------------------------------------------------------
     def kv_window(self, max_seq: int) -> int:

@@ -22,6 +22,7 @@ import torch
 from repro.checkpoint import store as jstore
 from repro.configs import get_config as jax_get_config
 from repro.models import lm as jlm
+from repro_torch import prng
 from repro_torch.checkpoint import store as pstore
 from repro_torch.configs import get_config
 from repro_torch.models import lm as plm
@@ -52,7 +53,7 @@ def jtree():
 
 def _port_target():
     lm = plm.LM(CFG)
-    return {"params": lm.init(torch.Generator().manual_seed(0), torch.bfloat16),
+    return {"params": lm.init(prng.PRNGKey(0), torch.bfloat16, "cpu"),
             "cache": {"pos": torch.zeros((), dtype=torch.int32),
                       "layers": {k: v.float() for k, v in
                                  lm.init_cache(2, 24)["layers"].items()}}}

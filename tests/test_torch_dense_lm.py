@@ -37,6 +37,7 @@ from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import ffn as jffn
 from repro.models import lm as jlm
+from repro_torch import prng
 from repro_torch.checkpoint import store as pstore
 from repro_torch.configs import get_config
 from repro_torch.models import attention as pattn
@@ -130,11 +131,19 @@ class TestConfig:
             jlm.LM(JCFG).schema())
 
     def test_init_rule(self):
-        """Same std rule as the reference (not the same draws)."""
+        """The reference's rule and draws: ``LM.init(PRNGKey(s))`` gives the
+        reference's float32 weights for the same seed, leaf by leaf, bit for
+        bit (the threefry's ``normal`` is exact here; the spec's bar is
+        2 ulp), and the same seed gives the same weights twice."""
         lm = plm.LM(CFG)
-        p = lm.init(torch.Generator().manual_seed(0), torch.float32)
-        q = lm.init(torch.Generator().manual_seed(0), torch.float32)
+        p = lm.init(prng.PRNGKey(0), torch.float32, "cpu")
+        q = lm.init(prng.PRNGKey(0), torch.float32, "cpu")
         for (k, a), (_, b) in zip(pcommon.tree_leaves(p), pcommon.tree_leaves(q)):
+            assert torch.equal(a, b), k
+        ref = jlm.LM(JCFG).init(jax.random.PRNGKey(0), jnp.float32)
+        for (k, a), (_, b) in zip(pcommon.tree_leaves(p), pcommon.tree_leaves(
+                params_from_numpy(jax.tree.map(np.asarray, ref)))):
+            assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape, k
             assert torch.equal(a, b), k
         blocks = p["blocks"]
         assert torch.equal(blocks["attn_norm"], torch.ones_like(blocks["attn_norm"]))
@@ -310,7 +319,7 @@ def test_checkpoint_round_trip(tmp_path):
     tree = {"params": params, "cache": cache}
     jstore.save(str(tmp_path / "jax"), 5, tree)
     plm_ = plm.LM(CFG)
-    target = {"params": plm_.init(torch.Generator().manual_seed(0), torch.bfloat16),
+    target = {"params": plm_.init(prng.PRNGKey(0), torch.bfloat16, "cpu"),
               "cache": plm_.init_cache(B, 24, torch.bfloat16)}
     got, step, _ = pstore.restore(str(tmp_path / "jax"), target)
     assert step == 5 and got["cache"]["layers"]["k"].dtype == torch.bfloat16

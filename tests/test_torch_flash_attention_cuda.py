@@ -24,9 +24,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_train
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import NEG_INF
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_reference
 
 #: keys per kv tile of the bf16 tensor-core path (``kTcKeys`` in the source)
 TC_BLOCK_K = 64
@@ -189,3 +189,26 @@ class TestCudaKernel:
             flash_attention(q, k[:, :, :16].contiguous(), v)
         with pytest.raises(ValueError, match="unknown"):
             flash_attention(q, k, v, impl="tpu")
+
+
+@pytest.mark.cuda
+class TestTrainingFunction:
+    @pytest.mark.parametrize("name", list(DTYPES))
+    def test_forward_is_the_kernel_backward_the_plain_version(self, cuda_device, name):
+        """``flash_attention_train`` on the card: one kernel launch, the
+        kernel's output, and the gradient of the plain version recomputed
+        from the same q, k and v (bit-equal to plain autograd of it)."""
+        q, k, v = make_qkv(5, 8, 128, 128, 64, DTYPES[name], cuda_device)
+        g = torch.randn(q.shape, device=cuda_device).to(q.dtype)
+        a = [t.clone().requires_grad_() for t in (q, k, v)]
+        b = [t.clone().requires_grad_() for t in (q, k, v)]
+        launches = flash_attention_cuda.launches
+        out = flash_attention_train(*a)
+        assert flash_attention_cuda.launches == launches + 1
+        assert torch.equal(out, flash_attention(q, k, v))
+        out.backward(g)
+        attention_reference(*b).backward(g)
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.launches == launches + 2  # the forward compared above
+        for x, y in zip(a, b):
+            assert torch.equal(x.grad, y.grad)

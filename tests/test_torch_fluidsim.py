@@ -83,14 +83,16 @@ class TestLockstep:
 
 class TestOutOfSlice:
     def test_not_ported_options_raise(self):
-        """Only the ``random`` placement (threefry, ROADMAP queue 1 item 4)
-        is left out of the fluid slice."""
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-            fluidsim.FluidSimConfig(placement="rand")
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-            fluidsim.FluidSimConfig(placement="random", policy="kway2", gating="rounds")
-        for kw in (dict(policy="kway2"), dict(policy="kway3"), dict(gating="rounds")):
-            fluidsim.FluidSimConfig(**kw)
+        """Nothing of the fluid slice is left out: the ``random`` placement
+        (threefry draws) builds beside k-way and the rounds, and its
+        statics carry the reference's placement key."""
+        for kw in (dict(policy="kway2"), dict(policy="kway3"), dict(gating="rounds"),
+                   dict(placement="rand"),
+                   dict(placement="random", policy="kway2", gating="rounds",
+                        placement_seed=2**31 + 5)):
+            cfg = fluidsim.FluidSimConfig(**kw)
+            k = fluidsim._Statics(cfg, torch.device("cpu"))
+            assert k.place_key.tolist() == [0, cfg.placement_seed & 0xFFFFFFFF]
         tr = fluidsim.trace_from_jobs(P.get_scenario("smoke").job_list(), fusion="none",
                                       device="cpu")
         assert tr["bucket_bytes"].shape == (6, 1)

@@ -253,10 +253,14 @@ class TestReferenceCases:
 
 class TestNotPorted:
     def test_raise_not_implemented(self):
-        """Only the ``random`` placement (threefry) is left; the gating
-        closure and the exact k-way lookahead run (held to the reference in
-        ``test_torch_wfbp.py``)."""
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
+        """Nothing is left out: the ``random`` placement ranks by the
+        caller's draw (and, like ``rack_pack``, raises without one); the
+        gating closure and the exact k-way lookahead run (held to the
+        reference in ``test_torch_wfbp.py``)."""
+        draw = torch.tensor([0.7, 0.1, 0.4, 0.9])
+        assert torch.equal(netmodel.placement_rank("random", torch.ones(4), torch.ones(4),
+                                                   torch.arange(4.0), draw), draw)
+        with pytest.raises(ValueError, match="rank_extra"):
             netmodel.placement_rank("random", torch.ones(4), torch.ones(4), torch.arange(4.0))
         olds = torch.ones(2, 2, dtype=torch.bool)
         got = netmodel.may_start_dynamic(

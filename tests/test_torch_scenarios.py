@@ -104,16 +104,20 @@ class TestFluidConfig:
             P.fluid_config(P.get_scenario("smoke"), comm="fifo", device="cpu")
 
     def test_kway_not_ported(self):
-        """The exact k-way policies and ``gating="rounds"`` are ported; only
-        the ``random`` placement raises."""
+        """The exact k-way policies, ``gating="rounds"`` and the ``random``
+        placement (threefry draws, seeded from the scenario) are ported: the
+        port's config equals the reference's field by field."""
         for comm in ("kway2", "kway3"):
             ref = ref_fluid_config(R.get_scenario("fusion_sweep"), comm=comm, gating="rounds")
             got = P.fluid_config(P.get_scenario("fusion_sweep"), comm=comm, gating="rounds",
                                  device="cpu")
             for f in dataclasses.fields(ref):
                 assert getattr(got, f.name) == getattr(ref, f.name), f.name
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-            P.fluid_config(P.get_scenario("smoke"), placement="rand", device="cpu")
+        ref = ref_fluid_config(R.get_scenario("smoke", seed=3), placement="rand")
+        got = P.fluid_config(P.get_scenario("smoke", seed=3), placement="rand", device="cpu")
+        for f in dataclasses.fields(ref):
+            assert getattr(got, f.name) == getattr(ref, f.name), f.name
+        assert got.placement == "random" and got.placement_seed == 3
 
 
 def _assert_records(got, ref):

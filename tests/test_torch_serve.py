@@ -8,7 +8,10 @@ configs of ``mamba2_130m`` and ``llama32_1b``.
   ``tests/test_models.py::TestDecodeMatchesPrefill``).
 * In float32, both packages driven through their ``steps.py`` functions
   with greedy sampling: every generated token identical.
-* ``greedy=False`` and a call without ``device`` where CUDA is absent raise.
+* ``greedy=False`` (temperature 0.8) from the seed alone: every token the
+  reference's ``serve_batch``'s, in bf16 and in float32; the weights made
+  from the seed are the reference's ``LM.init(PRNGKey(seed))``.
+* A call without ``device`` where CUDA is absent raises.
 * The decode runner (``serve._DecodeRunner``) on the CPU steps eagerly:
   bit-equal to a plain loop of ``decode_fn`` over its own cache, which it
   updates in place; ``_graph=True`` on the CPU raises.
@@ -24,6 +27,7 @@ from repro.configs import get_config as jax_get_config
 from repro.launch import serve as jserve
 from repro.launch import steps as jsteps
 from repro.models import lm as jlm
+from repro_torch import prng
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as pserve
 from repro_torch.launch import steps as psteps
@@ -69,9 +73,39 @@ class TestServeBatch:
         np.testing.assert_allclose(got["logits"][:, 0].float().numpy(), first,
                                    atol=BF16_BAR, rtol=BF16_BAR)
 
-    def test_sampling_waits_for_threefry(self):
-        with pytest.raises(NotImplementedError, match="threefry"):
-            pserve.serve_batch(CFG, 2, 8, 2, greedy=False, device="cpu")
+    @pytest.mark.parametrize("seed", [0, 1])
+    @pytest.mark.parametrize("family", ["ssm", "dense"])
+    def test_sampling_waits_for_threefry(self, family, seed):
+        """Sampled serving (``greedy=False``, temperature 0.8) from the seed
+        alone: the reference's weights (bf16, ``PRNGKey(seed)``) and the
+        reference's draws (the first token from ``PRNGKey(seed)``, each
+        later one from a split of it), so every token equals the
+        reference's ``serve_batch``."""
+        cfg, jcfg = FAMILIES[family]
+        ref = jserve.serve_batch(jcfg, 2, 16, 8, seed, greedy=False, temperature=0.8)
+        got = pserve.serve_batch(cfg, 2, 16, 8, seed, greedy=False, temperature=0.8,
+                                 device="cpu")
+        assert got["generated"].dtype == np.int32
+        np.testing.assert_array_equal(got["generated"], ref["generated"])
+        greedy = pserve.serve_batch(cfg, 2, 16, 8, seed, device="cpu")
+        assert not np.array_equal(greedy["generated"], got["generated"])
+
+    @pytest.mark.parametrize("family", ["ssm", "dense"])
+    def test_sampling_float32_matches_reference(self, family, monkeypatch):
+        """The same in float32: the reference's server with its weights
+        made in float32 (its ``LM`` subclassed in this test) against the
+        port's ``dtype=torch.float32``."""
+        cfg, jcfg = FAMILIES[family]
+
+        class Float32LM(jlm.LM):
+            def init(self, key, dtype=jnp.float32):
+                return super().init(key, jnp.float32)
+
+        monkeypatch.setattr(jserve, "LM", Float32LM)
+        ref = jserve.serve_batch(jcfg, 2, 16, 8, 3, greedy=False, temperature=0.8)
+        got = pserve.serve_batch(cfg, 2, 16, 8, 3, greedy=False, temperature=0.8,
+                                 device="cpu", dtype=torch.float32)
+        np.testing.assert_array_equal(got["generated"], ref["generated"])
 
     def test_no_device_means_cuda(self):
         if torch.cuda.is_available():
@@ -108,6 +142,31 @@ class TestServeBatch:
         b = pserve.serve_batch(CFG, 2, 16, 3, seed=1, device="cpu")
         np.testing.assert_array_equal(a["generated"], b["generated"])
         assert torch.equal(a["logits"], b["logits"])
+
+    @pytest.mark.parametrize("family", ["ssm", "dense"])
+    def test_own_weights_are_the_references(self, family):
+        """The weights serve_batch makes from ``seed`` are the reference's
+        ``LM.init(PRNGKey(seed))``, leaf by leaf: float32 within 2 ulp
+        (exact here) and bf16 identical after the cast; so the served
+        first-step logits equal those served from the carried weights."""
+        cfg, jcfg = FAMILIES[family]
+        for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+            ref = jlm.LM(jcfg).init(jax.random.PRNGKey(4), jdt)
+            got = plm.LM(cfg).init(prng.PRNGKey(4), tdt, "cpu")
+            for (k, t), r in zip(tree_leaves(got), jax.tree.leaves(ref)):
+                r = np.asarray(r)
+                assert t.dtype == tdt and tuple(t.shape) == r.shape, k
+                if tdt == torch.float32:
+                    ulps = np.abs(t.numpy().view(np.int32).astype(np.int64)
+                                  - r.view(np.int32).astype(np.int64))
+                    assert ulps.max(initial=0) <= 2, k
+                else:
+                    np.testing.assert_array_equal(t.view(torch.int16).numpy(), r.view(np.int16),
+                                                  err_msg=k)
+        _, carried = _carried(4, jnp.bfloat16, jcfg)
+        own = pserve.serve_batch(cfg, 2, 16, 2, seed=4, device="cpu")
+        with_carried = pserve.serve_batch(cfg, 2, 16, 2, seed=4, params=carried, device="cpu")
+        assert torch.equal(own["logits"], with_carried["logits"])
 
 
 def _tokens_identical(cfg, jcfg):
