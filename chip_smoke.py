@@ -167,16 +167,50 @@ Phases (any failed check raises, so the exit code is non-zero):
     finishes, one step-kernel launch per executed tick, counted from 0
     just before), a small paper batch under ada and srsf2 on the card and
     the CPU (identical finish ticks), and ``monte_carlo_jct(n_seeds=8,
-    n_jobs=64)`` on the card and on the CPU (a worker process started
-    before phase 13): identical sampled traces and ``per_seed``;
+    n_jobs=32)`` on the card and on the CPU (the CPU side in a worker
+    process during phases 10-11): identical sampled traces and
+    ``per_seed``;
 30. sampled serving (``greedy=False``, temperature 0.8) at full width for
     both families (every token in the vocab), and on the reduced float32
     configs on the card (plain path) and the CPU: identical tokens, or the
     step and the logit margin where they part, and the phase fails.
 
-Then the kernels line (JSON; the flash kernel's launches are the serving
-and the training main paths', the fluid step's include phase 29's) and,
-last, ``{"ok": true, "device": ...}``.
+31. the event engine (``run_scenario_event``) on the host at registered
+    size, seed 0: ``paper`` (160 jobs, 1000-6000 iterations, 16 x 4 GPUs)
+    under ada, srsf1 and srsf2 with LWF-1, and ``oversub_fabric`` under ada
+    with LWF_RACK: every job finishes; avg JCT, wall and events per second
+    beside the host CPU's model name (these runs and phase 32's go to 4
+    worker processes started when phase 29 ends, so they run beside no
+    card phase);
+32. phase 4's 8 paper job lists (iterations cut the same way) through the
+    event engine on the host under ada, srsf1 and srsf2: both backends
+    finish every job; the fluid / event avg JCT ratio per seed printed
+    beside the reference's bound of 2.0 (not held: the reference bounds
+    other cells), and each seed's fluid avg JCT on the card held equal to
+    the JAX reference's on the CPU (``scripts/fluid_event_reference.py``);
+33. ``repro_torch.launch.multi_job.run_multi_job`` at full width
+    (llama3.2-1b on 4 GPUs for 300 iterations, mamba2-130m on 2 for 500,
+    batch 8 x seq 512, ada over the virtual 10GbE fabric, 4 executed
+    steps), the flash launch count reset just before: exactly 16 x (1
+    warm-up + 3 timed + 4 executed) launches, both jobs complete in the
+    schedule, every loss finite, each job's first executed loss equal to
+    its warm-up loss bit for bit (the same init on the same batch); the
+    card's profiles, peak memory, and the avg JCT of ada, srsf1 and srsf2
+    schedules of those profiles; then the same profiles scheduled with two
+    more jobs that span servers (llama3.2-1b on 8 GPUs, mamba2-130m on 12):
+    every job completes under each policy, and ada starts at least one
+    all-reduce under contention (the gating decides).
+
+Phases run in the order of their numbers, but for 31 and 32, which run
+after 29.  Worker processes run only during phases 10-11 and 31-32, so
+the phases that time host-bound work (7, 12-30, 33) have the host to
+themselves.  A profiler window that shows no device time at all (CUPTI
+drops one now and then) is logged and taken again, up to 3 windows,
+before the check that needs it fails.
+
+Then the kernels line (JSON; the flash kernel's launches are the serving,
+training and multi_job main paths', the fluid step's include phase 29's)
+and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
@@ -213,9 +247,49 @@ def _log(*args) -> None:
     print(*args, flush=True)
 
 
+_START = time.perf_counter()
+
+
+def _mark(phases: str) -> None:
+    """Log the start of a group of phases, in seconds since the script began."""
+    _log(f"-- phase {phases} at {time.perf_counter() - _START:.1f} s")
+
+
 def _require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+#: profiler windows taken before a check that needs device time fails
+PROFILE_WINDOWS = 3
+
+
+def _profile(torch, run, what: str, required: bool = True, prepare=None):
+    """``run()`` under ``torch.profiler`` (host and CUDA activity), then a
+    synchronize, inside the window (``prepare()`` and a synchronize before
+    each window, outside it).  Returns the profile and its averages on the
+    device.  CUPTI now and then hands back a window with no device
+    record at all, though the run launched kernels: such a window is
+    logged and taken again, up to ``PROFILE_WINDOWS`` in all.  With
+    ``required``, the check fails if no window shows device time; without
+    it, the last window is returned as it is."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for window in range(1, PROFILE_WINDOWS + 1):
+        if prepare is not None:
+            prepare()
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.self_device_time_total for e in on_device) > 0:
+            return prof, on_device
+        _log(f"the profiler saw no device time in {what} (window {window} of "
+             f"{PROFILE_WINDOWS})")
+    _require(not required, f"the profiler saw the device time of {what}")
+    return prof, on_device
 
 
 def _rand_inputs(rng, lanes, n_jobs, n_servers, n_domains):
@@ -544,8 +618,6 @@ def _decode_modes(torch, tag, lm, params, cache0, tok, flags, key, expect_key) -
     step under the profiler: device time, kernels and copies per step, the
     share of the kernels whose name holds ``key`` (there must be some iff
     ``expect_key``), device idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch.serve import _DecodeRunner
     from repro_torch.launch.steps import make_serve_step
 
@@ -565,16 +637,10 @@ def _decode_modes(torch, tag, lm, params, cache0, tok, flags, key, expect_key) -
                 torch.cuda.synchronize()
                 walls.setdefault(mode, []).append((time.perf_counter() - t1) / 10 * 1e3)
         for mode, r in runners.items():
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                r.step()
-                torch.cuda.synchronize()
-            on_device = [e for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA]
+            _, on_device = _profile(torch, r.step, f"the {tag} decode step ({mode})")
             device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
             key_ms = sum(e.self_device_time_total for e in on_device if key in e.key) / 1e3
             n_kernels = sum(e.count for e in on_device)
-            _require(device_ms > 0, f"the profiler saw the {tag} decode step's device time "
-                     f"({mode})")
             _require((key_ms > 0) == expect_key, f"{key} kernel time in the {tag} decode step")
             cap = (f"; capture: eager first step {r.timing['warmup_s']:.4f} s, recording "
                    f"{r.timing['capture_s']:.4f} s, instantiation "
@@ -979,8 +1045,6 @@ def _dense_serve_phases(torch, dev) -> int:
          f"{on_card['generated'].tolist()}, max abs logit difference {diff}")
 
     # ---- 23. one prefill, then decode steps: the graph against eager --------
-    from torch.profiler import ProfilerActivity, profile
-
     prefill = make_prefill_step(lm, plen + gen, flags["cuda"])
     with torch.no_grad():
         _, cache0 = prefill(params, {"tokens": tokens})
@@ -991,11 +1055,8 @@ def _dense_serve_phases(torch, dev) -> int:
             prefill(params, {"tokens": tokens})
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t1) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            prefill(params, {"tokens": tokens})
-            torch.cuda.synchronize()
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        _, on_device = _profile(torch, lambda: prefill(params, {"tokens": tokens}),
+                                "the prefill")
     device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
     flash_ms = sum(e.self_device_time_total for e in on_device if "flash_fwd" in e.key) / 1e3
     n_kernels = sum(e.count for e in on_device)
@@ -1056,8 +1117,6 @@ def _tick_cost(torch, tag, batch, cfg, blocks=(), plain=True) -> dict:
     kernels and copies per tick, idle share.  Before that, for each block
     size in ``blocks``, capture and instantiation seconds against wall per
     tick.  Returns {mode: (wall ms, device ms, kernels per tick)}."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import fluidsim
 
     dev = batch["arrival"].device
@@ -1091,17 +1150,15 @@ def _tick_cost(torch, tag, batch, cfg, blocks=(), plain=True) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t1) / ticks * 1e3, start.elapsed_time(stop) / ticks
 
-    def _device_ms(r):
+    def _device_ms(r, mode):
         """Device time per tick by the profiler (kernels and copies), and
         their number per tick."""
-        for n, v in r.state.items():
-            v.copy_(state0[n])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            r.run_chunk()
-            torch.cuda.synchronize()
-        on_device = [e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        def reset():
+            for n, v in r.state.items():
+                v.copy_(state0[n])
+
+        _, on_device = _profile(torch, r.run_chunk, f"a chunk of the {tag} ({mode})",
+                                required=mode == "eager", prepare=reset)
         return (sum(e.self_device_time_total for e in on_device) / 1e3 / ticks,
                 sum(e.count for e in on_device) / ticks)
 
@@ -1127,15 +1184,13 @@ def _tick_cost(torch, tag, batch, cfg, blocks=(), plain=True) -> dict:
     for mode, r in runners.items():
         wall = min(w for w, _ in per_tick[mode])
         events = min(e for _, e in per_tick[mode])
-        dev_ms, n_ops = _device_ms(r)
+        dev_ms, n_ops = _device_ms(r, mode)
         idle = f"{1 - dev_ms / wall:.4f}" if dev_ms > 0 else "not measured"
         _log(f"host cost, {mode} ({tag}, one chunk of {ticks} ticks in blocks of {r.block}, "
              f"alone on the card): wall per tick {[round(w, 6) for w, _ in per_tick[mode]]} ms, "
              f"CUDA events per tick {[round(e, 6) for _, e in per_tick[mode]]} ms; device time "
              f"per tick (profiler) {dev_ms:.6f} ms in {n_ops:.2f} kernels and copies; device "
              f"idle share {idle} (events: {1 - dev_ms / events:.4f})")
-        if mode == "eager":
-            _require(dev_ms > 0, "the profiler saw the eager chunk's device time")
         out[mode] = (wall, dev_ms, n_ops)
         r.release()
     return out
@@ -1352,14 +1407,16 @@ def _first_divergence(torch, name, seeds, over, comm, fast_kw, dev, max_ticks=40
     _log(f"card vs CPU, {name} {comm} {fast_kw}: no tick differs from the same state")
 
 
-def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> None:
+def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> dict:
     """Phases 10 and 11, and phase 5's eager run.  The host-bound runs
     (the eager runs of the paper ada, model_zoo ada and paper kway2
-    batches, and the CPU side of phase 11) go to worker processes,
-    started together, while this process replays the plain step core's
-    graphs and phase 11's card side, so the card is shared meanwhile
-    (their walls are printed, not kept; phase 7 times an eager tick
-    alone)."""
+    batches, the CPU side of phase 11, and phase 29's CPU side of
+    ``monte_carlo_jct``) go to worker processes, started together, while
+    this process replays the plain step core's graphs and phase 11's card
+    side, so the card is shared meanwhile (their walls are printed, not
+    kept; phase 7 times an eager tick alone).  Returns phase 29's CPU
+    side, so that no worker runs beside the phases that time host-bound
+    work after phase 12."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1371,10 +1428,11 @@ def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> None:
                   ("paper ada", "paper", SEEDS, PAPER_CUT, "ada"),
                   ("model_zoo ada", "model_zoo", SEEDS, ZOO_CUT, "ada"))
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(max_workers=6,
+    with ProcessPoolExecutor(max_workers=7,
                              mp_context=multiprocessing.get_context("spawn")) as pool:
         eager = [pool.submit(_batch_worker, (name, seeds, over, comm, {}, "cuda", False))
                  for _, name, seeds, over, comm in eager_runs]
+        mc_cpu = pool.submit(_mc_worker, "cpu")
         on_cpu = [pool.submit(_batch_worker, job) for job in cpu_jobs]
         # ---- 10. the plain step core in the graph ---------------------------
         for tag, name, seeds, over, comm in reruns:
@@ -1404,7 +1462,10 @@ def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> None:
             _log(f"{tag}, kernel eagerly (worker process, card shared): identical finished "
                  f"mask, finish ticks and chunk count; wall {res['wall']:.3f} s, "
                  f"{res['wall'] / ticks * 1e3:.4f} ms per tick, {res['launches']} launches")
-    _log(f"phases 10-11: {time.perf_counter() - t0:.3f} s wall")
+        mc = mc_cpu.result()
+    _log(f"phases 10-11: {time.perf_counter() - t0:.3f} s wall (phase 29's CPU side "
+         f"{mc['wall']:.3f} s of it)")
+    return mc
 
 
 # ---------------------------------------------------------------------------
@@ -1415,7 +1476,7 @@ def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> None:
 #: 512, D 64 in llama's attention), the reference's default lr, 8 steps
 TRAIN = dict(steps=8, batch=8, seq=512, lr=3e-4, seed=0)
 #: the paper batch of phase 4 under the random placement (phase 29)
-MC_JCT = dict(n_seeds=8, n_jobs=64)
+MC_JCT = dict(n_seeds=8, n_jobs=32)
 SAMPLE_T = 0.8
 
 
@@ -1686,8 +1747,6 @@ def _train_phases(torch, dev) -> int:
     _require(resumed == whole[2:], "the resumed run repeats the uninterrupted run's losses")
 
     # ---- 28. one training step under the profiler ---------------------------
-    from torch.profiler import ProfilerActivity, profile
-
     params = lm.init(prng.PRNGKey(0, dev), torch.bfloat16, dev)
     opt = AdamWConfig(lr=TRAIN["lr"])
     st = adamw_init(params, opt)
@@ -1703,10 +1762,14 @@ def _train_phases(torch, dev) -> int:
         params, st, m = step(params, st, b)
         float(m["loss"])
         walls.append((time.perf_counter() - t1) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        params, st, m = step(params, st, batches[4])
+    state = {"params": params, "opt": st}
+
+    def run():
+        state["params"], state["opt"], m = step(state["params"], state["opt"], batches[4])
         float(m["loss"])
-        torch.cuda.synchronize()
+
+    prof, _ = _profile(torch, run, "the training step")
+    params, st = state["params"], state["opt"]
     names = (BACKWARD_RANGE, UPDATE_RANGE)
     # the named ranges also show as device-side annotations: not kernels
     on_device = [e for e in prof.key_averages()
@@ -1761,13 +1824,13 @@ def _mc_worker(device) -> dict:
     return out
 
 
-def _random_phase(torch, dev, chunk_steps, cpu_mc) -> tuple:
+def _random_phase(torch, dev, chunk_steps, cpu) -> tuple:
     """Phase 29: the random placement on the card.  The paper batch of
     phase 4 under ``placement="random"`` (the main path: launch count 0
     just before, one launch per executed tick), a small batch on the card
-    and the CPU, and ``monte_carlo_jct`` on both (``cpu_mc``: the CPU
-    side's future, started in a worker process during the serving
-    phases).  Returns (launches, executed ticks)."""
+    and the CPU, and ``monte_carlo_jct`` on both (``cpu``: the CPU side's
+    result, run in a worker process during phases 10-11).  Returns
+    (launches, executed ticks)."""
     from repro_torch.scenarios import get_scenario, run_scenario_fluid
 
     res = _paper_batch("ada", "", "simulate_traces_batched", placement="random")
@@ -1784,7 +1847,6 @@ def _random_phase(torch, dev, chunk_steps, cpu_mc) -> tuple:
         _log(f"paper (24 jobs, seed 1) {comm} random placement: card == CPU on every finish "
              f"tick ({int(on_card['finished'].sum())} jobs)")
     card = _mc_worker("cuda")
-    cpu = cpu_mc.result()
     for k, v in card["traces"].items():
         _require((v == cpu["traces"][k]).all(), f"monte_carlo_jct traces: {k}")
     _require((card["per_seed"] == cpu["per_seed"]).all(), "monte_carlo_jct per_seed")
@@ -1831,6 +1893,194 @@ def _sampled_phase(torch, dev) -> None:
         _require(same.all(), f"{red.name} sampled f32: card vs CPU tokens")
         _log(f"{red.name} sampled f32, plain path: card == CPU tokens "
              f"{on_card['generated'].tolist()}")
+
+
+
+# ---------------------------------------------------------------------------
+# The event engine and multi_job (phases 31-33)
+# ---------------------------------------------------------------------------
+
+#: phase 31: registered-size cells of the event engine, (scenario, comm,
+#: placement), seed 0
+EVENT_CELLS = (("paper", "ada", "lwf"), ("paper", "srsf1", "lwf"), ("paper", "srsf2", "lwf"),
+               ("oversub_fabric", "ada", "lwf_rack"))
+#: phase 32: phase 4's fluid batches and the event engine on the same jobs
+EVENT_FLUID_COMMS = ("ada", "srsf1", "srsf2")
+#: the reference's fluid-vs-event tolerance (tests/test_differential.py)
+EVENT_FLUID_RATIO = 2.0
+#: the JAX reference's fluid avg JCT per seed on phase 4's batches, on the CPU
+#: (``scripts/fluid_event_reference.py``), which phase 32 holds the card's to
+REFERENCE_FLUID_AVG_JCT = {
+    "ada": (100.85907557010651, 86.27750918865203, 126.20032160282135,
+        66.01844844818115, 134.65657732486724, 106.0162628531456,
+        153.05688747167588, 95.34594995975495),
+    "srsf1": (96.94782526493073, 87.1853239774704, 142.6275139093399,
+        93.75282363891601, 154.1503271341324, 110.46782764196396,
+        155.89251579046248, 97.96376307010651),
+    "srsf2": (85.12563631534576, 67.4875113248825, 81.33313581943511,
+        64.37188549041748, 113.87501194477082, 59.75407508611679,
+        149.42251456975936, 89.55313646793365),
+}
+#: phase 33: run_multi_job at full width
+MULTI_JOB = dict(jobs=("llama3.2-1b:4:300", "mamba2-130m:2:500"), batch=8, seq=512,
+                 policy="ada", fabric="10gbe", execute_steps=4, timing_steps=3)
+#: phase 33: jobs scheduled with the measured profiles beside MULTI_JOB's,
+#: spanning servers of the 4 x 4 cluster so that their all-reduces contend
+SPAN_JOBS = ("llama3.2-1b:8:300", "mamba2-130m:12:500")
+EVENT_WORKERS = 4
+
+
+def _host_cpu() -> str:
+    """The host CPU's model name (``lscpu``, else ``/proc/cpuinfo``), its
+    architecture and logical CPU count."""
+    import os
+    import platform
+
+    name = ""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=10).stdout
+        name = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                     if ln.startswith("Model name")), "")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if not name:
+        try:
+            name = next((ln.split(":", 1)[1].strip()
+                         for ln in Path("/proc/cpuinfo").read_text().splitlines()
+                         if ln.startswith("model name")), "")
+        except OSError:
+            pass
+    return f"{name or 'model name not reported'}, {platform.machine()}, {os.cpu_count()} CPUs"
+
+
+def _event_worker(name, seed, comm, placement, overrides) -> dict:
+    """One event-engine run of a registered scenario (phases 31-32), on the
+    host, in a worker process or this one."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.scenarios import get_scenario, run_scenario_event
+
+    scn = get_scenario(name, seed=seed, **overrides)
+    t0 = time.perf_counter()
+    res = run_scenario_event(scn, comm=comm, placement=placement)
+    wall = time.perf_counter() - t0
+    return {"name": name, "seed": seed, "comm": comm, "placement": placement,
+            "n_jobs": scn.n_jobs, "gpus": scn.total_gpus, "n_finished": len(res.jct),
+            "censored": res.censored, "avg_jct": res.avg_jct() if res.jct else math.nan,
+            "makespan": res.makespan, "events": res.events_processed, "wall": wall}
+
+
+def _submit_event_runs(pool) -> dict:
+    """Phases 31-32's host runs, queued on ``pool`` (worker processes
+    started when phase 29 ends, so they run beside no card phase)."""
+    reg = [pool.submit(_event_worker, name, 0, comm, pl, {}) for name, comm, pl in EVENT_CELLS]
+    cut = {(comm, s): pool.submit(_event_worker, "paper", s, comm, "lwf", PAPER_CUT)
+           for comm in EVENT_FLUID_COMMS for s in SEEDS}
+    return {"registered": reg, "cut": cut}
+
+
+def _event_phases(futures, fluid_results) -> None:
+    """Phase 31: the event engine at registered size; phase 32: the event
+    engine against phase 4's fluid batches on the same job lists."""
+    cpu = _host_cpu()
+    for fut in futures["registered"]:
+        r = fut.result()
+        _log(f"event engine {r['name']} ({r['n_jobs']} jobs, {r['gpus']} GPUs, seed 0) "
+             f"{r['comm']} {r['placement']}: finished {r['n_finished']}/{r['n_jobs']}, avg JCT "
+             f"{r['avg_jct']} s, makespan {r['makespan']} s, {r['events']} events in "
+             f"{r['wall']:.3f} s wall = {r['events'] / r['wall']:.1f} events/s on the host "
+             f"({cpu}, one of {EVENT_WORKERS} worker processes, beside no card phase)")
+        _require(r["n_finished"] == r["n_jobs"] and r["censored"] == 0,
+                 f"event engine {r['name']} {r['comm']}: every job finishes")
+    for comm, fluid in zip(EVENT_FLUID_COMMS, fluid_results):
+        ratios, walls, fluid_avg, event_avg = [], [], [], []
+        for s, rec in zip(SEEDS, fluid["recs"]):
+            ev = futures["cut"][(comm, s)].result()
+            _require(ev["n_finished"] == ev["n_jobs"] == rec["n_jobs"] == rec["n_finished"],
+                     f"paper {comm} seed {s}: both backends finish every job")
+            ratios.append(rec["avg_jct"] / ev["avg_jct"])
+            walls.append(ev["wall"])
+            fluid_avg.append(rec["avg_jct"])
+            event_avg.append(ev["avg_jct"])
+        want = REFERENCE_FLUID_AVG_JCT[comm]
+        _log(f"paper {comm} (160 jobs, iterations {PAPER_CUT['min_iters']}-"
+             f"{PAPER_CUT['max_iters']}, 8 seeds): fluid avg JCT on the card (phase 4) / event "
+             f"avg JCT on the host, per seed: {[round(x, 6) for x in ratios]} (the reference's "
+             f"bound on its own cells: within {EVENT_FLUID_RATIO}x; printed, not held here); "
+             f"fluid avg JCT per seed {fluid_avg}, the JAX reference's on the CPU {list(want)}; "
+             f"event avg JCT per seed {event_avg}; event wall per seed "
+             f"{[round(x, 3) for x in walls]} s")
+        _require(tuple(fluid_avg) == want,
+                 f"paper {comm}: fluid avg JCT per seed on the card equals the reference's")
+
+
+def _multi_job_phase(torch) -> int:
+    """Phase 33: ``run_multi_job`` at full width on the card, the flash
+    launch count reset just before it.  Returns those launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.multi_job import JobRequest, run_multi_job, schedule_jobs
+
+    mj = MULTI_JOB
+    reqs = [JobRequest.parse(spec, arrival=2.0 * i) for i, spec in enumerate(mj["jobs"])]
+    for r in reqs:
+        r.batch, r.seq, r.reduced = mj["batch"], mj["seq"], False
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = run_multi_job(reqs, policy=mj["policy"], fabric=mj["fabric"],
+                        execute_steps=mj["execute_steps"], timing_steps=mj["timing_steps"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = get_config("llama3.2-1b").n_layers
+    expect = n_layers * (1 + mj["timing_steps"] + mj["execute_steps"])
+    res = out["schedule"]
+    _log(f"multi_job {list(mj['jobs'])} at full width, batch {mj['batch']} x seq {mj['seq']}, "
+         f"{mj['policy']} over {mj['fabric']}: wall {wall:.3f} s (two inits, 1 warm-up + "
+         f"{mj['timing_steps']} timed steps each, the schedule, {mj['execute_steps']} executed "
+         f"steps each); torch.cuda.max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB); flash "
+         f"kernel launches {launches} (expected {n_layers} layers x (1 + {mj['timing_steps']} + "
+         f"{mj['execute_steps']}) = {expect}); completion order {out['order']}")
+    _require(launches == expect, "multi_job: one flash launch per llama layer per step")
+    _require(len(res.jct) == len(reqs) and res.censored == 0, "multi_job: both jobs complete")
+    profiles = [out["profiles"][i] for i in range(len(reqs))]
+    for jid, prof in enumerate(profiles):
+        losses, warm = out["losses"][jid], out["warmup_losses"][jid]
+        _log(f"  J{jid} {prof.name} on {reqs[jid].n_gpus} GPUs: t_f {prof.t_f} s, t_b {prof.t_b} "
+             f"s (a third and two thirds of the timed step), size_bytes {prof.size_bytes}, "
+             f"mem_mb {prof.mem_mb}; warm-up loss {warm!r}; executed losses {losses}")
+        _require(len(losses) == mj["execute_steps"] and all(np.isfinite(losses)),
+                 f"multi_job J{jid}: finite losses")
+        _require(losses[0] == warm, f"multi_job J{jid}: the first executed loss is the warm-up's "
+                 "(the same init on the same batch)")
+    for policy in ("ada", "srsf1", "srsf2"):
+        r = schedule_jobs(reqs, profiles, policy=policy, fabric=mj["fabric"])
+        _log(f"multi_job schedule of the card's profiles, {r.policy_name} {r.placement_name}: avg "
+             f"JCT {r.avg_jct()} s, JCTs {r.jct}, makespan {r.makespan} s, contended starts "
+             f"{r.comm_started_contended}, clean starts {r.comm_started_clean}")
+        _require(len(r.jct) == len(reqs), f"multi_job schedule {policy}: both jobs complete")
+    span = reqs + [JobRequest.parse(spec, arrival=2.0 * (len(reqs) + i))
+                   for i, spec in enumerate(SPAN_JOBS)]
+    by_arch = {r.arch: prof for r, prof in zip(reqs, profiles)}
+    for policy in ("ada", "srsf1", "srsf2"):
+        r = schedule_jobs(span, [by_arch[q.arch] for q in span], policy=policy,
+                          fabric=mj["fabric"])
+        _log(f"multi_job schedule of the card's profiles with {list(SPAN_JOBS)} added, "
+             f"{r.policy_name} {r.placement_name}: avg JCT {r.avg_jct()} s, JCTs {r.jct}, "
+             f"makespan {r.makespan} s, contended starts {r.comm_started_contended}, clean "
+             f"starts {r.comm_started_clean}")
+        _require(len(r.jct) == len(span) and r.censored == 0,
+                 f"multi_job schedule with spanning jobs, {policy}: every job completes")
+        if policy == "ada":
+            _require(r.comm_started_contended > 0,
+                     "multi_job schedule with spanning jobs: ada gates a contended start")
+    del out
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1891,6 +2141,7 @@ def main() -> int:
     _require(spill_st == 0 and spill_ld == 0, "the bf16 D-64 flash instantiation spills")
 
     # ---- 3. kernel vs plain version -----------------------------------------
+    _mark("3")
     names = ("loads", "member", "active", "rem", "bw", "oversub")
     rng = np.random.default_rng(0)
     max_ulp, max_abs = 0, 0.0
@@ -1969,6 +2220,7 @@ def main() -> int:
          f"redesign {FLUID_BEFORE_MS} ms; no single PyTorch call computes this function")
 
     # ---- 4./5. the main path, and the ada batch with the plain step core ---
+    _mark("4-5")
     # One batch at a time, alone on the card: graph replays from separate
     # processes would take turns on it.  Each batch starts with a launch
     # count of 0 and reports its count just after its run.
@@ -1987,6 +2239,7 @@ def main() -> int:
          f"{time.perf_counter() - t0:.3f} s")
 
     # ---- 6. small inputs: card vs CPU ---------------------------------------
+    _mark("6")
     for name, comm, placement in (("smoke", "ada", "lwf"),
                                   ("contended_residue", "srsf2", "ls"),
                                   ("oversub_fabric", "srsf1", "rack_pack")):
@@ -2028,6 +2281,7 @@ def main() -> int:
          "identical finished mask, finish ticks and chunk count (the eager run is in phase 10)")
 
     # ---- 7. host cost: one chunk of the ada batch, alone on the card --------
+    _mark("7")
     paper = [get_scenario("paper", seed=s, **PAPER_CUT) for s in SEEDS]
     cfg = fluid_config(paper[0], comm="ada", placement="lwf")
     batch = fluidsim.stack_traces(
@@ -2037,9 +2291,11 @@ def main() -> int:
                             blocks=(8, 16, 32, cfg.chunk_steps))
 
     # ---- 8. the step kernel with its overlap plane --------------------------
+    _mark("8")
     overlap_rows = _overlap_kernel_phase(torch, dev)
 
     # ---- 9. the WFBP and exact k-way main path -------------------------------
+    _mark("9")
     t0 = time.perf_counter()
     wfbp_main, wfbp_launches, wfbp_ticks = _main_wfbp_phase(torch, chunk_steps)
     _log(f"main path, WFBP and k-way: {len(MAIN_WFBP)} batches, one at a time, wall "
@@ -2048,9 +2304,11 @@ def main() -> int:
     _require(wfbp_launches == wfbp_ticks > 0, "one launch per executed tick")
 
     # ---- 10./11. plain core and eager; card against CPU ----------------------
-    _wfbp_checks_phase(torch, dev, {**wfbp_main, "paper ada": ada}, chunk_steps)
+    _mark("10-11")
+    mc_cpu = _wfbp_checks_phase(torch, dev, {**wfbp_main, "paper ada": ada}, chunk_steps)
 
     # ---- 12. per tick: one model_zoo chunk through the graph -----------------
+    _mark("12")
     zoo = [get_scenario("model_zoo", seed=s, **ZOO_CUT) for s in SEEDS]
     zoo_cfg = fluid_config(zoo[0], comm="ada", placement="lwf")
     zoo_batch = fluidsim.stack_traces(
@@ -2063,35 +2321,46 @@ def main() -> int:
              f"{n:.2f} kernels and copies; monolithic paper tick (phase 7) wall {pw:.6f} ms, "
              f"device {pd:.6f} ms in {pn:.2f}")
 
-    # phase 29's CPU side, in a worker process while the card serves and trains
+    # ---- 13.-17. the SSD decode-step kernel and the serving path ----------
+    _mark("13-17")
+    ssd = _ssd_kernel_phase(torch, dev)
+    ssd["launches"] = _serve_phases(torch, dev)
+
+    # ---- 18.-23. the flash-attention kernel and dense serving --------------
+    _mark("18-23")
+    flash = _flash_kernel_phase(torch, dev)
+    flash["launches"] = _dense_serve_phases(torch, dev)
+
+    # ---- 24. the threefry: card against CPU ---------------------------------
+    _mark("24")
+    _prng_phase(torch, dev)
+
+    # ---- 25.-28. training -------------------------------------------------
+    _mark("25-28")
+    flash["launches"] += _train_phases(torch, dev)
+
+    # ---- 29. the random placement and monte_carlo_jct -----------------------
+    _mark("29")
+    random_launches, random_ticks = _random_phase(torch, dev, chunk_steps, mc_cpu)
+    main_launches += random_launches
+
+    # ---- 31./32. the event engine on the host, against the fluid path -------
+    # in worker processes, beside no card phase
+    _mark("31-32")
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    mc_pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
-    cpu_mc = mc_pool.submit(_mc_worker, "cpu")
-    try:
-        # ---- 13.-17. the SSD decode-step kernel and the serving path ------
-        ssd = _ssd_kernel_phase(torch, dev)
-        ssd["launches"] = _serve_phases(torch, dev)
+    with ProcessPoolExecutor(max_workers=EVENT_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        _event_phases(_submit_event_runs(pool), results[:3])
 
-        # ---- 18.-23. the flash-attention kernel and dense serving ----------
-        flash = _flash_kernel_phase(torch, dev)
-        flash["launches"] = _dense_serve_phases(torch, dev)
+    # ---- 30. sampled serving ------------------------------------------------
+    _mark("30")
+    _sampled_phase(torch, dev)
 
-        # ---- 24. the threefry: card against CPU -----------------------------
-        _prng_phase(torch, dev)
-
-        # ---- 25.-28. training ---------------------------------------------
-        flash["launches"] += _train_phases(torch, dev)
-
-        # ---- 29. the random placement and monte_carlo_jct -------------------
-        random_launches, random_ticks = _random_phase(torch, dev, chunk_steps, cpu_mc)
-        main_launches += random_launches
-
-        # ---- 30. sampled serving --------------------------------------------
-        _sampled_phase(torch, dev)
-    finally:
-        mc_pool.shutdown(cancel_futures=True)
+    # ---- 33. multi_job: real training jobs profiled on the card -------------
+    _mark("33")
+    flash["launches"] += _multi_job_phase(torch)
 
     line = {"kernels": [{
         "name": "fluid_step_core",

@@ -11,7 +11,15 @@ paths for the slices that have been ported so far:
   with the flat-key checkpoint store (``checkpoint``);
 * serving the ``dense`` family, llama3.2-1b (``launch.serve`` ->
   ``models.lm`` -> ``models.attention`` -> ``kernels.flash_attention``
-  for the prefill attention, ``models.ffn`` for the MLP).
+  for the prefill attention, ``models.ffn`` for the MLP);
+* training both families (``launch.train`` -> ``launch.steps`` ->
+  ``optim.adamw``), with weights from the threefry (``prng``);
+* the exact event engine, static gang scheduling, on the host
+  (``scenarios.sweep.run_scenario_event`` -> ``core.simulator`` ->
+  ``core.engine`` -> ``core.schedpolicy``, ``core.placement``,
+  ``core.adadual``, ``core.clusterindex``), and ``launch.multi_job``,
+  which profiles real training jobs on the device and schedules them
+  with it.
 
 It imports nothing of ``repro`` or JAX: the plain-Python pieces it needs
 are trimmed copies, held against the originals by the

@@ -1,5 +1,5 @@
 """Contention-model constants and parameters (port of
-``repro/core/contention.py``, trimmed to what the fluid path reads).
+``repro/core/contention.py``, without the offline numpy fits).
 
 Eq. (2): contention-free all-reduce time ``T_ar = a + b*M``.  Eq. (5): under
 k-way contention each byte costs ``k*b + (k-1)*eta`` seconds.
@@ -8,6 +8,7 @@ k-way contention each byte costs ``k*b + (k-1)*eta`` seconds.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 #: Latency component fitted on real hardware [s] (paper Section III-A2).
@@ -17,6 +18,14 @@ PAPER_B = 8.53e-10
 #: Contention penalty per byte [s/B]; the paper never prints eta, the
 #: reference calibrates it to 0.2*b (see the reference module).
 DEFAULT_ETA = 1.706e-10
+
+#: The reference's ``tpu-dcn`` virtual fabric for the multi-job launcher
+#: (its values unchanged: a 2-pod TPU v5e slice's DCN latency and per-byte
+#: time as the reference chose them).  They define a simulated network, not
+#: any measurement of the card the port runs on.
+TPU_DCN_A = 2.0e-5
+TPU_DCN_B = 4.0e-11
+TPU_DCN_ETA = 8.0e-12
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +47,69 @@ class ContentionParams:
         if any(s <= 0 for s in self.server_bandwidth):
             raise ValueError("server_bandwidth multipliers must be positive")
 
+    def bandwidth_scale(self, servers) -> float:
+        """Drain-rate multiplier of a task touching ``servers``: the slowest
+        member NIC bottlenecks the ring."""
+        if not self.server_bandwidth:
+            return 1.0
+        n = len(self.server_bandwidth)
+        return min((self.server_bandwidth[s] if s < n else 1.0) for s in servers)
+
+    def allreduce_time(self, message_bytes: float, k: int = 1) -> float:
+        """One all-reduce of ``message_bytes`` under k-way contention
+        (Eq. 5; ``k=1`` is Eq. 2)."""
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        return self.a + (k * self.b + (k - 1) * self.eta) * message_bytes
+
+    def rate(self, k: float) -> float:
+        """Drain rate [B/s] of one task under k-way contention (Eq. 5
+        without the latency ``a``); ``k`` may be the float ``k * oversub``."""
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        return 1.0 / (k * self.b + (k - 1) * self.eta)
+
+    def seconds_per_byte(self, k: float) -> float:
+        return k * self.b + (k - 1) * self.eta
+
     @property
     def dual_threshold(self) -> float:
         """``b / (2*(b + eta))`` — Theorem 2's ratio test."""
         return self.b / (2.0 * (self.b + self.eta))
+
+
+# Table I — all-reduce algorithm costs in the (alpha, beta, gamma) model
+
+ALLREDUCE_ALGORITHMS = (
+    "binary_tree",
+    "recursive_doubling",
+    "recursive_halving_doubling",
+    "ring",
+)
+
+
+def allreduce_cost_terms(
+    algorithm: str, n_nodes: int, alpha: float, beta: float, gamma: float
+) -> Tuple[float, float]:
+    """``(a, b)`` of ``T = a + b*M`` for a classic all-reduce algorithm
+    (paper Table I): ``alpha`` per-message latency, ``beta`` per-byte
+    transfer time, ``gamma`` per-byte reduction time, ``n_nodes`` nodes."""
+    if n_nodes < 2:
+        return (0.0, 0.0)
+    log_n = math.log2(n_nodes)
+    n = float(n_nodes)
+    if algorithm == "binary_tree":
+        return (2 * alpha * log_n, (2 * beta + gamma) * log_n)
+    if algorithm == "recursive_doubling":
+        return (alpha * log_n, (beta + gamma) * log_n)
+    if algorithm == "recursive_halving_doubling":
+        return (2 * alpha * log_n, 2 * beta - (2 * beta + gamma) / n + gamma)
+    if algorithm == "ring":
+        return (
+            2 * (n - 1) * alpha,
+            2 * (n - 1) / n * beta + (n - 1) / n * gamma,
+        )
+    raise ValueError(
+        f"unknown all-reduce algorithm {algorithm!r}; "
+        f"expected one of {ALLREDUCE_ALGORITHMS}"
+    )

@@ -1,10 +1,11 @@
-"""Policy/network array layer of the fluid simulator (port of
+"""Policy/network layer of both simulators (port of
 ``repro/core/netmodel.py``).
 
-The scalar helpers (:class:`PolicySpec`, :func:`parse_policy`,
-:func:`canonical_placement`, :func:`server_bandwidth_array`,
-:func:`fusion_threshold`, :func:`fusion_plan`, :func:`plan_for_model`) are
-plain-Python copies.  The array functions are written for torch tensors
+The scalar helpers (:func:`rate`, :class:`PolicySpec`, :func:`parse_policy`,
+:func:`may_start`, :func:`canonical_placement`,
+:func:`server_bandwidth_array`, :func:`fusion_threshold`,
+:func:`fusion_plan`, :func:`plan_for_model`) are plain-Python copies; the
+event engine uses these only.  The array functions are written for torch tensors
 with any number of leading batch axes (the fluid simulator puts its lane
 axis first, so a ``(J, J)`` matrix of the reference is ``(L, J, J)`` here
 and ``olds @ m`` a batched product); constants are built on the tensor's
@@ -35,6 +36,12 @@ def rate_ratio(k: torch.Tensor, b: float, eta: float) -> torch.Tensor:
     differently)."""
     denom = k * b + (k - 1) * eta
     return torch.div(torch.tensor(b, dtype=denom.dtype), denom)
+
+
+def rate(k, b: float, eta: float):
+    """Drain rate [B/s] under k-way contention (Eq. 5) — the event
+    engine's scalar form; Python floats in, a Python float out."""
+    return 1.0 / (k * b + (k - 1) * eta)
 
 
 def domain_counts(loads: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
@@ -165,6 +172,29 @@ def parse_policy(name: str) -> PolicySpec:
     if name.startswith("srsf"):
         return PolicySpec(name, int(m.group(2)), False)
     return PolicySpec(name, int(m.group(3)), True, exact_lookahead=True)
+
+
+def may_start(
+    k_would,
+    new_cost,
+    min_old_rem,
+    *,
+    max_ways: int,
+    threshold_gated: bool,
+    dual_threshold: float,
+):
+    """The gating predicate with static policy parameters (the event
+    engine's, on Python scalars): a start is allowed when uncontended
+    (``k_would <= 1``), or under the cap ``max_ways`` and, for gated
+    policies, Theorem 2's ``new_cost < dual_threshold * min_old_rem``
+    (``min_old_rem`` is ``inf`` without an overlapping transfer)."""
+    uncontended = k_would <= 1
+    under_cap = k_would <= max_ways
+    if threshold_gated:
+        contended_ok = under_cap & (new_cost < dual_threshold * min_old_rem)
+    else:
+        contended_ok = under_cap
+    return uncontended | contended_ok
 
 
 def may_start_dynamic(

@@ -1,5 +1,7 @@
 """Network fabric as contention domains (port of ``repro/core/topology.py``,
-trimmed to the static fabrics the fluid path lowers to matrices).
+trimmed to the static fabrics: the event engine reads each task's loaded
+domains, the fluid path the incidence matrix; the ring-edge reading,
+``RingEdgeTopology``, waits: ROADMAP queue 1, item 9e).
 
 A domain is a cut of the fabric: a server set whose boundary is a shared
 resource.  A communication task loads a domain iff its ring crosses the cut
@@ -10,7 +12,7 @@ factor: k tasks crossing it drain at the Eq. (5) rate of ``k * oversub``.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Iterable, List, Tuple
 
 import numpy as np
 
@@ -64,6 +66,20 @@ class Topology:
     @property
     def n_domains(self) -> int:
         return len(self.domains)
+
+    def loaded_domains(self, servers: Iterable[int]) -> frozenset:
+        """Indices of the domains a comm task over ``servers`` loads: the
+        cuts its ring crosses (members inside and outside).  A one-server
+        task loads nothing."""
+        s = set(servers)
+        return frozenset(
+            i
+            for i, d in enumerate(self.domains)
+            if not s.isdisjoint(d.servers) and not s.issubset(d.servers)
+        )
+
+    def oversub_of(self, domain_index: int) -> float:
+        return self.domains[domain_index].oversub
 
     def incidence(self) -> np.ndarray:
         """``(n_domains, n_servers)`` float {0,1}: server s is inside

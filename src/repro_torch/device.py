@@ -25,3 +25,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}: expected 'cuda' or 'cpu'")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU): call it
+    before reading a clock around device work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -26,17 +26,12 @@ from repro_torch import prng
 from repro_torch.checkpoint.store import latest_step, restore, save
 from repro_torch.configs import served_config
 from repro_torch.data import SyntheticLMDataset, make_train_iterator
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LM, RunFlags
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def train(
@@ -82,7 +77,7 @@ def train(
 
     losses: List[float] = []
     try:
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         for step in range(start, steps):
             params, opt_state, metrics = step_fn(params, opt_state, next(it))

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_train
 from repro_torch.models.common import ParamSpec, apply_rope
 from repro_torch.models.config import ModelConfig
@@ -105,7 +106,9 @@ def attention_forward(
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, window: int,
-                  dtype: torch.dtype = torch.bfloat16, device="cpu") -> Dict[str, torch.Tensor]:
+                  dtype: torch.dtype = torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+    """Zero k/v cache on ``device`` (None = CUDA)."""
+    device = resolve_device(device)
     kvh, hd = cfg.n_kv_heads, cfg.head_dim_
     return {
         "k": torch.zeros((batch, window, kvh, hd), dtype=dtype, device=device),

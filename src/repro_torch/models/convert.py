@@ -17,13 +17,15 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.store import leaf_from_numpy
+from repro_torch.device import resolve_device
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 
 
-def params_from_numpy(tree_or_flat: Mapping[str, Any], device="cpu",
+def params_from_numpy(tree_or_flat: Mapping[str, Any], device=None,
                       dtype: Optional[torch.dtype] = None):
-    """Nested dict of tensors on ``device`` (cast to ``dtype`` where given
-    and the leaf is floating point)."""
+    """Nested dict of tensors on ``device`` (None = CUDA; cast to ``dtype``
+    where given and the leaf is floating point)."""
+    device = resolve_device(device)
     keys = list(tree_or_flat.keys())
     if "__meta__" in keys or any("/" in k for k in keys):
         sidecar = {}

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
@@ -223,9 +224,10 @@ class LM:
         return min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
 
     def init_cache(self, batch: int, max_seq: int, dtype: torch.dtype = torch.bfloat16,
-                   device="cpu"):
-        """Zero cache.  The ssm family's state does not grow with the
-        sequence, so it does not read ``max_seq``."""
+                   device=None):
+        """Zero cache on ``device`` (None = CUDA).  The ssm family's state
+        does not grow with the sequence, so it does not read ``max_seq``."""
+        device = resolve_device(device)
         if self.cfg.family == "dense":
             layer = attn_mod.init_kv_cache(self.cfg, batch, self.kv_window(max_seq), dtype,
                                            device)

@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd import ssd_decode_step
 from repro_torch.kernels.ssd.ref import ssd_step  # noqa: F401  (the model's recurrence)
 from repro_torch.models.common import ParamSpec, rms_norm
@@ -219,7 +220,9 @@ def ssm_prefill(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: ModelConf
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype = torch.bfloat16,
-                   device="cpu"):
+                   device=None):
+    """Zero conv caches and state on ``device`` (None = CUDA)."""
+    device = resolve_device(device)
     di, n, w = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_conv_width
     h, p = cfg.ssm_n_heads, cfg.ssm_head_dim
     return {

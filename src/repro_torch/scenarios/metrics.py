@@ -1,33 +1,18 @@
-"""Per-run scheduling metrics of the fluid backend (port of
-``repro/scenarios/metrics.py``, trimmed to the fields a fluid run fills).
+"""Per-run scheduling metrics of both backends (port of
+``repro/scenarios/metrics.py``, without the CSV and replay summaries).
 
-One :class:`RunMetrics` per (scenario, seed, placement, comm policy) run;
-:class:`CellCI` aggregates the seeds of one cell into mean +/- std.
+One :class:`RunMetrics` per (scenario, seed, placement, comm policy,
+backend) run; :class:`CellCI` aggregates the seeds of one cell into
+mean +/- std.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
-
-def median(xs: Sequence[float]) -> float:
-    """Median (mean of the middle two for even-length lists)."""
-    if not xs:
-        return math.nan
-    ys = sorted(xs)
-    n = len(ys)
-    return ys[n // 2] if n % 2 else 0.5 * (ys[n // 2 - 1] + ys[n // 2])
-
-
-def percentile(xs: Sequence[float], q: float) -> float:
-    """Nearest-rank percentile, q in [0, 1]."""
-    if not xs:
-        return math.nan
-    ys = sorted(xs)
-    idx = min(len(ys) - 1, int(math.ceil(q * len(ys))) - 1)
-    return ys[max(0, idx)]
+from repro_torch.core.engine import SimResult, median, percentile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +35,25 @@ class RunMetrics:
     #: chunks the fluid driver ran for the batch this run belonged to
     #: (``chunk_steps`` executed ticks each)
     chunks: int = 0
+    #: the event engine's fields (NaN / 0 on a fluid run): utilization,
+    #: contended and clean comm starts, the scheduling policy, its
+    #: preemption, resize, fault and cancellation counts, goodput and the
+    #: calendar's high-water mark
+    gpu_util: float = math.nan
+    comm_contended: int = 0
+    comm_clean: int = 0
+    sched: str = "static"
+    preemptions: int = 0
+    resizes: int = 0
+    faults: int = 0
+    cancelled: int = 0
+    work_lost: int = 0
+    goodput: float = 0.0
+    peak_calendar: int = 0
+    #: the reference's observability aggregates: NaN without an observed
+    #: run, which the port never has
+    stretch_frac: float = math.nan
+    gating_frac: float = math.nan
 
 
 def from_jcts(
@@ -64,6 +68,21 @@ def from_jcts(
     makespan: float,
     wall_s: float = 0.0,
     chunks: int = 0,
+    gpu_util: float = math.nan,
+    comm_contended: int = 0,
+    comm_clean: int = 0,
+    sched: str = "static",
+    censored: Optional[int] = None,
+    preemptions: int = 0,
+    resizes: int = 0,
+    faults: int = 0,
+    cancelled: int = 0,
+    work_lost: int = 0,
+    p99_jct: Optional[float] = None,
+    goodput: float = 0.0,
+    peak_calendar: int = 0,
+    stretch_frac: float = math.nan,
+    gating_frac: float = math.nan,
 ) -> RunMetrics:
     jcts = [float(x) for x in jcts]
     n_fin = len(jcts)
@@ -80,9 +99,60 @@ def from_jcts(
         p95_jct=percentile(jcts, 0.95),
         makespan=float(makespan),
         wall_s=wall_s,
-        censored=n_jobs - n_fin,
-        p99_jct=percentile(jcts, 0.99),
+        censored=(n_jobs - n_fin) if censored is None else censored,
+        p99_jct=percentile(jcts, 0.99) if p99_jct is None else float(p99_jct),
         chunks=chunks,
+        gpu_util=float(gpu_util),
+        comm_contended=comm_contended,
+        comm_clean=comm_clean,
+        sched=sched,
+        preemptions=preemptions,
+        resizes=resizes,
+        faults=faults,
+        cancelled=cancelled,
+        work_lost=work_lost,
+        goodput=goodput,
+        peak_calendar=peak_calendar,
+        stretch_frac=stretch_frac,
+        gating_frac=gating_frac,
+    )
+
+
+def from_event_result(
+    res: SimResult,
+    *,
+    scenario: str,
+    seed: int,
+    n_jobs: int,
+    wall_s: float = 0.0,
+) -> RunMetrics:
+    """The record of one event-engine run.  ``stretch_frac`` and
+    ``gating_frac`` come from the reference's observability report, which
+    the port's engine does not make (``res.obs`` is None): NaN, as the
+    reference gives for an unobserved run."""
+    return from_jcts(
+        list(res.jct.values()),
+        scenario=scenario,
+        backend="event",
+        placement=res.placement_name,
+        comm=res.policy_name,
+        seed=seed,
+        n_jobs=n_jobs,
+        makespan=res.makespan,
+        gpu_util=res.gpu_util,
+        comm_contended=res.comm_started_contended,
+        comm_clean=res.comm_started_clean,
+        wall_s=wall_s,
+        sched=res.sched_name,
+        censored=res.censored,
+        preemptions=res.preemptions,
+        resizes=res.resizes,
+        faults=res.faults,
+        cancelled=res.cancelled,
+        work_lost=res.work_lost_samples,
+        p99_jct=res.p99_jct(),
+        goodput=res.goodput,
+        peak_calendar=res.peak_calendar,
     )
 
 

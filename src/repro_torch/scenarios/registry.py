@@ -1,7 +1,6 @@
-"""Scenario registry (port of ``repro/scenarios/registry.py``, trimmed to
-what the fluid path reads plus the event-engine fields the ported builders
-set; no chaos, checkpoint-cost or streaming fields, as the reference's
-fluid path rejects or ignores those).
+"""Scenario registry (port of ``repro/scenarios/registry.py``, without the
+chaos and streaming-source fields: fault injection and trace replays wait,
+ROADMAP queue 1, items 9b and 9c).
 
 A scenario bundles a cluster shape, a job list and the contention model;
 builders are registered by name and instantiated with :func:`get_scenario`.
@@ -12,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
-from repro_torch.core.cluster import JobSpec
+from repro_torch.core.cluster import Cluster, JobSpec
 from repro_torch.core.contention import ContentionParams
 from repro_torch.core.topology import Topology
 
@@ -38,10 +37,21 @@ class Scenario:
     fusion: object = "all"
     #: the event engine's job scheduling policy and its tick period, and
     #: its one-job-per-GPU mode; the fluid path runs every scenario as
-    #: static gang scheduling and ignores them, as the reference's does
+    #: static gang scheduling and ignores them, as the reference's does.
+    #: The port's engine is static only, and the reference's
+    #: ``checkpoint_cost`` field waits with the preemptive policy that
+    #: reads it (ROADMAP queue 1, item 9a)
     sched: str = "static"
     preemption_quantum: Optional[float] = None
     exclusive_gpus: bool = False
+
+    def make_cluster(self) -> Cluster:
+        """A fresh (mutable) cluster — one per event-engine run."""
+        return Cluster(
+            n_servers=self.n_servers,
+            gpus_per_server=self.gpus_per_server,
+            gpu_mem_mb=self.gpu_mem_mb,
+        )
 
     def job_list(self) -> List[JobSpec]:
         return list(self.jobs)

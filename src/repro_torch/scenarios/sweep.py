@@ -1,17 +1,20 @@
-"""Fluid runs of registered scenarios (port of the fluid half of
-``repro/scenarios/sweep.py``).
+"""Runs of registered scenarios (port of ``repro/scenarios/sweep.py``
+without the multiprocessing ``sweep`` runner, ROADMAP queue 1, item 9h).
 
+* :func:`run_scenario_event` — one exact event-engine simulation of a
+  scenario, on the host.
 * :func:`run_scenario_fluid` — one fluid simulation of a scenario.
 * :func:`monte_carlo_fluid` — all seeds of one cell in one batch.
 * :func:`sweep_ci` — mean +/- std per scenario x placement x comm cell.
 
-Every entry point runs on CUDA unless given ``device="cpu"``.  Policy
+Every fluid entry point runs on CUDA unless given ``device="cpu"``.  Policy
 strings accept the simulator's names plus the paper aliases
 'adadual'/'ada-srsf'.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -23,6 +26,8 @@ from repro_torch.core.fluidsim import (
     stack_traces,
     trace_from_jobs,
 )
+from repro_torch.core.placement import PlacementPolicy
+from repro_torch.core.simulator import ClusterSimulator, SimResult, comm_policy_from_name
 from repro_torch.device import resolve_device
 from repro_torch.scenarios import metrics as metrics_mod
 from repro_torch.scenarios.registry import Scenario, get_scenario
@@ -40,6 +45,38 @@ FLUID_POLICIES = ("ada", "srsf1", "srsf2", "srsf3", "kway2", "kway3")
 
 def canonical_comm(comm: str) -> str:
     return COMM_ALIASES.get(comm.lower(), comm.lower())
+
+
+def run_scenario_event(
+    scenario: Scenario,
+    placement: str = "lwf",
+    kappa: int = 1,
+    comm: str = "ada",
+    **sim_kw,
+) -> SimResult:
+    """Exact event-engine simulation of one scenario instance.  The
+    scenario's scheduling fields (``sched``, ``exclusive_gpus``) are
+    defaults that ``sim_kw`` overrides; ``max_time`` goes to ``run``.  Its
+    ``preemption_quantum`` is the preemptive policies' tick, which the
+    static engine does not read (ROADMAP queue 1, item 9a).  The
+    reference's scenarios with fault injection or a streaming trace source
+    are not registered here (items 9b and 9c)."""
+    sim_kw.setdefault("fusion", scenario.fusion)
+    sim_kw.setdefault("sched", scenario.sched)
+    sim_kw.setdefault("exclusive_gpus", scenario.exclusive_gpus)
+    max_time = sim_kw.pop("max_time", math.inf)
+    sim = ClusterSimulator(
+        scenario.job_list(),
+        cluster=scenario.make_cluster(),
+        placement=PlacementPolicy(
+            placement, kappa=kappa, seed=scenario.seed, topology=scenario.topology
+        ),
+        comm_policy=comm_policy_from_name(canonical_comm(comm)),
+        params=scenario.params,
+        topology=scenario.topology,
+        **sim_kw,
+    )
+    return sim.run(max_time=max_time)
 
 
 def fluid_config(

@@ -56,11 +56,11 @@ def _port_target():
     return {"params": lm.init(prng.PRNGKey(0), torch.bfloat16, "cpu"),
             "cache": {"pos": torch.zeros((), dtype=torch.int32),
                       "layers": {k: v.float() for k, v in
-                                 lm.init_cache(2, 24)["layers"].items()}}}
+                                 lm.init_cache(2, 24, device="cpu")["layers"].items()}}}
 
 
 def jtree_to_port(jtree):
-    return params_from_numpy(jax.tree.map(np.asarray, jtree))
+    return params_from_numpy(jax.tree.map(np.asarray, jtree), device="cpu")
 
 
 def _members(path):
@@ -110,8 +110,8 @@ class TestParamsFromNumpy:
     def test_npz_and_live_tree_agree(self, jtree, tmp_path):
         path = jstore.save(str(tmp_path), 0, jtree["params"])
         with np.load(path) as z:
-            from_npz = params_from_numpy(z)
-        from_tree = params_from_numpy(jax.tree.map(np.asarray, jtree["params"]))
+            from_npz = params_from_numpy(z, device="cpu")
+        from_tree = params_from_numpy(jax.tree.map(np.asarray, jtree["params"]), device="cpu")
         a, b = dict(tree_leaves(from_npz)), dict(tree_leaves(from_tree))
         assert a.keys() == b.keys()
         for k in a:
@@ -122,7 +122,7 @@ class TestParamsFromNumpy:
         np.testing.assert_array_equal(got, want)
 
     def test_dtype_cast(self, jtree):
-        p = params_from_numpy(jax.tree.map(np.asarray, jtree), dtype=torch.float32)
+        p = params_from_numpy(jax.tree.map(np.asarray, jtree), device="cpu", dtype=torch.float32)
         assert p["params"]["embed"].dtype == torch.float32
         assert p["cache"]["pos"].dtype == torch.int32  # only floating leaves are cast
         np.testing.assert_array_equal(

@@ -66,7 +66,7 @@ def model(request):
     name = request.param
     jdt, tdt = DTYPES[name]
     jparams = jlm.LM(JCFG).init(jax.random.PRNGKey(0), jdt)
-    pparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    pparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     assert pparams["embed"].dtype == tdt
     return name, jparams, pparams
 
@@ -95,7 +95,7 @@ def _layer0(tree):
 
 def _to_port(tree):
     """A fresh port copy of a JAX tree (decode writes caches in place)."""
-    return params_from_numpy(jax.tree.map(np.asarray, tree))
+    return params_from_numpy(jax.tree.map(np.asarray, tree), device="cpu")
 
 
 class TestConfig:
@@ -142,7 +142,7 @@ class TestConfig:
             assert torch.equal(a, b), k
         ref = jlm.LM(JCFG).init(jax.random.PRNGKey(0), jnp.float32)
         for (k, a), (_, b) in zip(pcommon.tree_leaves(p), pcommon.tree_leaves(
-                params_from_numpy(jax.tree.map(np.asarray, ref)))):
+                params_from_numpy(jax.tree.map(np.asarray, ref), device="cpu"))):
             assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape, k
             assert torch.equal(a, b), k
         blocks = p["blocks"]
@@ -254,7 +254,7 @@ def _compare_cache(got, ref, name):
 
 class TestLM:
     def test_init_cache_layout(self):
-        got = plm.LM(CFG).init_cache(B, S + 8, torch.bfloat16)
+        got = plm.LM(CFG).init_cache(B, S + 8, torch.bfloat16, device="cpu")
         ref = jlm.LM(JCFG).init_cache(B, S + 8)
         assert got["pos"].shape == () and got["pos"].dtype == torch.int32
         assert got["layers"].keys() == ref["layers"].keys()
@@ -320,7 +320,7 @@ def test_checkpoint_round_trip(tmp_path):
     jstore.save(str(tmp_path / "jax"), 5, tree)
     plm_ = plm.LM(CFG)
     target = {"params": plm_.init(prng.PRNGKey(0), torch.bfloat16, "cpu"),
-              "cache": plm_.init_cache(B, 24, torch.bfloat16)}
+              "cache": plm_.init_cache(B, 24, torch.bfloat16, device="cpu")}
     got, step, _ = pstore.restore(str(tmp_path / "jax"), target)
     assert step == 5 and got["cache"]["layers"]["k"].dtype == torch.bfloat16
     pstore.save(str(tmp_path / "port"), 5, got)

@@ -46,7 +46,7 @@ BF16_BAR = 0.15
 
 def _carried(seed, jdt, jcfg=JCFG):
     jparams = jlm.LM(jcfg).init(jax.random.PRNGKey(seed), jdt)
-    return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams))
+    return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 class TestServeBatch:

@@ -45,7 +45,7 @@ def model(request):
     name = request.param
     jdt, tdt = DTYPES[name]
     jparams = jlm.LM(JCFG).init(jax.random.PRNGKey(0), jdt)
-    pparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    pparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     assert pparams["embed"].dtype == tdt
     return name, jparams, pparams
 
@@ -126,7 +126,7 @@ class TestConfig:
             assert torch.equal(a, b), k
         ref = jlm.LM(JCFG).init(jax.random.PRNGKey(0), jnp.float32)
         for (k, a), (_, b) in zip(pcommon.tree_leaves(p), pcommon.tree_leaves(
-                params_from_numpy(jax.tree.map(np.asarray, ref)))):
+                params_from_numpy(jax.tree.map(np.asarray, ref), device="cpu"))):
             assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape, k
             assert torch.equal(a, b), k
         ssm = p["blocks"]["ssm"]
@@ -184,7 +184,7 @@ class TestLayers:
         cache = jssm.init_ssm_cache(JCFG, B, DTYPES[name][0])
         cache = {k: jnp.asarray(rng.standard_normal(v.shape).astype(np.float32) * 0.5, v.dtype)
                  for k, v in cache.items()}
-        pcache = params_from_numpy(jax.tree.map(np.asarray, cache))
+        pcache = params_from_numpy(jax.tree.map(np.asarray, cache), device="cpu")
         given = dict(pcache)
         y, nc = pssm.ssm_decode_step(tx, ts, pcache, CFG)
         y_ref, nc_ref = jssm.ssm_decode_step(jx, js, cache, JCFG)
@@ -214,7 +214,7 @@ def _compare_cache(got, ref, name):
 
 class TestLM:
     def test_init_cache_layout(self):
-        got = plm.LM(CFG).init_cache(B, S + 8, torch.bfloat16)
+        got = plm.LM(CFG).init_cache(B, S + 8, torch.bfloat16, device="cpu")
         ref = jlm.LM(JCFG).init_cache(B, S + 8)
         assert got["pos"].shape == () and got["pos"].dtype == torch.int32
         for k, v in ref["layers"].items():
