@@ -10,8 +10,9 @@ Phases (any failed check raises, so the exit code is non-zero):
 2. the build of the three CUDA kernels from their sources, ``src/repro_torch/
    kernels/{fluidstep,ssd,flash_attention}/csrc`` (one ``nvcc`` each,
    sm_90a, started together), with their build times, and the registers
-   and spills of the flash kernel's bf16 D-64 tensor-core instantiation
-   (the serve shape's), which must not spill;
+   and spills of the flash kernel's bf16 D-64 and D-128 tensor-core
+   instantiations (llama's shape; olmoe's and jamba's), which must not
+   spill;
 3. the fluid step kernel against its plain PyTorch version on the card at
    J in {8, 40, 160, 256}, S = 16, D in {16, 20}, lanes in {1, 8}; at the
    shapes a warp-parallel design gets wrong, J in {1, 31, 33, 1000} x D in
@@ -188,18 +189,51 @@ Phases (any failed check raises, so the exit code is non-zero):
     beside the reference's bound of 2.0 (not held: the reference bounds
     other cells), and each seed's fluid avg JCT on the card held equal to
     the JAX reference's on the CPU (``scripts/fluid_event_reference.py``);
-33. ``repro_torch.launch.multi_job.run_multi_job`` at full width
-    (llama3.2-1b on 4 GPUs for 300 iterations, mamba2-130m on 2 for 500,
-    batch 8 x seq 512, ada over the virtual 10GbE fabric, 4 executed
-    steps), the flash launch count reset just before: exactly 16 x (1
-    warm-up + 3 timed + 4 executed) launches, both jobs complete in the
-    schedule, every loss finite, each job's first executed loss equal to
+33. ``repro_torch.launch.multi_job.run_multi_job`` on the reference's
+    default jobs (llama3.2-1b on 4 GPUs for 300 iterations and mamba2-130m
+    on 2 for 500 at full width, olmoe-1b-7b on 8 for 200 at its reduced
+    config, the reference's default, since at full width its init and the
+    profiling copies would hold ~136 GB), batch 8 x seq 512, ada over the
+    virtual 10GbE fabric, 4 executed steps, the flash launch count reset
+    just before: exactly (16 + 2) x (1 warm-up + 3 timed + 4 executed)
+    launches, every job completes in the schedule, every loss finite,
+    each job's first executed loss equal to
     its warm-up loss bit for bit (the same init on the same batch); the
     card's profiles, peak memory, and the avg JCT of ada, srsf1 and srsf2
     schedules of those profiles; then the same profiles scheduled with two
     more jobs that span servers (llama3.2-1b on 8 GPUs, mamba2-130m on 12):
     every job completes under each policy, and ada starts at least one
-    all-reduce under contention (the gating decides).
+    all-reduce under contention (the gating decides);
+34. the flash kernel at head dim 128, at olmoe-1b-7b's prefill shape (BH
+    128 = batch 8 x 16 heads, S = T 512) and jamba-v0.1-52b's (BH 256 =
+    batch 8 x 32 heads), and the SSD step at jamba's decode shape (B 8, H
+    128, P 64, N 128), against their plain versions in float32 and bf16
+    (the SSD step also in place on a view of a stacked 7-mixer cache,
+    bit-equal to out of place); then timed in CUDA graphs beside their
+    bounds, the flash kernel beside SDPA;
+35. the MoE serving main path: ``serve_batch`` at full-width olmoe-1b-7b
+    (16 layers, 64 experts top-8, 6,816,071,680 parameters by the analytic
+    count; weights drawn on the card, timed), batch 8, prompt 512, 64 new
+    tokens, greedy, bf16, each decode step (its dispatch included)
+    replayed from a CUDA graph, then eagerly: identical tokens, exactly 16
+    flash launches and no SSD launch; the decode step beside its bytes
+    bound (every expert's weights and the cache read once); sampled
+    serving (temperature 0.8: every token in the vocab); one prefill and
+    decode steps under the profiler as in phase 23;
+36. the hybrid serving main path: jamba-v0.1-52b at full width cut to one
+    pattern block of 8 of its 32 layers (the 32 layers' 102 GB of bf16
+    weights do not fit the card): 1 attention layer, 7 SSD mixers at H
+    128, 4 MoE (16 experts top-2) and 4 gated MLPs; as phase 35, with
+    exactly 1 flash launch and 7 x 63 = 441 SSD launches over the graph's
+    replays, each in place on its view of the stacked cache;
+37. the reduced olmoe and jamba configs in float32 with the plain path,
+    served greedily and sampled (0.8) on the card and on the CPU:
+    identical tokens;
+38. the MoE training main path: ``train`` at full-width olmoe-1b-7b cut to
+    4 of its 16 layers (at 16, bf16 weights and grads with float32 moments
+    take 76 GiB), batch 8 x seq 512, float32 moments, lr 3e-4,
+    ``remat="none"``, 8 steps: exactly 4 x 8 flash launches, every loss
+    and router aux loss finite, the aux > 0; step ms and peak memory.
 
 Phases run in the order of their numbers, but for 31 and 32, which run
 after 29.  Worker processes run only during phases 10-11 and 31-32, so
@@ -209,8 +243,9 @@ drops one now and then) is logged and taken again, up to 3 windows,
 before the check that needs it fails.
 
 Then the kernels line (JSON; the flash kernel's launches are the serving,
-training and multi_job main paths', the fluid step's include phase 29's)
-and, last, ``{"ok": true, "device": ...}``.
+training and multi_job main paths' of every family, the SSD step's those
+of mamba and jamba, the fluid step's include phase 29's; phase 34's shapes
+under "shapes") and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
@@ -582,18 +617,20 @@ def _clone(tree):
     return tree_map(lambda t: t.clone(), tree)
 
 
-def _serve_both(torch, tag, cfg, params, counter) -> dict:
+def _serve_both(torch, tag, cfg, params, counters) -> dict:
     """The serving main path through ``serve_batch`` (batch 8, prompt 512,
     64 new tokens): with the decode step replayed from its CUDA graph (the
-    main path; ``counter.launches`` reset just before it and read just
-    after), then eagerly (``_graph=False``), whose tokens must be
-    identical.  Returns the graph run's dict with ``launches`` added."""
+    main path; each counter's ``launches`` reset just before it and read
+    just after), then eagerly (``_graph=False``), whose tokens must be
+    identical.  Returns the graph run's dict with ``launches`` added, one
+    count per counter."""
     from repro_torch.launch.serve import serve_batch
 
     bsz, plen, gen, seed = (SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
-    counter.launches = 0
+    for counter in counters:
+        counter.launches = 0
     res = serve_batch(cfg, bsz, plen, gen, seed, params=params)
-    res["launches"] = counter.launches
+    res["launches"] = tuple(counter.launches for counter in counters)
     torch.cuda.synchronize()
     eager = serve_batch(cfg, bsz, plen, gen, seed, params=params, _graph=False)
     for mode, r in (("CUDA graph", res), ("eager", eager)):
@@ -686,8 +723,8 @@ def _serve_phases(torch, dev) -> int:
     _log(f"serve warm-up (gen 2): prefill {warm['prefill_s']:.4f} s")
 
     # ---- 14. the main path, through the decode graph; then eagerly ----------
-    res = _serve_both(torch, cfg.name, cfg, params, ssd_decode_step_cuda)
-    launches = res["launches"]
+    res = _serve_both(torch, cfg.name, cfg, params, (ssd_decode_step_cuda,))
+    launches = res["launches"][0]
     generated, logits = res["generated"], res["logits"]
     _log(f"serve {cfg.name}: ssd kernel launches {launches} over the graph's replays (expected "
          f"{cfg.n_layers} x {gen - 1} = {cfg.n_layers * (gen - 1)})")
@@ -909,8 +946,8 @@ def _dense_serve_phases(torch, dev) -> int:
     del warm
 
     # ---- 20. the main path, through the decode graph; then eagerly ---------
-    res = _serve_both(torch, cfg.name, cfg, params, flash_attention_cuda)
-    launches = res["launches"]
+    res = _serve_both(torch, cfg.name, cfg, params, (flash_attention_cuda,))
+    launches = res["launches"][0]
     generated, logits = res["generated"], res["logits"]
     _log(f"serve {cfg.name}: flash kernel launches {launches} (expected one per layer in "
          f"prefill: {cfg.n_layers})")
@@ -959,7 +996,7 @@ def _dense_serve_phases(torch, dev) -> int:
                 top_prob = float(torch.softmax(scores.masked_fill(~seen, -2.0**30), -1)
                                  .amax(-1).mean())
                 del q, k, scores
-            x, _ = lm._apply_block(x, bp, flags=flags["ref"], collect_kv=False)
+            x = lm._apply_block(x, bp, flags=flags["ref"], collect_kv=False)[0]
     _log(f"kernel vs plain attention at full width, layer by layer from the same input (bf16, "
          f"bar {BF16_BAR} + {BF16_BAR}|plain|): max abs difference / max |plain| per layer "
          f"{[f'{d:.4g}/{m:.4g}' for d, m in per_layer]}; layer 0, first kv group: score std "
@@ -1021,7 +1058,7 @@ def _dense_serve_phases(torch, dev) -> int:
             for i in range(lm.n_blocks):
                 bp = _layer(p["blocks"], i)
                 for impl, f in flags.items():
-                    xs[impl], _ = lm._apply_block(xs[impl], bp, flags=f, collect_kv=False)
+                    xs[impl] = lm._apply_block(xs[impl], bp, flags=f, collect_kv=False)[0]
                 growth.append(float((xs["cuda"].float() - xs["ref"].float()).abs().max()))
             last = {impl: torch.einsum("bd,vd->bv", rms_norm(x[:, -1], p["final_norm"]),
                                        p["embed"])[:, :cfg.vocab_size].float()
@@ -1570,6 +1607,7 @@ def _train_main(torch, cfg, counter, remat="none") -> dict:
     log = buf.getvalue()
     tok_s = [float(v) for v in re.findall(r"tok/s=([0-9.]+)", log)]
     gnorm = [float(v) for v in re.findall(r"gnorm=([0-9.e+-]+)", log)]
+    aux = [float(v) for v in re.findall(r"aux=([0-9.e+-]+|nan|inf)", log)]
     toks = TRAIN["batch"] * TRAIN["seq"]
     step_ms = [toks / v * 1e3 for v in tok_s]
     peak = torch.cuda.max_memory_allocated()
@@ -1581,11 +1619,12 @@ def _train_main(torch, cfg, counter, remat="none") -> dict:
          f"{float(np.median(step_ms[1:])):.3f} ms per step = "
          f"{float(np.median(tok_s[1:])):.1f} tok/s; torch.cuda.max_memory_allocated "
          f"{peak} B ({peak / 2**30:.3f} GiB); grad norms before clipping {gnorm}; mean of the "
-         f"last 3 losses minus the first {float(np.mean(losses[-3:])) - losses[0]}")
+         f"last 3 losses minus the first {float(np.mean(losses[-3:])) - losses[0]}"
+         + (f"; router aux losses {aux}" if aux else ""))
     _require(len(losses) == TRAIN["steps"] and len(tok_s) == TRAIN["steps"], "train steps")
     _require(all(np.isfinite(losses)) and all(np.isfinite(gnorm)), f"{cfg.name}: finite losses")
     return {"losses": losses, "step_ms": step_ms, "tok_s": tok_s, "peak": peak,
-            "launches": launches, "wall": wall, "gnorm": gnorm}
+            "launches": launches, "wall": wall, "gnorm": gnorm, "aux": aux}
 
 
 def _cast(params, dtype):
@@ -1922,8 +1961,12 @@ REFERENCE_FLUID_AVG_JCT = {
         149.42251456975936, 89.55313646793365),
 }
 #: phase 33: run_multi_job at full width
-MULTI_JOB = dict(jobs=("llama3.2-1b:4:300", "mamba2-130m:2:500"), batch=8, seq=512,
-                 policy="ada", fabric="10gbe", execute_steps=4, timing_steps=3)
+#: (the reference's default job list; the MoE job at its reduced config, the
+#: reference's own default for every job: at full width its init and the
+#: profiling copies (bf16 weights, float32 moments) would hold ~136 GB)
+MULTI_JOB = dict(jobs=("llama3.2-1b:4:300", "mamba2-130m:2:500", "olmoe-1b-7b:8:200"),
+                 reduced=("olmoe-1b-7b",), batch=8, seq=512, policy="ada", fabric="10gbe",
+                 execute_steps=4, timing_steps=3)
 #: phase 33: jobs scheduled with the measured profiles beside MULTI_JOB's,
 #: spanning servers of the 4 x 4 cluster so that their all-reduces contend
 SPAN_JOBS = ("llama3.2-1b:8:300", "mamba2-130m:12:500")
@@ -2015,16 +2058,18 @@ def _event_phases(futures, fluid_results) -> None:
 
 
 def _multi_job_phase(torch) -> int:
-    """Phase 33: ``run_multi_job`` at full width on the card, the flash
-    launch count reset just before it.  Returns those launches."""
+    """Phase 33: ``run_multi_job`` on the card (llama3.2-1b and mamba2-130m
+    at full width, olmoe-1b-7b reduced), the flash launch count reset just
+    before it.  Returns those launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.launch.multi_job import JobRequest, run_multi_job, schedule_jobs
+    from repro_torch.models.lm import LM
 
     mj = MULTI_JOB
     reqs = [JobRequest.parse(spec, arrival=2.0 * i) for i, spec in enumerate(mj["jobs"])]
     for r in reqs:
-        r.batch, r.seq, r.reduced = mj["batch"], mj["seq"], False
+        r.batch, r.seq, r.reduced = mj["batch"], mj["seq"], r.arch in mj["reduced"]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2036,17 +2081,20 @@ def _multi_job_phase(torch) -> int:
     wall = time.perf_counter() - t0
     launches = flash_attention_cuda.launches
     peak = torch.cuda.max_memory_allocated()
-    n_layers = get_config("llama3.2-1b").n_layers
-    expect = n_layers * (1 + mj["timing_steps"] + mj["execute_steps"])
+    # attention layers per job: one flash launch each per step
+    n_attn = [_attention_layers(LM(get_config(r.arch, reduced=r.reduced))) for r in reqs]
+    expect = sum(n_attn) * (1 + mj["timing_steps"] + mj["execute_steps"])
     res = out["schedule"]
-    _log(f"multi_job {list(mj['jobs'])} at full width, batch {mj['batch']} x seq {mj['seq']}, "
-         f"{mj['policy']} over {mj['fabric']}: wall {wall:.3f} s (two inits, 1 warm-up + "
-         f"{mj['timing_steps']} timed steps each, the schedule, {mj['execute_steps']} executed "
-         f"steps each); torch.cuda.max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB); flash "
-         f"kernel launches {launches} (expected {n_layers} layers x (1 + {mj['timing_steps']} + "
-         f"{mj['execute_steps']}) = {expect}); completion order {out['order']}")
-    _require(launches == expect, "multi_job: one flash launch per llama layer per step")
-    _require(len(res.jct) == len(reqs) and res.censored == 0, "multi_job: both jobs complete")
+    _log(f"multi_job {list(mj['jobs'])} (reduced: {list(mj['reduced'])}, the rest at full "
+         f"width), batch {mj['batch']} x seq {mj['seq']}, {mj['policy']} over {mj['fabric']}: "
+         f"wall {wall:.3f} s ({len(reqs)} inits, 1 warm-up + {mj['timing_steps']} timed steps "
+         f"each, the schedule, {mj['execute_steps']} executed steps each); "
+         f"torch.cuda.max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB); flash kernel "
+         f"launches {launches} (expected {n_attn} attention layers x (1 + "
+         f"{mj['timing_steps']} + {mj['execute_steps']}) = {expect}); completion order "
+         f"{out['order']}")
+    _require(launches == expect, "multi_job: one flash launch per attention layer per step")
+    _require(len(res.jct) == len(reqs) and res.censored == 0, "multi_job: every job completes")
     profiles = [out["profiles"][i] for i in range(len(reqs))]
     for jid, prof in enumerate(profiles):
         losses, warm = out["losses"][jid], out["warmup_losses"][jid]
@@ -2062,7 +2110,7 @@ def _multi_job_phase(torch) -> int:
         _log(f"multi_job schedule of the card's profiles, {r.policy_name} {r.placement_name}: avg "
              f"JCT {r.avg_jct()} s, JCTs {r.jct}, makespan {r.makespan} s, contended starts "
              f"{r.comm_started_contended}, clean starts {r.comm_started_clean}")
-        _require(len(r.jct) == len(reqs), f"multi_job schedule {policy}: both jobs complete")
+        _require(len(r.jct) == len(reqs), f"multi_job schedule {policy}: every job completes")
     span = reqs + [JobRequest.parse(spec, arrival=2.0 * (len(reqs) + i))
                    for i, spec in enumerate(SPAN_JOBS)]
     by_arch = {r.arch: prof for r, prof in zip(reqs, profiles)}
@@ -2079,6 +2127,318 @@ def _multi_job_phase(torch) -> int:
             _require(r.comm_started_contended > 0,
                      "multi_job schedule with spanning jobs: ada gates a contended start")
     del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The MoE and hybrid families (phases 34-38): olmoe-1b-7b and jamba-v0.1-52b
+# ---------------------------------------------------------------------------
+
+#: phase 34: the flash kernel at head dim 128, the shapes of olmoe's prefill
+#: (batch 8 x 16 heads) and jamba's (batch 8 x 32 query heads, the 8 kv heads
+#: repeated), prompt 512; the SSD step at jamba's shape (batch 8, 128 heads
+#: of 64, state 128)
+FLASH_D128 = {"olmoe-1b-7b": (128, 512, 512, 128), "jamba-v0.1-52b": (256, 512, 512, 128)}
+SSD_H128 = (8, 128, 64, 128)
+#: phase 36: jamba cut to one pattern block (8 of its 32 layers: 102 GB of
+#: bf16 weights do not fit one 80 GB card)
+JAMBA_LAYERS = 8
+#: phase 38: olmoe trained at 4 of its 16 layers (at 16, bf16 weights and
+#: grads with float32 moments alone take 6.82e9 x 12 B = 76 GiB)
+OLMOE_TRAIN_LAYERS = 4
+
+
+def _attention_layers(lm) -> int:
+    """Attention layers of a model: one flash launch each per forward."""
+    cfg = lm.cfg
+    if cfg.family == "ssm":
+        return 0
+    return lm.n_blocks if cfg.family == "hybrid" else cfg.n_layers
+
+
+def _ssm_layers(lm) -> int:
+    """SSD mixers of a model: one SSD launch each per decode step."""
+    cfg = lm.cfg
+    if cfg.family == "ssm":
+        return cfg.n_layers
+    return lm.n_blocks * (cfg.block_len - 1) if cfg.family == "hybrid" else 0
+
+
+def _new_shapes_phase(torch, dev) -> dict:
+    """Phase 34: the flash kernel at the two D-128 prefill shapes and the
+    SSD step at H 128 against their plain versions (float32 and bf16; the
+    SSD step in place bit-equal to out of place), then timed with CUDA
+    events beside their bounds (flash beside SDPA too).  Returns
+    {"flash": [...], "ssd": [...]}: per shape, its numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd_decode_step
+
+    out = {"flash": [], "ssd": []}
+    for arch, (bh, s, t, d) in FLASH_D128.items():
+        max_abs = 0.0
+        for name, dtype, tol in (("float32", torch.float32, 2e-5),
+                                 ("bfloat16", torch.bfloat16, 3e-2)):
+            q, k, v = _qkv(torch, bh + d, bh, s, t, d, dtype, dev)
+            got = flash_attention(q, k, v, causal=True)
+            ref = flash_attention(q, k, v, causal=True, impl="ref")
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            err = float(diff.max())
+            _log(f"flash parity at {arch}'s prefill shape BH={bh} S={s} T={t} D={d} causal "
+                 f"{name}: max abs err {err} (bar {tol})")
+            _require(bool((diff <= tol + tol * ref.float().abs()).all()),
+                     f"flash kernel vs plain at {(bh, s, t, d)} {name}")
+            max_abs = max(max_abs, err)
+        q, k, v = _qkv(torch, bh, bh, s, t, d, torch.bfloat16, dev)
+        fns = {"ref": lambda: flash_attention(q, k, v, causal=True, impl="ref"),
+               "cuda": lambda: flash_attention(q, k, v, causal=True),
+               "sdpa": lambda: F.scaled_dot_product_attention(
+                   q[None], k[None], v[None], is_causal=True)[0]}
+
+        def run_of(fn, calls=10):
+            def run():
+                for _ in range(calls):
+                    fn()
+            return run
+
+        timings = {}
+        for impl in ("ref", "cuda", "sdpa", "sdpa", "cuda", "ref"):
+            timings.setdefault(impl, []).append(_cuda_ms(torch, run_of(fns[impl]), True, 20) / 10)
+        bound_ms, bound_by, nbytes, ops = _flash_bound(bh, s, t, d, 2)
+        kernel_ms, plain_ms, sdpa_ms = (min(timings[i]) for i in ("cuda", "ref", "sdpa"))
+        _log(f"flash timing at {arch}'s prefill shape BH={bh} S={s} T={t} D={d} causal bf16 "
+             f"(ms per call, device time in a CUDA graph of 10 calls, plain/kernel/sdpa/sdpa/"
+             f"kernel/plain): kernel {timings['cuda']}, plain {timings['ref']}, "
+             f"F.scaled_dot_product_attention {timings['sdpa']}; bound {bound_ms:.8f} ms "
+             f"({bound_by}: {nbytes} B, {ops} ops), share of bound reached "
+             f"{bound_ms / kernel_ms:.4f}, achieved {ops / kernel_ms / 1e9:.2f} TFLOP/s; kernel / "
+             f"SDPA {kernel_ms / sdpa_ms:.4f}")
+        out["flash"].append({"shape": f"{arch} prefill BH {bh} S {s} D {d} bf16",
+                             "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms})
+
+    b, h, p, n = SSD_H128
+    max_abs = 0.0
+    for name, dtype, tol in (("float32", torch.float32, 3 * 2e-5),
+                             ("bfloat16", torch.bfloat16, 3 * 3e-2)):
+        x = _ssd_inputs(torch, 128, b, h, p, n, dtype, dev)
+        y, st = ssd_decode_step(*(x[key] for key in SSD_ORDER))
+        y_ref, st_ref = ssd_decode_step(*(x[key] for key in SSD_ORDER), impl="ref")
+        # in place on a view of a stacked (7, B, H, P, N) cache, as jamba's decode calls it
+        stack = x["state"][None].repeat(7, 1, 1, 1, 1)
+        view = stack[3]
+        _require(view.is_contiguous() and view.data_ptr() % 16 == 0,
+                 "the stacked cache's state view is contiguous and 16-byte aligned")
+        y_in, st_in = ssd_decode_step(*(x[key] for key in SSD_ORDER[:-1]), view, out=view)
+        torch.cuda.synchronize()
+        _require(st_in is view and torch.equal(y_in, y) and torch.equal(view, st),
+                 f"SSD in place on a cache view == out of place at H {h} {name}")
+        _require(torch.equal(stack[2], x["state"]) and torch.equal(stack[4], x["state"]),
+                 "the SSD step in place leaves the other mixers' states alone")
+        diff_y = (y.float() - y_ref.float()).abs()
+        diff_s = (st - st_ref).abs()
+        _log(f"ssd parity at jamba's decode shape B={b} H={h} P={p} N={n} {name}: max abs err y "
+             f"{float(diff_y.max())}, state {float(diff_s.max())}; in place on a view of the "
+             f"stacked cache bit-equal to out of place")
+        _require(bool((diff_y <= tol + tol * y_ref.float().abs()).all())
+                 and bool((diff_s <= 1e-4 + 1e-4 * st_ref.abs()).all()),
+                 f"SSD kernel vs plain at H {h} {name}")
+        max_abs = max(max_abs, float(diff_y.max()), float(diff_s.max()))
+    x = _ssd_inputs(torch, 129, b, h, p, n, torch.bfloat16, dev)
+    others = [x[key] for key in SSD_ORDER[:-1]]
+    k_states = max(2, int(np.ceil(COLD_BYTES / (b * h * p * n * 4))))
+    states = [x["state"].clone() for _ in range(k_states)]
+
+    def run_ssd(impl):
+        def run():
+            for st in states:
+                if impl == "cuda":
+                    ssd_decode_step(*others, st, out=st)
+                else:
+                    ssd_decode_step(*others, st, impl="ref")
+        return run
+
+    timings = {}
+    for impl in ("ref", "cuda", "cuda", "ref"):
+        timings.setdefault(impl, []).append(
+            _cuda_ms(torch, run_ssd(impl), True, max(4, 320 // k_states)) / k_states)
+    del states
+    bound_ms, bound_by, nbytes, ops = _ssd_bound(b, h, p, n, 2)
+    kernel_ms, plain_ms = min(timings["cuda"]), min(timings["ref"])
+    _log(f"ssd timing at jamba's decode shape B={b} H={h} P={p} N={n} bf16 ({k_states} states "
+         f"rotated, ms per call, device time in a CUDA graph, plain/kernel/kernel/plain): kernel "
+         f"in place {timings['cuda']}, plain {timings['ref']}; bound {bound_ms:.8f} ms "
+         f"({bound_by}: {nbytes} B, {ops} ops), share of bound reached "
+         f"{bound_ms / kernel_ms:.4f}")
+    out["ssd"].append({"shape": f"jamba decode B {b} H {h} P {p} N {n} bf16",
+                       "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    return out
+
+
+def _family_serve_phase(torch, dev, arch: str, n_layers=None) -> dict:
+    """Phases 35 and 36: ``serve_batch`` of ``arch`` at full width (cut to
+    ``n_layers``), weights from PRNGKey(0) drawn on the card (timed),
+    through the decode graph and eagerly (identical tokens), the flash and
+    SSD launch counts over the graph's replays exact; sampled (temperature
+    0.8); then one prefill and decode steps under the profiler.  Returns
+    the launches by kernel."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_decode_step_cuda
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.common import param_count, tree_leaves
+    from repro_torch.models.lm import LM, RunFlags
+
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    bsz, plen, gen, seed = (SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
+    lm = LM(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(prng.PRNGKey(seed, dev), torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
+    _require(n_params == param_count(lm.schema()), "parameters of the schema")
+    _log(f"serve: {cfg.name} ({cfg.family}, {cfg.n_layers} layers"
+         f"{f' of {get_config(arch).n_layers}' if n_layers else ''}, d_model {cfg.d_model}, "
+         f"{cfg.n_heads} query heads over {cfg.n_kv_heads} kv heads of dim {cfg.head_dim_}, "
+         f"{cfg.n_experts} experts top-{cfg.experts_per_token} of d_ff {cfg.moe_d_ff_}"
+         + (f", SSD {cfg.ssm_n_heads} heads x P {cfg.ssm_head_dim}, N {cfg.ssm_state}"
+            if cfg.family == "hybrid" else "")
+         + f", vocab {cfg.vocab_size}), {n_params} parameters ({cfg.param_count()} by the "
+         f"analytic count), {param_bytes} B in bf16 from PRNGKey({seed}), drawn by the threefry "
+         f"on the card in {init_s:.2f} s (peak {torch.cuda.max_memory_allocated()} B)")
+    warm = serve_batch(cfg, bsz, plen, 2, seed, params=params)  # cuBLAS, allocator
+    _log(f"serve warm-up (gen 2): prefill {warm['prefill_s']:.4f} s")
+    del warm
+
+    # ---- the main path, through the decode graph; then eagerly --------------
+    res = _serve_both(torch, cfg.name, cfg, params, (flash_attention_cuda, ssd_decode_step_cuda))
+    flash_n, ssd_n = res["launches"]
+    want_flash, want_ssd = _attention_layers(lm), _ssm_layers(lm) * (gen - 1)
+    _log(f"serve {cfg.name}: flash kernel launches {flash_n} (expected {want_flash}: one per "
+         f"attention layer in prefill, none in decode), SSD kernel launches {ssd_n} over the "
+         f"graph's replays (expected {_ssm_layers(lm)} mixers x {gen - 1} decode steps = "
+         f"{want_ssd})")
+    _require(flash_n == want_flash and ssd_n == want_ssd, f"{cfg.name}: exact launch counts")
+    generated, logits = res["generated"], res["logits"]
+    _require(generated.shape == (bsz, gen), "generated shape")
+    _require(((generated >= 0) & (generated < cfg.vocab_size)).all(), "tokens in the vocab")
+    _require(tuple(logits.shape) == (bsz, gen, cfg.vocab_size), "logits shape")
+    _require(bool(torch.isfinite(logits).all()), "finite logits")
+    # a decode step reads every weight (each expert's, at capacity 4 per
+    # sequence) and the cache once
+    cache_bytes = sum(t.numel() * t.element_size() for _, t in tree_leaves(
+        lm.init_cache(bsz, plen + gen, torch.bfloat16, dev)))
+    step_ms = res["decode_s"] / (gen - 1) * 1e3
+    bound_ms = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    _log(f"serve {cfg.name}: decode step through the graph {step_ms:.4f} ms (wall, capture "
+         f"included) against its bytes bound {bound_ms:.4f} ms ({param_bytes} B of weights + "
+         f"{cache_bytes} B of cache at {HBM_BYTES_PER_S / 1e12} TB/s): "
+         f"{bound_ms / step_ms:.4f} of the bound")
+    del logits, res
+    sampled = serve_batch(cfg, bsz, plen, gen, seed, greedy=False, temperature=SAMPLE_T,
+                          params=params)
+    g = sampled["generated"]
+    _require(g.shape == (bsz, gen) and ((g >= 0) & (g < cfg.vocab_size)).all(),
+             f"{cfg.name}: sampled tokens in the vocab")
+    _log(f"serve {cfg.name} sampled (temperature {SAMPLE_T}): decode "
+         f"{sampled['decode_tok_per_s']:.1f} tok/s, "
+         f"{sampled['decode_s'] / (gen - 1) * 1e3:.4f} ms per step (draw outside the graph); "
+         f"sample tokens {g[0][:16].tolist()}")
+    del sampled
+
+    # ---- one prefill and decode steps under the profiler ---------------------
+    flags = RunFlags(remat="none", q_chunk=min(512, plen))
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (bsz, plen))
+    tokens = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
+    prefill = make_prefill_step(lm, plen + gen, flags)
+    with torch.no_grad():
+        _, cache0 = prefill(params, {"tokens": tokens})
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        _, on_device = _profile(torch, lambda: prefill(params, {"tokens": tokens}),
+                                f"the {cfg.name} prefill")
+    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in on_device if "flash_fwd" in e.key) / 1e3
+    _require(flash_ms > 0, f"the profiler saw the {cfg.name} prefill's flash kernel")
+    _log(f"{cfg.name} prefill profile (batch {bsz}, prompt {plen}): wall {walls} ms = "
+         f"{bsz * plen / min(walls) * 1e3:.1f} tok/s; device time {device_ms:.4f} ms in "
+         f"{sum(e.count for e in on_device)} kernels and copies, of which the flash kernel "
+         f"{flash_ms:.4f} ms ({flash_ms / device_ms:.4f}); device idle share "
+         f"{1 - device_ms / min(walls):.4f}")
+    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]:
+        _log(f"  {e.key[:80]}: {e.count} x, {e.self_device_time_total / 1e3:.4f} ms")
+    key, expect = ("ssd_step", True) if cfg.family == "hybrid" else ("flash_fwd", False)
+    _decode_modes(torch, cfg.name, lm, params, cache0, torch.as_tensor(generated[:, :1]).to(dev),
+                  flags, key, expect)
+    del params, cache0
+    torch.cuda.empty_cache()
+    return {"flash": flash_n, "ssd": ssd_n}
+
+
+def _reduced_family_phase(torch, dev) -> None:
+    """Phase 37: the reduced olmoe and jamba configs in float32 on the plain
+    path, served greedily and sampled (temperature 0.8) on the card and on
+    the CPU: identical tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+
+    for arch in ("olmoe-1b-7b", "jamba-v0.1-52b"):
+        red = get_config(arch, reduced=True)
+        for mode, kw in (("greedy", {}), ("sampled", dict(greedy=False, temperature=SAMPLE_T))):
+            on_card = serve_batch(red, 2, 32, 8, 0, device=dev, dtype=torch.float32,
+                                  attn_impl="ref", ssd_impl="ref", **kw)
+            on_cpu = serve_batch(red, 2, 32, 8, 0, device="cpu", dtype=torch.float32, **kw)
+            same = on_card["generated"] == on_cpu["generated"]
+            diff = float((on_card["logits"].cpu() - on_cpu["logits"]).abs().max())
+            if not same.all():
+                step = int(np.nonzero(~same.all(0))[0][0])
+                _log(f"{red.name} f32 {mode}: card and CPU part at step {step}: card "
+                     f"{on_card['generated'][:, step].tolist()}, CPU "
+                     f"{on_cpu['generated'][:, step].tolist()}; max abs logit difference {diff}")
+            _require(same.all(), f"{red.name} f32 {mode}: card vs CPU tokens")
+            _log(f"{red.name} f32 {mode}, plain path, card vs CPU: identical generated tokens "
+                 f"{on_card['generated'].tolist()}, max abs logit difference {diff}")
+
+
+def _moe_train_phase(torch) -> int:
+    """Phase 38: ``train`` of olmoe-1b-7b at full width, cut to
+    ``OLMOE_TRAIN_LAYERS`` layers, the flash launch count reset just
+    before it.  Returns those launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.models.common import param_count
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=OLMOE_TRAIN_LAYERS)
+    n_params = param_count(LM(cfg).schema())
+    _log(f"train {cfg.name} at {OLMOE_TRAIN_LAYERS} of its 16 layers: {n_params} parameters, "
+         f"{n_params * 12} B of bf16 weights and grads with float32 moments")
+    run = _train_main(torch, cfg, flash_attention_cuda)
+    launches = run["launches"]
+    expect = OLMOE_TRAIN_LAYERS * TRAIN["steps"]
+    _log(f"train {cfg.name}: flash kernel launches {launches} (expected {OLMOE_TRAIN_LAYERS} "
+         f"layers x {TRAIN['steps']} steps = {expect}); router aux losses {run['aux']}")
+    _require(launches == expect, "one flash launch per layer per step")
+    _require(len(run["aux"]) == TRAIN["steps"] and all(np.isfinite(run["aux"]))
+             and min(run["aux"]) > 0, f"{cfg.name}: finite, positive aux losses")
     torch.cuda.empty_cache()
     return launches
 
@@ -2132,13 +2492,15 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 _log("  ptxas:", line.strip())
-    tc64 = [v for name, v in _ptxas_entries(flash_kernel.build_info()["log"]).items()
-            if "flash_fwd_tc_kernelILi64E" in name]
-    _require(len(tc64) == 1, "the ptxas log names the bf16 D-64 tensor-core instantiation")
-    regs, spill_st, spill_ld = tc64[0]
-    _log(f"build: flash_attention.cu bf16 D-64 tensor-core instantiation (the serve shape's): "
-         f"{regs} registers, {spill_st} bytes spill stores, {spill_ld} bytes spill loads")
-    _require(spill_st == 0 and spill_ld == 0, "the bf16 D-64 flash instantiation spills")
+    entries = _ptxas_entries(flash_kernel.build_info()["log"])
+    for dp, used_by in ((64, "llama3.2-1b's serve and training shape"),
+                        (128, "olmoe-1b-7b's and jamba-v0.1-52b's prefill shapes")):
+        tc = [v for name, v in entries.items() if f"flash_fwd_tc_kernelILi{dp}E" in name]
+        _require(len(tc) == 1, f"the ptxas log names the bf16 D-{dp} tensor-core instantiation")
+        regs, spill_st, spill_ld = tc[0]
+        _log(f"build: flash_attention.cu bf16 D-{dp} tensor-core instantiation ({used_by}): "
+             f"{regs} registers, {spill_st} bytes spill stores, {spill_ld} bytes spill loads")
+        _require(spill_st == 0 and spill_ld == 0, f"the bf16 D-{dp} flash instantiation spills")
 
     # ---- 3. kernel vs plain version -----------------------------------------
     _mark("3")
@@ -2361,6 +2723,27 @@ def main() -> int:
     # ---- 33. multi_job: real training jobs profiled on the card -------------
     _mark("33")
     flash["launches"] += _multi_job_phase(torch)
+
+    # ---- 34. the flash kernel at D 128 and the SSD step at H 128 ------------
+    _mark("34")
+    shapes = _new_shapes_phase(torch, dev)
+    flash["shapes"], ssd["shapes"] = shapes["flash"], shapes["ssd"]
+
+    # ---- 35./36. olmoe-1b-7b and jamba-v0.1-52b served at full width ---------
+    for phase, arch, n_layers in (("35", "olmoe-1b-7b", None),
+                                  ("36", "jamba-v0.1-52b", JAMBA_LAYERS)):
+        _mark(phase)
+        served = _family_serve_phase(torch, dev, arch, n_layers)
+        flash["launches"] += served["flash"]
+        ssd["launches"] += served["ssd"]
+
+    # ---- 37. the reduced MoE and hybrid configs: card against CPU -----------
+    _mark("37")
+    _reduced_family_phase(torch, dev)
+
+    # ---- 38. olmoe-1b-7b trained at 4 layers ----------------------------------
+    _mark("38")
+    flash["launches"] += _moe_train_phase(torch)
 
     line = {"kernels": [{
         "name": "fluid_step_core",

@@ -1,9 +1,10 @@
 """Architecture configs (port of ``repro/configs/__init__.py``).
 
 The same ids and aliases as the reference.  The port has the config
-modules of the model zoo's six archs (:data:`PORTED_ARCH_IDS`); it serves
-models of two of them (:data:`SERVED_ARCH_IDS`, see ``models/lm.py``), the
-other four are read for their analytic layer counts only.  Each
+modules of the model zoo's six archs and jamba's (:data:`PORTED_ARCH_IDS`);
+it serves models of four of them (:data:`SERVED_ARCH_IDS`, see
+``models/lm.py``), the other three are read for their analytic layer
+counts only.  Each
 ``<id>.py`` exports ``CONFIG`` (the published hyper-parameters) and
 ``REDUCED`` (the reference's small variant for CPU tests).
 """
@@ -28,10 +29,10 @@ ARCH_IDS = (
 
 #: The archs whose config module the port has.
 PORTED_ARCH_IDS = ("mamba2_130m", "llama32_1b", "phi4_mini_3_8b", "olmoe_1b_7b",
-                   "gemma_7b", "yi_9b")
+                   "gemma_7b", "yi_9b", "jamba_v01_52b")
 
 #: The archs the port serves a model of (``LM`` raises for the others).
-SERVED_ARCH_IDS = ("mamba2_130m", "llama32_1b")
+SERVED_ARCH_IDS = ("mamba2_130m", "llama32_1b", "olmoe_1b_7b", "jamba_v01_52b")
 
 _ALIASES = {
     "mamba2-130m": "mamba2_130m",

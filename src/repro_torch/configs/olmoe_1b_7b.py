@@ -1,6 +1,6 @@
 """olmoe-1b-7b [moe] — 64 experts top-8 [arXiv:2409.02060]
-(port of ``repro/configs/olmoe_1b_7b.py``; the analytic counts of the model zoo
-read it, the port serves no model of it yet).
+(port of ``repro/configs/olmoe_1b_7b.py``; the port serves and trains it,
+and the model zoo reads its analytic counts).
 
 16L d_model=2048, 16 heads (GQA kv=16 == MHA), per-expert d_ff=1024,
 vocab=50304, MoE on every layer.  long_500k: SKIPPED — full-attention MoE,

@@ -12,11 +12,10 @@ from the port's event engine (:mod:`repro_torch.core.simulator`), on the
 host.
 
     PYTHONPATH=src python -m repro_torch.launch.multi_job \
-        --jobs llama3.2-1b:4:300 mamba2-130m:2:500 --policy ada --fabric 10gbe
+        --jobs llama3.2-1b:4:300 mamba2-130m:2:500 olmoe-1b-7b:8:200 \
+        --policy ada --fabric 10gbe
 
-Runs on CUDA unless given ``--device cpu`` (``device="cpu"``).  The
-reference's default job list also holds ``olmoe-1b-7b:8:200``; the MoE
-family is not ported (ROADMAP queue 1, item 7), so that job is left out.
+Runs on CUDA unless given ``--device cpu`` (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -48,7 +47,8 @@ FABRICS = {
     "tpu-dcn": ContentionParams(a=TPU_DCN_A, b=TPU_DCN_B, eta=TPU_DCN_ETA),
 }
 
-DEFAULT_JOBS = ("llama3.2-1b:4:300", "mamba2-130m:2:500")
+#: The reference's default ``--jobs``.
+DEFAULT_JOBS = ("llama3.2-1b:4:300", "mamba2-130m:2:500", "olmoe-1b-7b:8:200")
 
 
 @dataclasses.dataclass

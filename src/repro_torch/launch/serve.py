@@ -2,7 +2,7 @@
 KV or SSM cache (port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch {mamba2-130m,llama3.2-1b} [--reduced] \
+        --arch {mamba2-130m,llama3.2-1b,olmoe-1b-7b,jamba-v0.1-52b} [--reduced] \
         [--batch 4 --prompt-len 64 --gen 32] [--device cpu]
 
 Runs on CUDA unless asked for the CPU.  On the card each decode step is

@@ -10,8 +10,10 @@ for the same seed (``LM.init(PRNGKey(seed))``, bf16), the optimizer
 AdamW with float32 moments, the data the synthetic Zipf stream of
 ``repro_torch.data``.  Checkpoints hold the tree ``(params, opt_state)``
 under the reference's flat keys (``0/...``, ``1/...``), so a run resumes
-from either package's checkpoint.  The dense family's attention runs the
-CUDA flash-attention kernel forward on the card.
+from either package's checkpoint.  The attention of the dense, moe and
+hybrid families runs the CUDA flash-attention kernel forward on the card.
+For MoE models each logged step also prints ``aux``, the router losses
+(``make_train_step``'s metric), which the loss includes.
 """
 
 from __future__ import annotations
@@ -84,7 +86,8 @@ def train(
             losses.append(float(metrics["loss"]))  # waits for the step
             if log_every and (step + 1) % log_every == 0:
                 dt = time.perf_counter() - t0
-                print(f"[train] step {step+1}: loss={losses[-1]:.4f} "
+                aux = f"aux={float(metrics['aux']):.6g} " if cfg.n_experts else ""
+                print(f"[train] step {step+1}: loss={losses[-1]:.4f} {aux}"
                       f"gnorm={float(metrics['grad_norm']):.3f} "
                       f"tok/s={log_every * batch * seq / dt:.0f}")
                 t0 = time.perf_counter()

@@ -70,12 +70,12 @@ def attention_forward(
     if mask_kind != "causal":
         raise NotImplementedError(
             f"mask_kind={mask_kind!r}: the port has the causal mask only; the sliding "
-            "and full masks wait (ROADMAP queue 1, item 8)"
+            "and full masks wait (ROADMAP queue 1, item 7)"
         )
     if kv_input is not None:
         raise NotImplementedError(
             "cross attention (kv_input) waits for the vlm and audio families "
-            "(ROADMAP queue 1, item 8)"
+            "(ROADMAP queue 1, item 7)"
         )
     b, s, _ = x.shape
     h, kvh, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim_

@@ -74,7 +74,8 @@ def init_params(schema: Schema, key, dtype: torch.dtype = torch.bfloat16,
             return torch.ones(spec.shape, dtype=dtype, device=dev)
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale / math.sqrt(max(fan_in, 1))
-        return (prng.normal(k, spec.shape) * std).to(dtype)
+        # scaled in place: a large leaf's float32 draw is not copied
+        return prng.normal(k, spec.shape).mul_(std).to(dtype)
 
     return tree_unflatten({name: make(spec, keys[i]) for i, (name, spec) in enumerate(specs)})
 

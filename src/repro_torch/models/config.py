@@ -1,11 +1,10 @@
 """Model configuration (port of ``repro/models/config.py``).
 
 A trimmed copy of ``ModelConfig``: the fields, derived sizes and analytic
-parameter count of the ``ssm``, ``dense`` and ``moe`` families.  The port
-serves ``ssm`` (mamba2-130m) and ``dense`` (llama3.2-1b) models; the MoE
-fields are here for the analytic per-layer counts the model zoo
-(:mod:`repro_torch.workloads`) reads, not for a model.  The hybrid, enc-dec
-and vlm fields come with their slices (ROADMAP).
+parameter count of the ``ssm``, ``dense``, ``moe`` and ``hybrid``
+families, the four whose models the port has (mamba2-130m, llama3.2-1b,
+olmoe-1b-7b, jamba-v0.1-52b).  The enc-dec and vlm fields come with their
+slices (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -47,12 +46,18 @@ class ModelConfig:
     moe_every: int = 1           # layer i is MoE iff i % moe_every == moe_offset
     moe_offset: int = 0
     dense_residual: bool = False  # arctic: dense FFN in parallel with MoE
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
     # -- SSM (Mamba-2 / SSD) --------------------------------------------------
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     ssm_conv_width: int = 4
     ssm_chunk: int = 128
+    # -- hybrid (jamba): layers per block and the attention's position -------
+    block_len: int = 0           # 0 -> homogeneous layers
+    attn_index_in_block: int = -1
     # -- enc-dec (audio backbone) ---------------------------------------------
     enc_layers: int = 0
     # -- sharding / padding ----------------------------------------------------
@@ -129,13 +134,23 @@ class ModelConfig:
     def _layer_params(self, i: int, padded: bool, active_only: bool = False) -> int:
         """Parameters of decoder layer ``i`` (``active_only``: a MoE layer's
         routed experts only)."""
-        if self.family not in ("ssm", "dense", "moe"):
+        if self.family in ("audio", "vlm"):
             raise NotImplementedError(
-                f"the port's ModelConfig counts the ssm, dense and moe families, not "
-                f"{self.family!r} (ROADMAP queue 1, item 7)"
+                f"the port's ModelConfig counts the ssm, dense, moe and hybrid families, "
+                f"not {self.family!r} (ROADMAP queue 1, item 7)"
             )
         if self.family == "ssm":
             return self._ssm_params()
+        if self.family == "hybrid":
+            pos = i % self.block_len
+            mixer = (self._attn_params(padded) if pos == self.attn_index_in_block
+                     else self._ssm_params())
+            if self.is_moe_layer(i):
+                n_exp = self.experts_per_token if active_only else self.n_experts
+                mlp = n_exp * self._mlp_params(self.moe_d_ff_) + self.d_model * self.n_experts
+            else:
+                mlp = self._mlp_params(self.d_ff)
+            return mixer + mlp
         mixer = self._attn_params(padded)
         if self.is_moe_layer(i):
             n_exp = self.experts_per_token if active_only else self.n_experts

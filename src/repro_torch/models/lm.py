@@ -1,5 +1,5 @@
-"""Model assembly (port of ``repro/models/lm.py``) for the ``ssm`` and
-``dense`` families.
+"""Model assembly (port of ``repro/models/lm.py``) for the ``ssm``,
+``dense``, ``moe`` and ``hybrid`` families.
 
 One :class:`LM` object per config provides what training and serving
 need, as plain functions of nested dicts of tensors:
@@ -13,12 +13,18 @@ need, as plain functions of nested dicts of tensors:
 * ``prefill_fn`` — prompt pass producing last-token logits + the cache;
 * ``decode_fn`` — one-token serve step, updating the cache in place;
 * ``init_cache`` — ``{"pos", "layers": ...}``, each leaf stacked over
-  layers, as the reference lays it out: ``{conv_x, conv_B, conv_C, state}``
+  blocks, as the reference lays it out: ``{conv_x, conv_B, conv_C, state}``
   for ``ssm``, the ring-buffer KV cache ``{k, v}`` (L, B, window, KV, hd)
-  for ``dense``.
+  for ``dense`` and ``moe``, and for ``hybrid`` both, nested:
+  ``{"attn": {k, v}, "ssm": {...}}`` with the SSM leaves stacked again over
+  a block's 7 mixers.
 
-The reference's ``lax.scan`` over the stacked layer axis is a Python loop
-over that axis.  Every other family raises ``NotImplementedError``.
+A ``hybrid`` block is one pattern of ``block_len`` layers (jamba: the SSD
+mixer at 7 positions, attention at ``attn_index_in_block``, each followed
+by a gated MLP at even positions and MoE at odd ones), its sub-layers
+stacked inside the block along a ``sublayer`` axis.  The reference's
+``lax.scan`` over the stacked block axis is a Python loop over that axis.
+The ``audio`` and ``vlm`` families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from repro_torch.models.common import (
 from repro_torch.models.config import ModelConfig
 
 #: The families whose blocks the port has.
-PORTED_FAMILIES = ("ssm", "dense")
+PORTED_FAMILIES = ("ssm", "dense", "moe", "hybrid")
 
 
 def stack_schema(schema: Schema, n: int, axis: str = "layers") -> Schema:
@@ -104,10 +110,16 @@ class LM:
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the port's LM covers the {PORTED_FAMILIES} families, not "
-                f"{cfg.family!r} (ROADMAP queue 1, item 8)"
+                f"{cfg.family!r} (ROADMAP queue 1, item 7)"
             )
         self.cfg = cfg
-        self.n_blocks = cfg.n_layers
+        if cfg.family == "hybrid":
+            if cfg.block_len <= 0 or cfg.n_layers % cfg.block_len:
+                raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of "
+                                 f"block_len {cfg.block_len}")
+            self.n_blocks = cfg.n_layers // cfg.block_len
+        else:
+            self.n_blocks = cfg.n_layers
 
     # -- schema ---------------------------------------------------------------
     def _block_schema(self) -> Schema:
@@ -119,6 +131,30 @@ class LM:
                 "attn": attn_mod.attn_schema(cfg),
                 "mlp_norm": _norm_spec(d),
                 "mlp": ffn_mod.mlp_schema(cfg, cfg.d_ff),
+            }
+        if cfg.family == "moe":
+            block: Schema = {
+                "attn_norm": _norm_spec(d),
+                "attn": attn_mod.attn_schema(cfg),
+                "mlp_norm": _norm_spec(d),
+                "moe": ffn_mod.moe_schema(cfg),
+            }
+            if cfg.dense_residual:
+                block["mlp"] = ffn_mod.mlp_schema(cfg, cfg.d_ff)
+            return block
+        if cfg.family == "hybrid":
+            bl = cfg.block_len
+            n_ssm = bl - 1
+            n_moe = sum(1 for i in range(bl) if i % 2 == 1)
+            n_mlp = bl - n_moe
+            return {
+                "ssm_norm": ParamSpec((n_ssm, d), ("sublayer", "embed"), init="ones"),
+                "ssm": stack_schema(ssm_mod.ssm_schema(cfg), n_ssm, "sublayer"),
+                "attn_norm": _norm_spec(d),
+                "attn": attn_mod.attn_schema(cfg),
+                "mlp_norm": ParamSpec((bl, d), ("sublayer", "embed"), init="ones"),
+                "mlp": stack_schema(ffn_mod.mlp_schema(cfg, cfg.d_ff), n_mlp, "sublayer"),
+                "moe": stack_schema(ffn_mod.moe_schema(cfg), n_moe, "sublayer"),
             }
         return {"norm": _norm_spec(d), "ssm": ssm_mod.ssm_schema(cfg)}
 
@@ -137,60 +173,107 @@ class LM:
         return init_params(self.schema(), key, dtype, device)
 
     # -- prefill blocks -------------------------------------------------------
-    def _apply_block(self, x, bp, *, flags: RunFlags, collect_kv: bool):
-        """Returns (x, this layer's cache pieces or None): the RoPE'd keys
-        and the values for ``dense``, the SSM cache for ``ssm``."""
+    def _self_attn(self, x, norm, ap, flags: RunFlags, collect_kv: bool):
+        """x + attention(rms_norm(x)); with ``collect_kv`` also the RoPE'd
+        keys and the values for the cache."""
         cfg = self.cfg
-        if cfg.family == "dense":
-            h = rms_norm(x, bp["attn_norm"])
-            ap = bp["attn"]
-            mask = "sliding" if cfg.sliding_window else "causal"
-            x = x + attn_mod.attention_forward(h, ap, cfg, mask_kind=mask, impl=flags.attn_impl)
-            kv = None
-            if collect_kv:
-                k = torch.einsum("btd,dgk->btgk", h, ap["wk"])
-                k = apply_rope(k, torch.arange(h.shape[1], device=h.device), cfg.rope_theta)
-                v = torch.einsum("btd,dgk->btgk", h, ap["wv"])
-                kv = {"k": k, "v": v}
+        h = rms_norm(x, norm)
+        mask = "sliding" if cfg.sliding_window else "causal"
+        x = x + attn_mod.attention_forward(h, ap, cfg, mask_kind=mask, impl=flags.attn_impl)
+        if not collect_kv:
+            return x, None
+        k = torch.einsum("btd,dgk->btgk", h, ap["wk"])
+        k = apply_rope(k, torch.arange(h.shape[1], device=h.device), cfg.rope_theta)
+        v = torch.einsum("btd,dgk->btgk", h, ap["wv"])
+        return x, {"k": k, "v": v}
+
+    def _apply_block(self, x, bp, *, flags: RunFlags, collect_kv: bool):
+        """Returns (x, aux loss (0-dim float32), this block's cache pieces
+        or None): the RoPE'd keys and the values for ``dense`` and ``moe``,
+        the SSM cache for ``ssm``, both for ``hybrid``."""
+        cfg = self.cfg
+        fam = cfg.family
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if fam in ("dense", "moe"):
+            x, kv = self._self_attn(x, bp["attn_norm"], bp["attn"], flags, collect_kv)
             h = rms_norm(x, bp["mlp_norm"])
-            return x + ffn_mod.mlp(h, bp["mlp"], cfg.act), kv
-        h = rms_norm(x, bp["norm"])
-        if collect_kv:
-            y, cache = ssm_mod.ssm_prefill(h, bp["ssm"], cfg)
-            return x + y, cache
-        return x + ssm_mod.ssm_forward(h, bp["ssm"], cfg), None
+            if fam == "dense":
+                return x + ffn_mod.mlp(h, bp["mlp"], cfg.act), aux, kv
+            y, a = ffn_mod.moe(h, bp["moe"], cfg)
+            if cfg.dense_residual:
+                y = y + ffn_mod.mlp(h, bp["mlp"], cfg.act)
+            return x + y, aux + a, kv
+        if fam == "ssm":
+            h = rms_norm(x, bp["norm"])
+            if collect_kv:
+                y, cache = ssm_mod.ssm_prefill(h, bp["ssm"], cfg)
+                return x + y, aux, cache
+            return x + ssm_mod.ssm_forward(h, bp["ssm"], cfg), aux, None
+        kvs: Dict[str, Any] = {}
+        ssm_caches = []
+        ssm_i = mlp_i = moe_i = 0
+        for pos in range(cfg.block_len):
+            if pos == cfg.attn_index_in_block:
+                x, kvs["attn"] = self._self_attn(x, bp["attn_norm"], bp["attn"], flags,
+                                                 collect_kv)
+            else:
+                sp = _layer(bp["ssm"], ssm_i)
+                h = rms_norm(x, bp["ssm_norm"][ssm_i])
+                if collect_kv:
+                    y, sc = ssm_mod.ssm_prefill(h, sp, cfg)
+                    ssm_caches.append(sc)
+                else:
+                    y = ssm_mod.ssm_forward(h, sp, cfg)
+                x = x + y
+                ssm_i += 1
+            h = rms_norm(x, bp["mlp_norm"][pos])
+            if pos % 2 == 1:  # MoE on odd positions
+                y, a = ffn_mod.moe(h, _layer(bp["moe"], moe_i), cfg)
+                aux = aux + a
+                moe_i += 1
+            else:
+                y = ffn_mod.mlp(h, _layer(bp["mlp"], mlp_i), cfg.act)
+                mlp_i += 1
+            x = x + y
+        if not collect_kv:
+            return x, aux, None
+        kvs["ssm"] = _stack(ssm_caches)
+        return x, aux, kvs
 
     def _run_blocks(self, x, blocks, *, flags: RunFlags, collect_kv: bool = False):
+        """(x, the blocks' aux losses summed in block order, the stacked
+        caches or None)."""
         remat = flags.remat == "block" and not collect_kv and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for i in range(self.n_blocks):
             bp = _layer(blocks, i)
             if remat:
-                x = torch.utils.checkpoint.checkpoint(
+                x, a = torch.utils.checkpoint.checkpoint(
                     self._block_out, x, bp, flags, use_reentrant=False)
-                continue
-            x, cache = self._apply_block(x, bp, flags=flags, collect_kv=collect_kv)
-            caches.append(cache)
-        return x, (_stack(caches) if collect_kv else None)
+            else:
+                x, a, cache = self._apply_block(x, bp, flags=flags, collect_kv=collect_kv)
+                caches.append(cache)
+            aux = aux + a
+        return x, aux, (_stack(caches) if collect_kv else None)
 
     def _block_out(self, x, bp, flags: RunFlags):
-        return self._apply_block(x, bp, flags=flags, collect_kv=False)[0]
+        return self._apply_block(x, bp, flags=flags, collect_kv=False)[:2]
 
     # -- training loss --------------------------------------------------------
     def loss_fn(self, params, batch: Dict[str, Any], flags: RunFlags = RunFlags()):
         """batch: tokens (B,S) and labels (B,S), integers.  Returns
-        ``(loss, {"ce": loss, "aux": 0})``: the two families have no
-        auxiliary loss."""
+        ``(ce + aux, {"ce": ce, "aux": aux})``; ``aux`` is the MoE layers'
+        router losses summed over blocks (0 for families without MoE)."""
         cfg = self.cfg
         x = params["embed"][batch["tokens"].long()]
-        x, _ = self._run_blocks(x, params["blocks"], flags=flags)
+        x, aux, _ = self._run_blocks(x, params["blocks"], flags=flags)
         x = rms_norm(x, params["final_norm"])
         if flags.loss_impl == "chunked":
             loss = self._chunked_ce(x, params["embed"], batch["labels"], flags)
         else:
             logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
             loss = cross_entropy_loss(logits, batch["labels"], cfg.vocab_size)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return loss + aux, {"ce": loss, "aux": aux}
 
     def _chunked_ce(self, x, embed, labels, flags: RunFlags):
@@ -225,14 +308,21 @@ class LM:
 
     def init_cache(self, batch: int, max_seq: int, dtype: torch.dtype = torch.bfloat16,
                    device=None):
-        """Zero cache on ``device`` (None = CUDA).  The ssm family's state
-        does not grow with the sequence, so it does not read ``max_seq``."""
+        """Zero cache on ``device`` (None = CUDA).  The SSM state does not
+        grow with the sequence, so the ssm family does not read ``max_seq``."""
+        cfg = self.cfg
         device = resolve_device(device)
-        if self.cfg.family == "dense":
-            layer = attn_mod.init_kv_cache(self.cfg, batch, self.kv_window(max_seq), dtype,
-                                           device)
+        if cfg.family in ("dense", "moe"):
+            layer = attn_mod.init_kv_cache(cfg, batch, self.kv_window(max_seq), dtype, device)
+        elif cfg.family == "ssm":
+            layer = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
         else:
-            layer = ssm_mod.init_ssm_cache(self.cfg, batch, dtype, device)
+            layer = {
+                "attn": attn_mod.init_kv_cache(cfg, batch, self.kv_window(max_seq), dtype,
+                                               device),
+                "ssm": _stack([ssm_mod.init_ssm_cache(cfg, batch, dtype, device)]
+                              * (cfg.block_len - 1)),
+            }
         return {
             "pos": torch.zeros((), dtype=torch.int32, device=device),
             "layers": _stack([layer] * self.n_blocks),
@@ -240,17 +330,47 @@ class LM:
 
     # -- decode ---------------------------------------------------------------
     def _decode_block(self, x, bp, bc, pos, flags: RunFlags):
-        """One layer of a decode step; writes its new state into ``bc``."""
+        """One block of a decode step; writes its new state into ``bc``
+        (for ``hybrid``, each sub-layer into its view of the stacked
+        cache)."""
         cfg = self.cfg
-        if cfg.family == "dense":
+        fam = cfg.family
+        if fam in ("dense", "moe"):
             h = rms_norm(x, bp["attn_norm"])
             y, _ = attn_mod.decode_attention(h, bp["attn"], bc, pos, cfg)
             x = x + y
             h = rms_norm(x, bp["mlp_norm"])
-            return x + ffn_mod.mlp(h, bp["mlp"], cfg.act)
-        h = rms_norm(x, bp["norm"])
-        y, _ = ssm_mod.ssm_decode_step(h, bp["ssm"], bc, cfg, ssd_impl=flags.ssd_impl)
-        return x + y
+            if fam == "dense":
+                return x + ffn_mod.mlp(h, bp["mlp"], cfg.act)
+            y, _ = ffn_mod.moe(h, bp["moe"], cfg)
+            if cfg.dense_residual:
+                y = y + ffn_mod.mlp(h, bp["mlp"], cfg.act)
+            return x + y
+        if fam == "ssm":
+            h = rms_norm(x, bp["norm"])
+            y, _ = ssm_mod.ssm_decode_step(h, bp["ssm"], bc, cfg, ssd_impl=flags.ssd_impl)
+            return x + y
+        ssm_i = mlp_i = moe_i = 0
+        for p in range(cfg.block_len):
+            if p == cfg.attn_index_in_block:
+                h = rms_norm(x, bp["attn_norm"])
+                y, _ = attn_mod.decode_attention(h, bp["attn"], bc["attn"], pos, cfg)
+            else:
+                h = rms_norm(x, bp["ssm_norm"][ssm_i])
+                y, _ = ssm_mod.ssm_decode_step(h, _layer(bp["ssm"], ssm_i),
+                                               _layer(bc["ssm"], ssm_i), cfg,
+                                               ssd_impl=flags.ssd_impl)
+                ssm_i += 1
+            x = x + y
+            h = rms_norm(x, bp["mlp_norm"][p])
+            if p % 2 == 1:
+                y, _ = ffn_mod.moe(h, _layer(bp["moe"], moe_i), cfg)
+                moe_i += 1
+            else:
+                y = ffn_mod.mlp(h, _layer(bp["mlp"], mlp_i), cfg.act)
+                mlp_i += 1
+            x = x + y
+        return x
 
     def decode_fn(self, params, cache, token, flags: RunFlags = RunFlags()):
         """One serve step.  token: (B, 1) int -> (logits (B, vocab), cache).
@@ -259,7 +379,9 @@ class LM:
         (``donate_argnums``): each layer writes its new state into its view
         of the stacked cache (the new key and value for ``dense``, the conv
         caches and the SSM state for ``ssm``) and ``pos`` advances in
-        place, so the returned cache is the one passed in.  A caller that
+        place, so the returned cache is the one passed in (``moe`` as
+        ``dense``; ``hybrid`` both, each sub-layer in its view of the
+        stacked cache).  A caller that
         needs the old cache again clones it first.  Nothing here waits for
         the host, so the step can be captured in a CUDA graph."""
         pos = cache["pos"]
@@ -282,7 +404,7 @@ class LM:
         tokens = batch["tokens"]
         s = tokens.shape[1]
         x = params["embed"][tokens.long()]
-        x, kvs = self._run_blocks(x, params["blocks"], flags=flags, collect_kv=True)
+        x, _, kvs = self._run_blocks(x, params["blocks"], flags=flags, collect_kv=True)
         x = rms_norm(x, params["final_norm"])
         logits = torch.einsum("bd,vd->bv", x[:, -1], params["embed"])[:, : self.cfg.vocab_size]
         pos = torch.tensor(s, dtype=torch.int32, device=tokens.device)
@@ -308,7 +430,14 @@ class LM:
         return packed.reshape(tuple(k.shape[:2]) + tuple(packed.shape[1:]))
 
     def _pack_cache(self, kvs, s: int, w: int):
-        if self.cfg.family == "dense":
+        fam = self.cfg.family
+        if fam in ("dense", "moe"):
             return {"k": self._ring_pack_stacked(kvs["k"], s, w),
                     "v": self._ring_pack_stacked(kvs["v"], s, w)}
-        return kvs  # stacked ssm caches from prefill
+        if fam == "ssm":
+            return kvs  # stacked ssm caches from prefill
+        return {
+            "attn": {"k": self._ring_pack_stacked(kvs["attn"]["k"], s, w),
+                     "v": self._ring_pack_stacked(kvs["attn"]["v"], s, w)},
+            "ssm": kvs["ssm"],
+        }

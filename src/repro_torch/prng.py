@@ -297,12 +297,12 @@ def normal(key, shape: Shape = (), dtype: torch.dtype = torch.float32) -> torch.
     shape = _shape(shape)
     n = math.prod(shape)
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    parts = []
-    for s in range(0, max(n, 1), SLICE):
+    # each slice written into the output: no second copy of a large draw
+    out = torch.empty(tuple(key.shape[:-1]) + (n,), dtype=torch.float32, device=key.device)
+    for s in range(0, n, SLICE):
         m = min(SLICE, n - s)
         bits = _counter_hash(key, m, s)
-        parts.append(_normal_from_bits(bits[0] ^ bits[1], lo))
-    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        out[..., s:s + m] = _normal_from_bits(bits[0] ^ bits[1], lo)
     return out.reshape(tuple(key.shape[:-1]) + shape)
 
 

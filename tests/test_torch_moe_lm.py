@@ -1,0 +1,363 @@
+"""The port's ``moe`` language model (``repro_torch.models.lm``) against the
+JAX reference (``repro.models.lm``) on the CPU, at ``olmoe_1b_7b``'s
+REDUCED config (2 layers, d_model 128, 4 heads, 4 experts top-2), with the
+reference's weights (``LM(cfg).init(PRNGKey(0), dtype)``) carried across
+by ``repro_torch.models.convert``.  Tokens are made with numpy from a seed.
+
+:class:`LMParity` holds one family's model to the reference;
+``tests/test_torch_hybrid_lm.py`` runs it on jamba's reduced config.
+
+The routing is held first: every MoE call's expert ids, recorded on both
+sides (``test_torch_moe.record_ref_routing`` / ``port_routing``), must be
+equal in float32.  In bfloat16 the two frameworks' router products may
+round one ulp apart and flip a choice, and a flip changes that token's
+output entirely; where the ids differ the test says how many and holds the
+outputs with the reference's ids forced into the port, at the same bar.
+
+Bars, each relative to the compared tensor's scale (``atol = bar *
+max(1, max |reference|)``, ``rtol = bar``): float32 logits, cache leaves
+and grads at 1e-4 (the same operations, sums in another order; the reduced
+model's peaked attention magnifies round-off, ROADMAP R8); bfloat16 at
+0.15, the bar ``tests/test_models.py::TestDecodeMatchesPrefill`` holds
+between two JAX paths.  Losses: float32 ``rtol=1e-5``, bfloat16 at
+``tests/test_kernels.py::tol_for`` (3e-2).  Four chained float32 train
+steps at ROADMAP R11's bars (``tests/test_torch_train.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.launch import steps as jsteps
+from repro.models import common as jcommon
+from repro.models import lm as jlm
+from repro.optim import adamw as jadamw
+from repro_torch import prng
+from repro_torch.configs import get_config, served_config
+from repro_torch.launch import steps as psteps
+from repro_torch.models import common as pcommon
+from repro_torch.models import lm as plm
+from repro_torch.models.convert import cache_to_numpy, params_from_numpy
+from repro_torch.optim import adamw as padamw
+from test_torch_moe import port_routing, record_ref_routing, routing_diff
+from test_torch_train import _assert_params_after_steps
+
+torch.set_num_threads(1)
+
+B, S = 2, 32
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+FLAGS = jlm.RunFlags(remat="none", q_chunk=16)
+PFLAGS = plm.RunFlags(remat="none")
+BAR = {"float32": 1e-4, "bfloat16": 0.15}
+LOSS_BAR = {"float32": 1e-5, "bfloat16": 3e-2}
+CONFIG_FIELDS = ("name", "family", "n_layers", "d_model", "vocab_size", "n_heads",
+                 "n_kv_heads", "head_dim", "rope_theta", "sliding_window", "d_ff", "act",
+                 "n_experts", "experts_per_token", "moe_d_ff", "moe_every", "moe_offset",
+                 "dense_residual", "capacity_factor", "router_aux_weight", "router_z_weight",
+                 "ssm_state", "ssm_head_dim", "ssm_expand", "ssm_conv_width", "ssm_chunk",
+                 "block_len", "attn_index_in_block", "padded_heads", "source", "dtype")
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _close(got, want, tol, what=""):
+    got, want = _f32(got), _f32(want)
+    scale = max(1.0, float(np.abs(want).max(initial=0.0)))
+    np.testing.assert_allclose(got, want, atol=tol * scale, rtol=tol, err_msg=what)
+
+
+def _hold(got, want, exact, tol, what=""):
+    """``got`` within ``tol`` of ``want`` (the reference), as ``_close``.
+    With ``exact`` (bfloat16 runs: the reference's float32 evaluation of
+    the same weights and inputs): where the reference's own bfloat16 result
+    lies further than ``tol`` of the scale from it (the random reduced
+    model's peaked attention makes some decode steps ill-conditioned in
+    bfloat16, ROADMAP R8, R15), the port's must lie no further from it
+    than the reference's does."""
+    got, want = _f32(got), _f32(want)
+    if exact is not None:
+        exact = _f32(exact)
+        scale = max(1.0, float(np.abs(exact).max(initial=0.0)))
+        ref_dist = float(np.abs(want - exact).max(initial=0.0))
+        if ref_dist > tol * scale:
+            got_dist = float(np.abs(got - exact).max(initial=0.0))
+            print(f"{what}: the reference's bf16 lies {ref_dist:.4g} from its float32 "
+                  f"evaluation (scale {scale:.4g}); the port's {got_dist:.4g}")
+            assert got_dist <= ref_dist, what
+            return
+    _close(got, want, tol, what)
+
+
+def _flat_ref(tree):
+    return {"/".join(str(p.key) for p in path): np.asarray(v, np.float32)
+            if v.dtype == jnp.bfloat16 else np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+class LMParity:
+    """The port's LM of ``ARCH``'s reduced config against the reference's."""
+
+    ARCH = ""
+    #: the full config's analytic parameter count
+    FULL_PARAMS = 0
+
+    @property
+    def cfg(self):
+        return get_config(self.ARCH, reduced=True)
+
+    @property
+    def jcfg(self):
+        return jax_get_config(self.ARCH, reduced=True)
+
+    @pytest.fixture(scope="class", params=list(DTYPES))
+    def model(self, request):
+        """(dtype name, JAX params, port params) with the same weights."""
+        name = request.param
+        jdt, tdt = DTYPES[name]
+        jparams = jlm.LM(jax_get_config(self.ARCH, reduced=True)).init(jax.random.PRNGKey(0), jdt)
+        pparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+        assert pparams["embed"].dtype == tdt
+        return name, jparams, pparams
+
+    def _tokens(self, seed, s=S):
+        toks = np.random.default_rng(seed).integers(0, self.cfg.vocab_size, (B, s))
+        return jnp.asarray(toks, jnp.int32), torch.from_numpy(toks).to(torch.int32)
+
+    def _run_port(self, name, run, ref_ids):
+        """``run()`` on the port with its routing recorded; float32 must
+        route as the reference did, bfloat16 runs again with the
+        reference's ids forced where it did not.  Returns run()'s result."""
+        with port_routing() as ids:
+            out = run()
+        flips = routing_diff(ids, ref_ids)
+        if name == "float32":
+            assert flips == 0, f"{flips} tokens routed differently in float32"
+            return out
+        if flips:
+            print(f"{self.ARCH} bf16: {flips} (call, token) rows of {len(ids)} MoE calls "
+                  "routed differently; held with the reference's routing forced")
+            with port_routing(ref_ids):
+                out = run()
+        return out
+
+    # -- config and weights ------------------------------------------------
+    @pytest.mark.parametrize("reduced", [False, True])
+    def test_config_copy(self, reduced):
+        got = get_config(self.ARCH, reduced=reduced)
+        ref = jax_get_config(self.ARCH, reduced=reduced)
+        for field in CONFIG_FIELDS:
+            assert getattr(got, field) == getattr(ref, field), field
+        for prop in ("padded_vocab", "head_dim_", "q_heads_padded", "moe_d_ff_", "ssm_d_inner",
+                     "ssm_n_heads"):
+            assert getattr(got, prop) == getattr(ref, prop), prop
+        assert [got.is_moe_layer(i) for i in range(got.n_layers)] == [
+            ref.is_moe_layer(i) for i in range(ref.n_layers)]
+        assert got.param_count() == ref.param_count()
+        assert got.param_count(padded=True) == ref.param_count(padded=True)
+        if not reduced:
+            assert got.param_count() == self.FULL_PARAMS
+        assert served_config(self.ARCH, reduced=reduced) is got
+        lm = plm.LM(got)
+        assert lm.n_blocks == jlm.LM(ref).n_blocks
+
+    def test_schema_matches_reference(self):
+        got = dict(pcommon.tree_leaves(plm.LM(self.cfg).schema()))
+        ref = {"/".join(str(p.key) for p in path): s for path, s in
+               jax.tree_util.tree_flatten_with_path(
+                   jlm.LM(self.jcfg).schema(), is_leaf=jcommon.tree_is_spec)[0]}
+        assert got.keys() == ref.keys()
+        for k, s in ref.items():
+            assert (got[k].shape, got[k].axes, got[k].init, got[k].scale) == (
+                s.shape, s.axes, s.init, s.scale), k
+        assert pcommon.param_count(plm.LM(self.cfg).schema()) == jcommon.param_count(
+            jlm.LM(self.jcfg).schema())
+
+    @pytest.mark.parametrize("name", list(DTYPES))
+    def test_init_bit_for_bit(self, name):
+        """``LM.init(PRNGKey(0))`` gives the reference's weights leaf by leaf,
+        bit for bit, and the same seed the same weights twice."""
+        jdt, tdt = DTYPES[name]
+        lm = plm.LM(self.cfg)
+        p = lm.init(prng.PRNGKey(0), tdt, "cpu")
+        q = lm.init(prng.PRNGKey(0), tdt, "cpu")
+        ref = params_from_numpy(jax.tree.map(np.asarray,
+                                             jlm.LM(self.jcfg).init(jax.random.PRNGKey(0), jdt)),
+                                device="cpu")
+        got, want = dict(pcommon.tree_leaves(p)), dict(pcommon.tree_leaves(ref))
+        assert got.keys() == want.keys()
+        for k, a in got.items():
+            assert a.dtype == want[k].dtype == tdt and a.shape == want[k].shape, k
+            assert torch.equal(a, want[k]), k
+            assert torch.equal(a, dict(pcommon.tree_leaves(q))[k]), k
+
+    def test_init_cache_layout(self):
+        got = plm.LM(self.cfg).init_cache(B, S + 8, torch.bfloat16, device="cpu")
+        ref = {"/".join(str(p.key) for p in path): v for path, v in
+               jax.tree_util.tree_flatten_with_path(jlm.LM(self.jcfg).init_cache(B, S + 8))[0]}
+        flat = dict(pcommon.tree_leaves(got))
+        assert flat.keys() == ref.keys()
+        for k, v in ref.items():
+            assert tuple(flat[k].shape) == v.shape, k
+            assert str(flat[k].dtype).split(".")[-1] == str(v.dtype), k
+            assert not flat[k].any(), k
+
+    # -- loss, prefill, decode ------------------------------------------------
+    def test_loss_fn(self, model):
+        """total, ce and aux (the MoE layers' router losses summed over
+        blocks, > 0)."""
+        name, jp, pp = model
+        jt, tt = self._tokens(1)
+        jl, jlab = self._tokens(2)
+        with record_ref_routing() as ref_ids:
+            ref, rm = jax.jit(lambda p, b: jlm.LM(self.jcfg).loss_fn(p, b, FLAGS))(
+                jp, {"tokens": jt, "labels": jl})
+            jax.effects_barrier()
+        got, gm = self._run_port(name, lambda: plm.LM(self.cfg).loss_fn(
+            pp, {"tokens": tt, "labels": jlab}, PFLAGS), ref_ids)
+        assert float(gm["aux"]) > 0 and float(rm["aux"]) > 0
+        for a, b in ((got, ref), (gm["ce"], rm["ce"]), (gm["aux"], rm["aux"])):
+            assert a.dtype == torch.float32 and a.dim() == 0
+            np.testing.assert_allclose(float(a), float(b), rtol=LOSS_BAR[name])
+        np.testing.assert_allclose(float(got), float(gm["ce"] + gm["aux"]), rtol=1e-6)
+
+    def _compare_cache(self, got, ref, name, exact=None):
+        got_np, ref_np = dict(pcommon.tree_leaves(cache_to_numpy(got))), _flat_ref(ref)
+        exact_np = _flat_ref(exact) if exact is not None else {}
+        assert got_np.keys() == ref_np.keys()
+        for k, v in ref_np.items():
+            g = got_np[k]
+            assert g.shape == v.shape and g.dtype == v.dtype, k
+            if k == "pos":
+                assert int(g) == int(v)
+                continue
+            _hold(g, v, exact_np.get(k), BAR[name], k)
+
+    def test_prefill(self, model):
+        """Last-token logits and every cache leaf."""
+        name, jp, pp = model
+        jt, tt = self._tokens(8)
+        with record_ref_routing() as ref_ids:
+            logits_ref, cache_ref = jax.jit(
+                lambda p, t: jlm.LM(self.jcfg).prefill_fn(p, {"tokens": t}, max_seq=S + 8,
+                                                          flags=FLAGS))(jp, jt)
+            jax.effects_barrier()
+        logits, cache = self._run_port(name, lambda: plm.LM(self.cfg).prefill_fn(
+            pp, {"tokens": tt}, max_seq=S + 8), ref_ids)
+        assert tuple(logits.shape) == (B, self.cfg.vocab_size)
+        _close(logits, logits_ref, BAR[name])
+        self._compare_cache(cache, cache_ref, name)
+
+    def test_decode_steps(self, model):
+        """Three decode steps from the prefill cache, teacher-forced with
+        the same numpy tokens on both sides: logits at every step and every
+        cache leaf at the end; the cache is written in place."""
+        name, jp, pp = model
+        jt, tt = self._tokens(9)
+        forced = np.random.default_rng(10).integers(0, self.cfg.vocab_size, (3, B, 1))
+        jlm_, plm_ = jlm.LM(self.jcfg), plm.LM(self.cfg)
+        with record_ref_routing() as ref_ids:
+            _, jcache = jax.jit(lambda p, t: jlm_.prefill_fn(p, {"tokens": t}, max_seq=S + 8,
+                                                             flags=FLAGS))(jp, jt)
+            jdec = jax.jit(lambda p, c, t: jlm_.decode_fn(p, c, t, FLAGS))
+            ref_logits = []
+            for step in range(3):
+                lj, jcache = jdec(jp, jcache, jnp.asarray(forced[step], jnp.int32))
+                ref_logits.append(lj)
+            jax.effects_barrier()
+
+        def run():
+            _, pcache = plm_.prefill_fn(pp, {"tokens": tt}, max_seq=S + 8)
+            ptrs = {k: t.data_ptr() for k, t in pcommon.tree_leaves(pcache)}
+            out = []
+            for step in range(3):
+                lt, pcache = plm_.decode_fn(pp, pcache, torch.from_numpy(forced[step]).int())
+                assert {k: t.data_ptr() for k, t in pcommon.tree_leaves(pcache)} == ptrs
+                out.append(lt)
+            return out, pcache
+
+        logits, pcache = self._run_port(name, run, ref_ids)
+        exact = None
+        if name == "bfloat16":  # the float32 evaluation of the same weights
+            jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+            _, c32 = jax.jit(lambda p, t: jlm_.prefill_fn(p, {"tokens": t}, max_seq=S + 8,
+                                                          flags=FLAGS))(jp32, jt)
+            exact = []
+            for step in range(3):
+                l32, c32 = jdec(jp32, c32, jnp.asarray(forced[step], jnp.int32))
+                exact.append(l32)
+        for step, (lt, lj) in enumerate(zip(logits, ref_logits)):
+            assert tuple(lt.shape) == (B, self.cfg.vocab_size)
+            _hold(lt, lj, None if exact is None else exact[step], BAR[name], f"step {step}")
+        self._compare_cache(pcache, jcache, name, exact=c32 if exact else None)
+        assert int(pcache["pos"]) == S + 3
+
+    def test_decode_matches_prefill(self, model):
+        """Decoding token S against the cache of S tokens gives the logits
+        of a prefill over S + 1 tokens (the reference's own bar, 0.15;
+        ``tests/test_models.py::TestDecodeMatchesPrefill``: prefill drops
+        choices past capacity, decode at capacity 4 never does)."""
+        _, _, pp = model
+        _, toks = self._tokens(11, s=S + 1)
+        lm = plm.LM(self.cfg)
+        _, cache = lm.prefill_fn(pp, {"tokens": toks[:, :S]}, max_seq=S + 4)
+        dec, _ = lm.decode_fn(pp, cache, toks[:, S:S + 1])
+        ref, _ = lm.prefill_fn(pp, {"tokens": toks}, max_seq=S + 4)
+        np.testing.assert_allclose(_f32(dec), _f32(ref), atol=0.15, rtol=0.15)
+
+
+class TestOlmoe(LMParity):
+    ARCH = "olmoe-1b-7b"
+    FULL_PARAMS = 6_816_071_680
+
+    def test_grads_match_jax_grad(self):
+        """float32 grads of the total loss (CE + aux) against ``jax.grad``,
+        1e-4 of each leaf's scale."""
+        jp = jlm.LM(self.jcfg).init(jax.random.PRNGKey(0), jnp.float32)
+        pp = plm.LM(self.cfg).init(prng.PRNGKey(0), torch.float32, "cpu")
+        jt, tt = self._tokens(3)
+        jl, tl = self._tokens(4)
+        grads = jax.grad(lambda p: jlm.LM(self.jcfg).loss_fn(
+            p, {"tokens": jt, "labels": jl}, FLAGS)[0])(jp)
+        for _, t in pcommon.tree_leaves(pp):
+            t.requires_grad_()
+        loss, _ = plm.LM(self.cfg).loss_fn(pp, {"tokens": tt, "labels": tl}, PFLAGS)
+        loss.backward()
+        ref = dict(zip([k for k, _ in pcommon.tree_leaves(pp)], jax.tree.leaves(grads)))
+        for k, t in pcommon.tree_leaves(pp):
+            want = np.asarray(ref[k])
+            scale = max(1e-30, float(np.abs(want).max()))
+            np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-4, atol=1e-4 * scale,
+                                       err_msg=k)
+
+    @pytest.mark.parametrize("remat", ["none", "block"])
+    def test_four_train_steps(self, remat):
+        """Four chained ``make_train_step`` steps against the jitted
+        reference in float32: loss, ce and aux at rtol 1e-5 (aux reported in
+        the metrics, > 0), grad norm 1e-3, parameters at ROADMAP R11's
+        bars."""
+        from repro.data.pipeline import SyntheticLMDataset as JDataset
+
+        jp = jlm.LM(self.jcfg).init(jax.random.PRNGKey(0), jnp.float32)
+        pp = plm.LM(self.cfg).init(prng.PRNGKey(0), torch.float32, "cpu")
+        ocfg_j, ocfg_p = jadamw.AdamWConfig(), padamw.AdamWConfig()
+        jo, po = jadamw.adamw_init(jp, ocfg_j), padamw.adamw_init(pp, ocfg_p)
+        jstep = jax.jit(jsteps.make_train_step(jlm.LM(self.jcfg), ocfg_j,
+                                               jlm.RunFlags(remat=remat, q_chunk=S)))
+        pstep = psteps.make_train_step(plm.LM(self.cfg), ocfg_p, plm.RunFlags(remat=remat))
+        for step in range(4):
+            data = JDataset(self.jcfg, B, S).batch_at(step)
+            jp, jo, jm = jstep(jp, jo, {k: jnp.asarray(v) for k, v in data.items()})
+            pp, po, pm = pstep(pp, po, {k: torch.from_numpy(v) for k, v in data.items()})
+            assert set(pm) == {"loss", "ce", "aux", "grad_norm"}
+            assert float(pm["aux"]) > 0
+            for k in ("loss", "ce", "aux"):
+                np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=1e-5, err_msg=k)
+            np.testing.assert_allclose(float(pm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-3)
+        _assert_params_after_steps(pp, jp, ocfg_p.lr, 4)

@@ -11,10 +11,14 @@ llama3.2-1b and mamba2-130m configs at batch 2, seq 32.
 * ``run_multi_job``'s first executed loss per job equals the loss of the
   first step from a fresh init: exactly the port's own warm-up step, and in
   float32 within 1e-5 of the reference's jitted step;
-* ``FABRICS`` equals the reference's.
+* ``FABRICS`` and ``DEFAULT_JOBS`` equal the reference's, and the MoE
+  job of the default list profiles on the CPU.
 """
 
+import ast
 import dataclasses
+import inspect
+import re
 
 import jax
 import jax.numpy as jnp
@@ -144,10 +148,17 @@ def test_parse_and_defaults():
     got = P.JobRequest.parse("llama3.2-1b:4:300", arrival=2.0)
     assert dataclasses.asdict(got) == dataclasses.asdict(
         R.JobRequest.parse("llama3.2-1b:4:300", arrival=2.0))
-    # the reference's default job list, but for the MoE job (not ported)
-    assert list(P.DEFAULT_JOBS) == ["llama3.2-1b:4:300", "mamba2-130m:2:500"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        P.profile_job(P.JobRequest("olmoe-1b-7b", 8, 200), device="cpu")
+    # the reference's default job list, the MoE job included
+    assert list(P.DEFAULT_JOBS) == ["llama3.2-1b:4:300", "mamba2-130m:2:500",
+                                    "olmoe-1b-7b:8:200"]
+    # ... read from the reference's argparse default
+    ref_src = inspect.getsource(R.main)
+    ref_default = re.search(r'"--jobs",.*?default=(\[.*?\])', ref_src, re.S).group(1)
+    assert list(P.DEFAULT_JOBS) == ast.literal_eval(ref_default)
+    pj = P.profile_job(P.JobRequest.parse("olmoe-1b-7b:8:200"), timing_steps=1, device="cpu")
+    assert pj.lm.cfg.family == "moe" and pj.lm.cfg.name == "olmoe-reduced"
+    assert np.isfinite(pj.warmup_loss) and pj.profile.t_f > 0 and pj.profile.t_b > 0
+    assert pj.profile.size_bytes == 2 * sum(t.numel() for _, t in tree_leaves(pj.params))
 
 
 def test_needs_cuda_unless_asked():

@@ -86,21 +86,23 @@ class TestConfig:
             assert got.param_count(padded=True) == ref.param_count(padded=True)
 
     def test_other_archs_raise(self):
-        """The zoo's archs have configs (their counts feed the model zoo),
-        but the port serves no model of them; the other archs have none."""
+        """The port serves olmoe-1b-7b and jamba-v0.1-52b now; the other zoo
+        archs have configs (their counts feed the model zoo) but the port
+        serves no model of them; the vlm, audio and arctic archs have none."""
         from repro_torch.configs import served_config
 
         assert get_config("olmoe-1b-7b").family == "moe"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            plm.LM(get_config("olmoe-1b-7b"))
-        for arch in ("olmoe-1b-7b", "gemma-7b", "yi-9b", "phi4-mini-3.8b"):
+        assert get_config("jamba-v0.1-52b").family == "hybrid"
+        for arch in ("olmoe-1b-7b", "jamba-v0.1-52b", "mamba2-130m", "llama3.2-1b"):
+            assert served_config(arch) is get_config(arch)
+            assert plm.LM(served_config(arch, reduced=True)).cfg is get_config(arch, reduced=True)
+        for arch in ("gemma-7b", "yi-9b", "phi4-mini-3.8b"):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 served_config(arch)
-        assert served_config("mamba2-130m") is get_config("mamba2-130m")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config("jamba-v0.1-52b")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config("no-such-arch")
+        for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2", "arctic-480b",
+                     "no-such-arch"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                get_config(arch)
 
     def test_schema_matches_reference(self):
         got = dict(pcommon.tree_leaves(plm.LM(CFG).schema()))
@@ -135,14 +137,14 @@ class TestConfig:
         std = float(ssm["out_proj"].std())
         assert abs(std - 0.5 / np.sqrt(CFG.ssm_d_inner)) < 0.05 * std
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            plm.LM(_moe_config())
+            plm.LM(_unported_config())
 
 
-def _moe_config():
-    """A family the port does not serve yet."""
+def _unported_config():
+    """A family the port does not serve yet (enc-dec audio)."""
     from repro_torch.models.config import ModelConfig
 
-    return ModelConfig(name="moe-x", family="moe", n_layers=2, d_model=64, vocab_size=128,
+    return ModelConfig(name="audio-x", family="audio", n_layers=2, d_model=64, vocab_size=128,
                        n_heads=4, n_kv_heads=4)
 
 
