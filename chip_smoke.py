@@ -10,9 +10,9 @@ Phases (any failed check raises, so the exit code is non-zero):
 2. the build of the three CUDA kernels from their sources, ``src/repro_torch/
    kernels/{fluidstep,ssd,flash_attention}/csrc`` (one ``nvcc`` each,
    sm_90a, started together), with their build times, and the registers
-   and spills of the flash kernel's bf16 D-64 and D-128 tensor-core
-   instantiations (llama's shape; olmoe's and jamba's), which must not
-   spill;
+   and spills of the flash kernel's bf16 D-64, D-128 and D-256 tensor-core
+   instantiations (llama's shape; olmoe's, jamba's and arctic's; gemma's),
+   which must not spill;
 3. the fluid step kernel against its plain PyTorch version on the card at
    J in {8, 40, 160, 256}, S = 16, D in {16, 20}, lanes in {1, 8}; at the
    shapes a warp-parallel design gets wrong, J in {1, 31, 33, 1000} x D in
@@ -233,7 +233,32 @@ Phases (any failed check raises, so the exit code is non-zero):
     4 of its 16 layers (at 16, bf16 weights and grads with float32 moments
     take 76 GiB), batch 8 x seq 512, float32 moments, lr 3e-4,
     ``remat="none"``, 8 steps: exactly 4 x 8 flash launches, every loss
-    and router aux loss finite, the aux > 0; step ms and peak memory.
+    and router aux loss finite, the aux > 0; step ms and peak memory;
+39. the flash kernel at gemma-7b's prefill shape (BH 128 = batch 8 x 16
+    heads, S = T 512, D 256: the DP-256 tensor-core instantiation) and
+    arctic-480b's (BH 512 = batch 8 x 64 padded query heads, D 128)
+    against its plain version (float32 2e-5, bf16 3e-2) and, in bf16, its
+    tensor-core emulation (1e-2, ``tests/test_torch_flash_attention_cuda.py``);
+    then timed in CUDA graphs beside the bound, the plain version and SDPA;
+40. the dense serving main path at full-width gemma-7b (28 layers, GeGLU,
+    head dim 256, 8,537,677,824 parameters) as phase 35: identical tokens
+    through the decode graph and eagerly, exactly 28 flash launches, every
+    one the D-256 tensor-core kernel (by the profiler's kernel names);
+41. arctic-480b at full width cut to 1 of its 35 layers (13,840,562,176
+    parameters, 27.7 GB in bf16): 128 experts top-2 beside the dense
+    residual FFN, 64 padded query heads; as phase 40, exactly 1 flash
+    launch (the D-128 kernel at BH 512);
+42. llama3.2-1b-swa8k (the reference's long-context variant, window
+    8,192) at full width, batch 2, 64 new tokens: a prompt of 12,288 (the
+    sliding prefill, the cache packed from the last 8,192 keys) and one of
+    8,160 (the ring wraps at decode step 32, inside the decode graph); each
+    through the decode graph and eagerly, identical tokens, no flash launch
+    (the sliding prefill is plain PyTorch); a profiled prefill and decode
+    steps at each;
+43. the reduced arctic, gemma, phi4 and yi configs, and the reduced llama
+    and gemma with a window of 16 (prompt 32, 8 new tokens: the sliding
+    prefill and the ring's wrap), as phase 37: identical tokens on the card
+    and on the CPU.
 
 Phases run in the order of their numbers, but for 31 and 32, which run
 after 29.  Worker processes run only during phases 10-11 and 31-32, so
@@ -244,8 +269,8 @@ before the check that needs it fails.
 
 Then the kernels line (JSON; the flash kernel's launches are the serving,
 training and multi_job main paths' of every family, the SSD step's those
-of mamba and jamba, the fluid step's include phase 29's; phase 34's shapes
-under "shapes") and, last, ``{"ok": true, "device": ...}``.
+of mamba and jamba, the fluid step's include phase 29's; phases 34's and
+39's shapes under "shapes") and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
@@ -682,7 +707,7 @@ def _decode_modes(torch, tag, lm, params, cache0, tok, flags, key, expect_key) -
             cap = (f"; capture: eager first step {r.timing['warmup_s']:.4f} s, recording "
                    f"{r.timing['capture_s']:.4f} s, instantiation "
                    f"{r.timing['instantiate_s']:.4f} s" if mode == "graph" else "")
-            _log(f"{tag} decode step, {mode} (batch {SERVE['batch']}, full width): wall "
+            _log(f"{tag} decode step, {mode} (batch {tok.shape[0]}, full width): wall "
                  f"{walls[mode]} ms; device time {device_ms:.4f} ms in {n_kernels} kernels and "
                  f"copies, of which {key} {key_ms:.4f} ms ({key_ms / device_ms:.4f}); device "
                  f"idle share {1 - device_ms / min(walls[mode]):.4f}{cap}")
@@ -2147,6 +2172,22 @@ JAMBA_LAYERS = 8
 #: phase 38: olmoe trained at 4 of its 16 layers (at 16, bf16 weights and
 #: grads with float32 moments alone take 6.82e9 x 12 B = 76 GiB)
 OLMOE_TRAIN_LAYERS = 4
+#: phase 39: the flash kernel at gemma-7b's prefill shape (batch 8 x 16
+#: heads of 256, the DP-256 tensor-core instantiation) and arctic-480b's
+#: (batch 8 x 64 padded query heads of 128, the 8 kv heads repeated)
+FLASH_NEW = {"gemma-7b": (128, 512, 512, 256), "arctic-480b": (512, 512, 512, 128)}
+#: the bf16 kernel against its emulation (tests/test_torch_flash_attention_cuda.py)
+FLASH_EMULATION_TOL = 1e-2
+#: phase 41: arctic cut to 1 of its 35 layers (one layer is 13.8e9 parameters,
+#: 27.7 GB in bf16; two would leave no room for the init's peak)
+ARCTIC_LAYERS = 1
+#: phase 42: llama3.2-1b-swa8k served at batch 2: a prompt past the window
+#: (the cache packed from its last 8,192 keys) and one whose decode wraps the
+#: ring at step 32, inside the decode graph
+SWA_BATCH = 2
+SWA_PROMPTS = (12_288, 8_160)
+#: phase 43: the reduced configs' sliding window, prompt and new tokens
+SWA_REDUCED = dict(window=16, prompt=32, gen=8)
 
 
 def _attention_layers(lm) -> int:
@@ -2165,19 +2206,18 @@ def _ssm_layers(lm) -> int:
     return lm.n_blocks * (cfg.block_len - 1) if cfg.family == "hybrid" else 0
 
 
-def _new_shapes_phase(torch, dev) -> dict:
-    """Phase 34: the flash kernel at the two D-128 prefill shapes and the
-    SSD step at H 128 against their plain versions (float32 and bf16; the
-    SSD step in place bit-equal to out of place), then timed with CUDA
-    events beside their bounds (flash beside SDPA too).  Returns
-    {"flash": [...], "ssd": [...]}: per shape, its numbers."""
+def _flash_shapes(torch, dev, shapes: dict, emulation=None) -> list:
+    """The flash kernel at each of ``shapes`` ({model: (BH, S, T, D)},
+    causal) against its plain version in float32 (2e-5) and bf16 (3e-2)
+    and, given ``emulation``, in bf16 against the tensor-core path's
+    emulation (1e-2); then timed in CUDA graphs of 10 calls beside its
+    bound, the plain version and SDPA.  Returns each shape's numbers."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd import ssd_decode_step
 
-    out = {"flash": [], "ssd": []}
-    for arch, (bh, s, t, d) in FLASH_D128.items():
+    rows = []
+    for arch, (bh, s, t, d) in shapes.items():
         max_abs = 0.0
         for name, dtype, tol in (("float32", torch.float32, 2e-5),
                                  ("bfloat16", torch.bfloat16, 3e-2)):
@@ -2192,6 +2232,15 @@ def _new_shapes_phase(torch, dev) -> dict:
             _require(bool((diff <= tol + tol * ref.float().abs()).all()),
                      f"flash kernel vs plain at {(bh, s, t, d)} {name}")
             max_abs = max(max_abs, err)
+            if emulation is not None and dtype == torch.bfloat16:
+                emu = emulation(q, k, v, causal=True)
+                diff = (got.float() - emu.float()).abs()
+                _log(f"flash at {arch}'s prefill shape bf16 against the tensor-core emulation: "
+                     f"max abs err {float(diff.max())} (bar {FLASH_EMULATION_TOL})")
+                _require(bool((diff <= FLASH_EMULATION_TOL
+                               + FLASH_EMULATION_TOL * emu.float().abs()).all()),
+                         f"flash kernel vs its emulation at {(bh, s, t, d)}")
+                del emu
         q, k, v = _qkv(torch, bh, bh, s, t, d, torch.bfloat16, dev)
         fns = {"ref": lambda: flash_attention(q, k, v, causal=True, impl="ref"),
                "cuda": lambda: flash_attention(q, k, v, causal=True),
@@ -2216,10 +2265,21 @@ def _new_shapes_phase(torch, dev) -> dict:
              f"({bound_by}: {nbytes} B, {ops} ops), share of bound reached "
              f"{bound_ms / kernel_ms:.4f}, achieved {ops / kernel_ms / 1e9:.2f} TFLOP/s; kernel / "
              f"SDPA {kernel_ms / sdpa_ms:.4f}")
-        out["flash"].append({"shape": f"{arch} prefill BH {bh} S {s} D {d} bf16",
-                             "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
-                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms})
+        rows.append({"shape": f"{arch} prefill BH {bh} S {s} D {d} bf16",
+                     "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms})
+    return rows
 
+
+def _new_shapes_phase(torch, dev) -> dict:
+    """Phase 34: the flash kernel at the two D-128 prefill shapes and the
+    SSD step at H 128 against their plain versions (float32 and bf16; the
+    SSD step in place bit-equal to out of place), then timed with CUDA
+    events beside their bounds (flash beside SDPA too).  Returns
+    {"flash": [...], "ssd": [...]}: per shape, its numbers."""
+    from repro_torch.kernels.ssd import ssd_decode_step
+
+    out = {"flash": _flash_shapes(torch, dev, FLASH_D128), "ssd": []}
     b, h, p, n = SSD_H128
     max_abs = 0.0
     for name, dtype, tol in (("float32", torch.float32, 3 * 2e-5),
@@ -2280,12 +2340,13 @@ def _new_shapes_phase(torch, dev) -> dict:
 
 
 def _family_serve_phase(torch, dev, arch: str, n_layers=None) -> dict:
-    """Phases 35 and 36: ``serve_batch`` of ``arch`` at full width (cut to
-    ``n_layers``), weights from PRNGKey(0) drawn on the card (timed),
-    through the decode graph and eagerly (identical tokens), the flash and
-    SSD launch counts over the graph's replays exact; sampled (temperature
-    0.8); then one prefill and decode steps under the profiler.  Returns
-    the launches by kernel."""
+    """Phases 35, 36, 40 and 41: ``serve_batch`` of ``arch`` at full width
+    (cut to ``n_layers``), weights from PRNGKey(0) drawn on the card
+    (timed), through the decode graph and eagerly (identical tokens), the
+    flash and SSD launch counts over the graph's replays exact; sampled
+    (temperature 0.8); then one prefill and decode steps under the
+    profiler, every flash launch of the prefill the tensor-core
+    instantiation of its head dim.  Returns the launches by kernel."""
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -2293,6 +2354,7 @@ def _family_serve_phase(torch, dev, arch: str, n_layers=None) -> dict:
     from repro_torch.launch.serve import serve_batch
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.common import param_count, tree_leaves
+    from repro_torch.models.ffn import expert_capacity
     from repro_torch.models.lm import LM, RunFlags
 
     cfg = get_config(arch)
@@ -2312,8 +2374,13 @@ def _family_serve_phase(torch, dev, arch: str, n_layers=None) -> dict:
     _require(n_params == param_count(lm.schema()), "parameters of the schema")
     _log(f"serve: {cfg.name} ({cfg.family}, {cfg.n_layers} layers"
          f"{f' of {get_config(arch).n_layers}' if n_layers else ''}, d_model {cfg.d_model}, "
-         f"{cfg.n_heads} query heads over {cfg.n_kv_heads} kv heads of dim {cfg.head_dim_}, "
-         f"{cfg.n_experts} experts top-{cfg.experts_per_token} of d_ff {cfg.moe_d_ff_}"
+         f"{cfg.n_heads} query heads"
+         + (f" padded to {cfg.q_heads_padded}" if cfg.padded_heads else "")
+         + f" over {cfg.n_kv_heads} kv heads of dim {cfg.head_dim_}, "
+         + (f"{cfg.n_experts} experts top-{cfg.experts_per_token} of d_ff {cfg.moe_d_ff_} "
+            f"(prefill capacity {expert_capacity(cfg, plen)} per sequence)" if cfg.n_experts
+            else f"{cfg.act} d_ff {cfg.d_ff}")
+         + (f", dense residual FFN of d_ff {cfg.d_ff}" if cfg.dense_residual else "")
          + (f", SSD {cfg.ssm_n_heads} heads x P {cfg.ssm_head_dim}, N {cfg.ssm_state}"
             if cfg.family == "hybrid" else "")
          + f", vocab {cfg.vocab_size}), {n_params} parameters ({cfg.param_count()} by the "
@@ -2378,6 +2445,14 @@ def _family_serve_phase(torch, dev, arch: str, n_layers=None) -> dict:
     device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
     flash_ms = sum(e.self_device_time_total for e in on_device if "flash_fwd" in e.key) / 1e3
     _require(flash_ms > 0, f"the profiler saw the {cfg.name} prefill's flash kernel")
+    # bf16 pads the head dim to the tensor-core instantiation's 64, 128 or 256
+    dp = next(x for x in (64, 128, 256) if cfg.head_dim_ <= x)
+    flash_keys = {e.key: e.count for e in on_device if "flash_fwd" in e.key}
+    _log(f"{cfg.name} prefill's flash kernels: {flash_keys}")
+    _require(sum(flash_keys.values()) == want_flash
+             and all(f"flash_fwd_tc_kernel<{dp}>" in key or f"flash_fwd_tc_kernelILi{dp}E" in key
+                     for key in flash_keys),
+             f"{cfg.name}: every prefill flash launch is the bf16 D-{dp} tensor-core kernel")
     _log(f"{cfg.name} prefill profile (batch {bsz}, prompt {plen}): wall {walls} ms = "
          f"{bsz * plen / min(walls) * 1e3:.1f} tok/s; device time {device_ms:.4f} ms in "
          f"{sum(e.count for e in on_device)} kernels and copies, of which the flash kernel "
@@ -2393,19 +2468,17 @@ def _family_serve_phase(torch, dev, arch: str, n_layers=None) -> dict:
     return {"flash": flash_n, "ssd": ssd_n}
 
 
-def _reduced_family_phase(torch, dev) -> None:
-    """Phase 37: the reduced olmoe and jamba configs in float32 on the plain
-    path, served greedily and sampled (temperature 0.8) on the card and on
-    the CPU: identical tokens."""
-    from repro_torch.configs import get_config
+def _reduced_family_phase(torch, dev, cfgs, prompt=32, gen=8) -> None:
+    """Phases 37 and 43: reduced configs in float32 on the plain path,
+    served greedily and sampled (temperature 0.8) on the card and on the
+    CPU: identical tokens."""
     from repro_torch.launch.serve import serve_batch
 
-    for arch in ("olmoe-1b-7b", "jamba-v0.1-52b"):
-        red = get_config(arch, reduced=True)
+    for red in cfgs:
         for mode, kw in (("greedy", {}), ("sampled", dict(greedy=False, temperature=SAMPLE_T))):
-            on_card = serve_batch(red, 2, 32, 8, 0, device=dev, dtype=torch.float32,
+            on_card = serve_batch(red, 2, prompt, gen, 0, device=dev, dtype=torch.float32,
                                   attn_impl="ref", ssd_impl="ref", **kw)
-            on_cpu = serve_batch(red, 2, 32, 8, 0, device="cpu", dtype=torch.float32, **kw)
+            on_cpu = serve_batch(red, 2, prompt, gen, 0, device="cpu", dtype=torch.float32, **kw)
             same = on_card["generated"] == on_cpu["generated"]
             diff = float((on_card["logits"].cpu() - on_cpu["logits"]).abs().max())
             if not same.all():
@@ -2414,8 +2487,79 @@ def _reduced_family_phase(torch, dev) -> None:
                      f"{on_card['generated'][:, step].tolist()}, CPU "
                      f"{on_cpu['generated'][:, step].tolist()}; max abs logit difference {diff}")
             _require(same.all(), f"{red.name} f32 {mode}: card vs CPU tokens")
-            _log(f"{red.name} f32 {mode}, plain path, card vs CPU: identical generated tokens "
-                 f"{on_card['generated'].tolist()}, max abs logit difference {diff}")
+            window = f" (sliding window {red.sliding_window})" if red.sliding_window else ""
+            _log(f"{red.name}{window} f32 {mode}, prompt {prompt}, plain path, card vs CPU: "
+                 f"identical generated tokens {on_card['generated'].tolist()}, max abs logit "
+                 f"difference {diff}")
+
+
+def _sliding_serve_phase(torch, dev) -> None:
+    """Phase 42: llama3.2-1b-swa8k (the reference's ``LONG_CONTEXT_VARIANT``)
+    at full width, batch 2, 64 new tokens, through the decode graph and
+    eagerly (identical tokens), for each of ``SWA_PROMPTS``; the sliding
+    prefill is plain PyTorch (the flash kernel has no window): exactly 0
+    flash launches.  Then one prefill and decode steps under the profiler
+    at each prompt."""
+    from repro_torch import prng
+    from repro_torch.configs import llama32_1b
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import LM, RunFlags
+
+    cfg = llama32_1b.LONG_CONTEXT_VARIANT
+    lm = LM(cfg)
+    gen, seed = SERVE["gen"], SERVE["seed"]
+    params = lm.init(prng.PRNGKey(seed, dev), torch.bfloat16, dev)
+    _log(f"serve: {cfg.name} (window {cfg.sliding_window}, {cfg.n_layers} layers, d_model "
+         f"{cfg.d_model}), batch {SWA_BATCH}, prompts {SWA_PROMPTS}, {gen} new tokens")
+    for plen in SWA_PROMPTS:
+        w = lm.kv_window(plen + gen)
+        wrap = w - plen if plen < w < plen + gen else None
+        flash_attention_cuda.launches = 0
+        res = serve_batch(cfg, SWA_BATCH, plen, gen, seed, params=params)
+        launches = flash_attention_cuda.launches
+        torch.cuda.synchronize()
+        eager = serve_batch(cfg, SWA_BATCH, plen, gen, seed, params=params, _graph=False)
+        for mode, r in (("CUDA graph", res), ("eager", eager)):
+            _log(f"serve {cfg.name} prompt {plen} (ring of {w} slots; "
+                 + (f"wraps at decode step {wrap}" if wrap is not None else
+                    f"packed from the last {w} of {plen} keys") + f"), decode {mode}: prefill "
+                 f"{r['prefill_s']:.4f} s = {r['prefill_tok_per_s']:.1f} tok/s; "
+                 f"{r['decode_s'] / (gen - 1) * 1e3:.4f} ms per decode step")
+        _require(bool((res["generated"] == eager["generated"]).all()),
+                 f"{cfg.name} prompt {plen}: tokens through the decode graph == eager tokens")
+        _require(bool(torch.isfinite(res["logits"]).all()), f"{cfg.name}: finite logits")
+        _log(f"serve {cfg.name} prompt {plen}: graph tokens identical to eager; flash launches "
+             f"{launches} (expected 0: the sliding prefill is plain PyTorch); sample tokens "
+             f"{res['generated'][0][:16].tolist()}")
+        _require(launches == 0, f"{cfg.name}: no flash launch in the sliding prefill")
+        del res, eager
+        flags = RunFlags(remat="none", q_chunk=min(512, plen))
+        tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (SWA_BATCH, plen)), dtype=torch.int32).to(dev)
+        prefill = make_prefill_step(lm, plen + gen, flags)
+        with torch.no_grad():
+            _, cache0 = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+            _, on_device = _profile(torch, lambda: prefill(params, {"tokens": tokens}),
+                                    f"the {cfg.name} prefill")
+        device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+        _log(f"{cfg.name} prefill profile (batch {SWA_BATCH}, prompt {plen}): wall {wall:.4f} ms; "
+             f"device time {device_ms:.4f} ms in {sum(e.count for e in on_device)} kernels and "
+             f"copies; device idle share {1 - device_ms / wall:.4f}")
+        for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]:
+            _log(f"  {e.key[:80]}: {e.count} x, {e.self_device_time_total / 1e3:.4f} ms")
+        tok = torch.zeros((SWA_BATCH, 1), dtype=torch.int32, device=dev)
+        _decode_modes(torch, f"{cfg.name} prompt {plen}", lm, params, cache0, tok, flags,
+                      "flash_fwd", False)
+        del cache0
+    del params
+    torch.cuda.empty_cache()
 
 
 def _moe_train_phase(torch) -> int:
@@ -2452,6 +2596,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     torch.set_num_threads(1)
+    from repro_torch.configs import get_config
     from repro_torch.core import fluidsim
     from repro_torch.kernels.fluidstep import fluid_step_core
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -2494,7 +2639,8 @@ def main() -> int:
                 _log("  ptxas:", line.strip())
     entries = _ptxas_entries(flash_kernel.build_info()["log"])
     for dp, used_by in ((64, "llama3.2-1b's serve and training shape"),
-                        (128, "olmoe-1b-7b's and jamba-v0.1-52b's prefill shapes")):
+                        (128, "olmoe-1b-7b's, jamba-v0.1-52b's and arctic-480b's prefill shapes"),
+                        (256, "gemma-7b's prefill shape")):
         tc = [v for name, v in entries.items() if f"flash_fwd_tc_kernelILi{dp}E" in name]
         _require(len(tc) == 1, f"the ptxas log names the bf16 D-{dp} tensor-core instantiation")
         regs, spill_st, spill_ld = tc[0]
@@ -2739,11 +2885,38 @@ def main() -> int:
 
     # ---- 37. the reduced MoE and hybrid configs: card against CPU -----------
     _mark("37")
-    _reduced_family_phase(torch, dev)
+    _reduced_family_phase(torch, dev, [get_config(a, reduced=True)
+                                       for a in ("olmoe-1b-7b", "jamba-v0.1-52b")])
 
     # ---- 38. olmoe-1b-7b trained at 4 layers ----------------------------------
     _mark("38")
     flash["launches"] += _moe_train_phase(torch)
+
+    # ---- 39. the flash kernel at gemma's D 256 and arctic's BH 512 -------------
+    _mark("39")
+    sys.path.insert(0, str(SRC.parent / "tests"))
+    from test_torch_flash_attention_cuda import tensor_core_emulation
+
+    flash["shapes"] += _flash_shapes(torch, dev, FLASH_NEW, tensor_core_emulation)
+
+    # ---- 40./41. gemma-7b and arctic-480b served at full width ---------------
+    for phase, arch, n_layers in (("40", "gemma-7b", None), ("41", "arctic-480b", ARCTIC_LAYERS)):
+        _mark(phase)
+        served = _family_serve_phase(torch, dev, arch, n_layers)
+        flash["launches"] += served["flash"]
+        ssd["launches"] += served["ssd"]
+
+    # ---- 42. llama3.2-1b-swa8k: the sliding prefill and the ring's wrap -------
+    _mark("42")
+    _sliding_serve_phase(torch, dev)
+
+    # ---- 43. the reduced configs of the new archs and windows: card vs CPU ----
+    _mark("43")
+    _reduced_family_phase(torch, dev, [get_config(a, reduced=True) for a in (
+        "arctic-480b", "gemma-7b", "phi4-mini-3.8b", "yi-9b")])
+    _reduced_family_phase(torch, dev, [
+        dataclasses.replace(get_config(a, reduced=True), sliding_window=SWA_REDUCED["window"])
+        for a in ("llama3.2-1b", "gemma-7b")], SWA_REDUCED["prompt"], SWA_REDUCED["gen"])
 
     line = {"kernels": [{
         "name": "fluid_step_core",

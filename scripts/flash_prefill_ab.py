@@ -1,9 +1,9 @@
-"""Full-width llama3.2-1b prefill with two builds of the flash-attention
-kernel, in turns, in one process on one NVIDIA GPU.
+"""A full-width prefill (llama3.2-1b, or ``--arch``) with two builds of the
+flash-attention kernel, in turns, in one process on one NVIDIA GPU.
 
 Run from the repository root::
 
-    python3 scripts/flash_prefill_ab.py --baseline OTHER/csrc/flash_attention.cu
+    python3 scripts/flash_prefill_ab.py --baseline OTHER/csrc/flash_attention.cu [--arch gemma-7b]
 
 ``--baseline`` is another version of ``flash_attention.cu`` with the same
 C interface (for example the parent commit's, unpacked with ``git
@@ -12,8 +12,9 @@ archive`` into a git-ignored directory).  Both sources are built with
 order baseline, current, current, baseline, and each turn measures, at
 batch 8, prompt 512, random bf16 weights from seed 0:
 
-- the kernel alone at the serve shape (BH 256, S = T 512, D 64, causal,
-  bf16): device ms per call in a CUDA graph of 10 calls;
+- the kernel alone at llama3.2-1b's serve shape (BH 256, S = T 512, D 64,
+  causal, bf16) and gemma-7b's prefill shape (BH 128, S = T 512, D 256):
+  device ms per call in a CUDA graph of 10 calls;
 - the prefill step (``make_prefill_step``): wall ms of five synchronised
   runs and prompt tok/s from the fastest;
 - one prefill under the profiler: device ms, the flash kernel's ms and
@@ -35,12 +36,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 BATCH, PROMPT, GEN, SEED = 8, 512, 64, 0
+#: (BH, D) of the kernel alone, S = T 512: llama3.2-1b's and gemma-7b's prefill
+KERNEL_SHAPES = ((256, 64), (128, 256))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True, type=Path,
                     help="another flash_attention.cu with the same C interface")
+    ap.add_argument("--arch", default="llama3.2-1b", help="the model whose prefill is timed")
     args = ap.parse_args()
     import torch
 
@@ -53,6 +57,7 @@ def main() -> int:
 
     from chip_smoke import _cuda_ms
 
+    from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -69,23 +74,24 @@ def main() -> int:
             f.result()
 
     dev = torch.device("cuda")
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(args.arch)
     lm = LM(cfg)
-    params = lm.init(torch.Generator().manual_seed(SEED), torch.bfloat16, dev)
+    params = lm.init(prng.PRNGKey(SEED, dev), torch.bfloat16, dev)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), dtype=torch.int32,
                            generator=torch.Generator().manual_seed(SEED)).to(dev)
     prefill = make_prefill_step(lm, PROMPT + GEN, RunFlags(remat="none", q_chunk=PROMPT,
                                                            attn_impl="cuda"))
     gq = torch.Generator(device=dev).manual_seed(SEED)
-    q, k, v = (torch.randn(256, 512, 64, device=dev, generator=gq).to(torch.bfloat16)
-               for _ in range(3))
+    qkv = {d: [torch.randn(bh, 512, d, device=dev, generator=gq).to(torch.bfloat16)
+               for _ in range(3)] for bh, d in KERNEL_SHAPES}
 
     turns = []
     for name in ("baseline", "current", "current", "baseline"):
         fk._LIB = libs[name]
         with torch.no_grad():
-            kernel_ms = _cuda_ms(torch, lambda: [flash_attention(q, k, v, causal=True)
-                                                 for _ in range(10)], True, 20) / 10
+            kernel_ms = {f"D{d}": _cuda_ms(torch, lambda: [flash_attention(*qkv[d], causal=True)
+                                                           for _ in range(10)], True, 20) / 10
+                         for _, d in KERNEL_SHAPES}
             prefill(params, {"tokens": tokens})  # warm
             walls = []
             for _ in range(5):
@@ -108,7 +114,7 @@ def main() -> int:
                 "device_ms": device_ms, "flash_ms": flash_ms,
                 "flash_share": flash_ms / device_ms, "idle_share": 1 - device_ms / min(walls)}
         turns.append(turn)
-        print(f"{name}: kernel {kernel_ms:.6f} ms (CUDA graph); prefill wall "
+        print(f"{name}: kernel {kernel_ms} ms (CUDA graph); {cfg.name} prefill wall "
               f"{[round(w, 4) for w in walls]} ms = {turn['prefill_tok_per_s']:.1f} tok/s; "
               f"device {device_ms:.4f} ms, flash {flash_ms:.4f} ms "
               f"({turn['flash_share']:.4f}); idle share {turn['idle_share']:.4f}", flush=True)

@@ -1,12 +1,13 @@
 """Architecture configs (port of ``repro/configs/__init__.py``).
 
 The same ids and aliases as the reference.  The port has the config
-modules of the model zoo's six archs and jamba's (:data:`PORTED_ARCH_IDS`);
-it serves models of four of them (:data:`SERVED_ARCH_IDS`, see
-``models/lm.py``), the other three are read for their analytic layer
-counts only.  Each
+module of every text-only arch (:data:`PORTED_ARCH_IDS`) and serves a model
+of each (``models/lm.py``); the vlm and audio archs wait.  Each
 ``<id>.py`` exports ``CONFIG`` (the published hyper-parameters) and
-``REDUCED`` (the reference's small variant for CPU tests).
+``REDUCED`` (the reference's small variant for CPU tests); the dense archs
+with a long-context variant also export ``LONG_CONTEXT_VARIANT``
+(``CONFIG`` with a sliding window of 8192), which ``LM`` and
+``serve_batch`` take as they take ``CONFIG``.
 """
 
 from __future__ import annotations
@@ -27,12 +28,9 @@ ARCH_IDS = (
     "llama32_1b",
 )
 
-#: The archs whose config module the port has.
+#: The archs whose config module the port has, each served.
 PORTED_ARCH_IDS = ("mamba2_130m", "llama32_1b", "phi4_mini_3_8b", "olmoe_1b_7b",
-                   "gemma_7b", "yi_9b", "jamba_v01_52b")
-
-#: The archs the port serves a model of (``LM`` raises for the others).
-SERVED_ARCH_IDS = ("mamba2_130m", "llama32_1b", "olmoe_1b_7b", "jamba_v01_52b")
+                   "gemma_7b", "yi_9b", "jamba_v01_52b", "arctic_480b")
 
 _ALIASES = {
     "mamba2-130m": "mamba2_130m",
@@ -58,19 +56,13 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
         known = "an architecture of the reference" if name in ARCH_IDS else "unknown"
         raise NotImplementedError(
             f"arch {arch!r} ({known}) is not ported yet: the port registers "
-            f"{PORTED_ARCH_IDS} (ROADMAP queue 1, item 7)"
+            f"{PORTED_ARCH_IDS} (ROADMAP queue 1, items 3-4)"
         )
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.REDUCED if reduced else mod.CONFIG
 
 
 def served_config(arch: str, reduced: bool = False) -> ModelConfig:
-    """:func:`get_config` for an arch the port serves a model of; raises
-    ``NotImplementedError`` for the others."""
-    name = canonical(arch)
-    if name not in SERVED_ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {arch!r}: the port serves {SERVED_ARCH_IDS}; the other archs' "
-            f"models are not ported yet (ROADMAP queue 1, item 7)"
-        )
+    """:func:`get_config` for an arch the port serves a model of (every
+    ported arch); raises ``NotImplementedError`` for the others."""
     return get_config(arch, reduced)

@@ -1,14 +1,14 @@
 """gemma-7b [dense] — GeGLU, head_dim=256 [arXiv:2403.08295]
 (port of ``repro/configs/gemma_7b.py``; the analytic counts of the model zoo
-read it, the port serves no model of it yet).
+read it, and the port serves it).
 
 28L d_model=3072, 16 heads (kv=16 == MHA; MQA is on the 2b variant),
 head_dim=256 (q/k/v project 3072 -> 4096), d_ff=24576 (GeGLU),
 vocab=256000.  long_500k: runs via the sliding-window variant (window
 8192) — a variant config (DESIGN.md §Arch-applicability).
-The reference's ``LONG_CONTEXT_VARIANT`` waits for the sliding mask
-(ROADMAP).
 """
+
+import dataclasses
 
 from repro_torch.models.config import ModelConfig
 
@@ -25,6 +25,10 @@ CONFIG = ModelConfig(
     act="geglu",
     rope_theta=10000.0,
     source="arXiv:2403.08295 (Gemma), google/gemma-7b",
+)
+
+LONG_CONTEXT_VARIANT = dataclasses.replace(
+    CONFIG, name=CONFIG.name + "-swa8k", sliding_window=8192
 )
 
 REDUCED = ModelConfig(

@@ -2,9 +2,12 @@
 (port of ``repro/configs/llama32_1b.py``).
 
 16L d_model=2048, 32 heads (GQA kv=8, head_dim=64), d_ff=8192,
-vocab=128256.  The reference's ``LONG_CONTEXT_VARIANT`` (sliding window
-8192) waits for the sliding mask (ROADMAP).
+vocab=128256.
+``LONG_CONTEXT_VARIANT`` is the reference's: the same model with a sliding
+window of 8192 (``-swa8k``).
 """
+
+import dataclasses
 
 from repro_torch.models.config import ModelConfig
 
@@ -20,6 +23,10 @@ CONFIG = ModelConfig(
     act="swiglu",
     rope_theta=500000.0,
     source="hf:meta-llama/Llama-3.2-1B (+ arXiv:2407.21783)",
+)
+
+LONG_CONTEXT_VARIANT = dataclasses.replace(
+    CONFIG, name=CONFIG.name + "-swa8k", sliding_window=8192
 )
 
 REDUCED = ModelConfig(

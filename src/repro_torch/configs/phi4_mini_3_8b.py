@@ -1,14 +1,14 @@
 """phi4-mini-3.8b [dense] — RoPE SwiGLU GQA [arXiv:2412.08905]
 (port of ``repro/configs/phi4_mini_3_8b.py``; the analytic counts of the model zoo
-read it, the port serves no model of it yet).
+read it, and the port serves it).
 
 32L d_model=3072, 24 heads (GQA kv=8), d_ff=8192, vocab=200064.
 long_500k: runs via the sliding-window variant (window 8192) — explicitly
 a variant config, not the model card's context claim
 (DESIGN.md §Arch-applicability).
-The reference's ``LONG_CONTEXT_VARIANT`` waits for the sliding mask
-(ROADMAP).
 """
+
+import dataclasses
 
 from repro_torch.models.config import ModelConfig
 
@@ -24,6 +24,10 @@ CONFIG = ModelConfig(
     act="swiglu",
     rope_theta=10000.0,
     source="arXiv:2412.08905 (Phi-4), microsoft/Phi-4-mini-instruct",
+)
+
+LONG_CONTEXT_VARIANT = dataclasses.replace(
+    CONFIG, name=CONFIG.name + "-swa8k", sliding_window=8192
 )
 
 REDUCED = ModelConfig(

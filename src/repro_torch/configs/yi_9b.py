@@ -1,14 +1,14 @@
 """yi-9b [dense] — llama-arch GQA kv=4 [arXiv:2403.04652]
 (port of ``repro/configs/yi_9b.py``; the analytic counts of the model zoo
-read it, the port serves no model of it yet).
+read it, and the port serves it).
 
 48L d_model=4096, 32 heads (GQA kv=4), d_ff=11008, vocab=64000.
 Sharding note: 4 kv heads < 16-way model axis -> kv projections stay
 replicated under TP (standard GQA practice).  long_500k: runs via the
 sliding-window variant (window 8192) (DESIGN.md §Arch-applicability).
-The reference's ``LONG_CONTEXT_VARIANT`` waits for the sliding mask
-(ROADMAP).
 """
+
+import dataclasses
 
 from repro_torch.models.config import ModelConfig
 
@@ -24,6 +24,10 @@ CONFIG = ModelConfig(
     act="swiglu",
     rope_theta=10000.0,
     source="arXiv:2403.04652 (Yi), 01-ai/Yi-9B",
+)
+
+LONG_CONTEXT_VARIANT = dataclasses.replace(
+    CONFIG, name=CONFIG.name + "-swa8k", sliding_window=8192
 )
 
 REDUCED = ModelConfig(

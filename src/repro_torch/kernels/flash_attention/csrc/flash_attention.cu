@@ -15,17 +15,15 @@
 // is top-left aligned (key j <= query row i, also when S != T); kv tiles
 // wholly above the diagonal are skipped; out = acc / max(l, 1e-30).
 //
-// Two paths, chosen by dtype and head dim:
+// Two paths, chosen by dtype:
 //
-//   bfloat16, D <= 128: the tensor-core kernel (flash_fwd_tc_kernel), below;
-//   float32, any D <= 256, and bfloat16 with 128 < D <= 256: the
-//   float32-core kernel (flash_fwd_kernel), unchanged from its first
-//   version.  float32 stays there because its bar (2e-5 against the plain
-//   version) and the reduced float32 config's tokens rest on full float32
-//   products, which TF32 tensor cores would break.  bfloat16 above D 128
-//   stays there for registers: a warp's 16 rows of a D-256 accumulator are
-//   128 float32 registers a thread, beside 64 for the Q fragments and 32
-//   for a score tile.
+//   bfloat16, any D <= 256: the tensor-core kernel (flash_fwd_tc_kernel),
+//   below, instantiated for D padded to 64, 128 or 256;
+//   float32, any D <= 256: the float32-core kernel (flash_fwd_kernel),
+//   the arithmetic of its first version.  float32 stays there because its bar
+//   (2e-5 against the plain version) and the reduced float32 config's
+//   tokens rest on full float32 products, which TF32 tensor cores would
+//   break.
 //
 // What bounds it on the card: at the serve shape (BH 256, S = T 512, D 64,
 // bf16) the bytes (q, k, v read once, out written once: 67 MB, 20 us at
@@ -45,7 +43,8 @@
 // at or past D are zero-filled by the copy (src-size 0).  Rows are
 // XOR-swizzled in 16-byte chunks (chunk ^ row % 8), so the 8 rows that
 // one ldmatrix phase reads fall in 8 different bank groups.  Q is copied
-// the same way once and held in registers as mma A-fragments.  Scores:
+// the same way once and, for DP <= 128, held in registers as mma
+// A-fragments.  Scores:
 // mma.sync.m16n8k16 bf16 x bf16 -> float32, K fragments by ldmatrix.  The
 // online softmax runs on the accumulator fragments: a row lives in a quad
 // of lanes, so its max is two shfl_xor; exponentials are ex2.approx with
@@ -55,9 +54,18 @@
 // score accumulator straight into bf16 A-fragments in registers.
 // Output: divided once by max(l, 1e-30), rounded once to bf16, staged in
 // shared memory and written as 16-byte stores.  D is padded with zeros to
-// 64 or 128 in shared memory (template DP); where 16-byte copies cannot be
-// used (D not a multiple of 8, or a pointer not 16-byte aligned) the same
-// kernel stages with plain loads and stores.
+// 64, 128 or 256 in shared memory (template DP); where 16-byte copies
+// cannot be used (D not a multiple of 8, or a pointer not 16-byte aligned)
+// the same kernel stages with plain loads and stores.
+//
+// At DP 256 (gemma-7b's head dim) the registers set the design: a warp's
+// 16 x 256 float32 accumulator is 128 registers a thread and a 16 x 64
+// score tile 32 more, so the 64 registers of Q's A-fragments do not fit
+// beside them.  Q stays in shared memory and each 16-wide column chunk's
+// fragment is read with ldmatrix just before its products, once per kv
+// tile (16 ldmatrix.x4 more a tile, against 64 for K and 64 for V).
+// Shared memory is Q 32 KB + 2 stages x (K + V) 128 KB = 160 KB, opted
+// into; one CTA of 4 warps per SM.
 //
 // Rounding against the kernel's plain version (ref.py): P is rounded to
 // bf16 before the product with V (the mma takes bf16 operands), where
@@ -94,17 +102,6 @@ constexpr int kBlockK = 32;                 // keys per tile, one per lane
 constexpr float kNegInf = -1073741824.0f;   // -2^30, the reference's NEG_INF
 constexpr int kMaxD = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -127,11 +124,11 @@ __host__ __device__ constexpr size_t smem_floats(int r, int dp) {
 }
 
 // R: query rows per warp; DPL: output columns per lane (D <= 32 * DPL).
-template <typename T, int R, int DPL>
+template <int R, int DPL>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int S, int Tk, int D, int Dp, int n_qtiles,
-                 float scale, int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S, int Tk, int D,
+                 int Dp, int n_qtiles, float scale, int causal) {
   constexpr int BQ = kWarps * R;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
@@ -152,7 +149,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int r = idx / Dp;
     const int c = idx - r * Dp;
     const int qp = q0 + r;
-    qs[idx] = (qp < S && c < D) ? to_f32(q[qbase + static_cast<size_t>(qp) * D + c]) : 0.f;
+    qs[idx] = (qp < S && c < D) ? q[qbase + static_cast<size_t>(qp) * D + c] : 0.f;
   }
 
   const int row0 = q0 + warp * R;  // this warp's first query row
@@ -179,8 +176,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int kp = k0 + r;
       const bool ok = kp < Tk && c < D;
       const size_t g = kbase + static_cast<size_t>(kp) * D + c;
-      ks[r * ldk + c] = ok ? to_f32(k[g]) : 0.f;
-      vs[r * Dp + c] = ok ? to_f32(v[g]) : 0.f;
+      ks[r * ldk + c] = ok ? k[g] : 0.f;
+      vs[r * Dp + c] = ok ? v[g] : 0.f;
     }
     __syncthreads();
     if (k0 >= warp_k_end) continue;  // the tile lies above all of this warp's rows
@@ -250,19 +247,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qp = row0 + r;
     if (qp >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = o + qbase + static_cast<size_t>(qp) * D;
+    float* orow = o + qbase + static_cast<size_t>(qp) * D;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int c = lane + 32 * i;
-      if (c < D) orow[c] = from_f32<T>(acc[r][i] / denom);
+      if (c < D) orow[c] = acc[r][i] / denom;
     }
   }
 }
 
-template <typename T, int R, int DPL>
+template <int R, int DPL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int S,
                    int Tk, int D, float scale, int causal, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, R, DPL>;
+  auto kernel = flash_fwd_kernel<R, DPL>;
   // Above 48 KB a kernel's dynamic shared memory must be opted into; set the
   // largest this instantiation can ask for (D = 32 * DPL) once.
   static cudaError_t attr = cudaFuncSetAttribute(
@@ -276,23 +273,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH,
   const long long n_ctas = static_cast<long long>(n_qtiles) * BH;
   if (n_ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(n_ctas), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, Tk, D, dp, n_qtiles, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, Tk, D, dp, n_qtiles, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int BH, int S,
-                     int Tk, int D, float scale, int causal, cudaStream_t stream) {
-  if (D <= 32) return launch<T, 8, 1>(q, k, v, o, BH, S, Tk, D, scale, causal, stream);
-  if (D <= 64) return launch<T, 8, 2>(q, k, v, o, BH, S, Tk, D, scale, causal, stream);
-  if (D <= 128) return launch<T, 8, 4>(q, k, v, o, BH, S, Tk, D, scale, causal, stream);
-  return launch<T, 4, 8>(q, k, v, o, BH, S, Tk, D, scale, causal, stream);
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, int BH, int S,
+                         int Tk, int D, float scale, int causal, cudaStream_t stream) {
+  if (D <= 32) return launch<8, 1>(q, k, v, o, BH, S, Tk, D, scale, causal, stream);
+  if (D <= 64) return launch<8, 2>(q, k, v, o, BH, S, Tk, D, scale, causal, stream);
+  if (D <= 128) return launch<8, 4>(q, k, v, o, BH, S, Tk, D, scale, causal, stream);
+  return launch<4, 8>(q, k, v, o, BH, S, Tk, D, scale, causal, stream);
 }
 
-
 // ---------------------------------------------------------------------------
-// bfloat16 tensor-core path (D <= 128)
+// bfloat16 tensor-core path (D <= 256)
 // ---------------------------------------------------------------------------
 
 constexpr int kTcRows = 64;  // query rows per CTA, 16 per warp
@@ -396,6 +391,9 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                     int S, int Tk, int D, int n_qtiles, float scale_log2, int causal, int vec) {
   constexpr int kKC = DP / 16;  // 16-wide column chunks of q and k (mma depth)
   constexpr int kNT = DP / 8;   // 8-wide output column tiles
+  // Q's A-fragments in registers for every chunk; at DP 256 read per chunk
+  // from shared memory instead (the accumulator leaves no room)
+  constexpr bool kQInRegs = DP <= 128;
   extern __shared__ uint4 smem_tc[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_tc);
   __nv_bfloat16* kv = qs + kTcRows * DP;  // stage st: K at kv + st * 2 * 64 * DP, V after it
@@ -420,7 +418,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   load_tile<DP>(kv + kTcKeys * DP, vg, 0, Tk, D, vec);
   cp_async_commit();
 
-  uint32_t qf[kKC][4];
+  uint32_t qf[kQInRegs ? kKC : 1][4];
   float acc[kNT][4];
 #pragma unroll
   for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -439,10 +437,12 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       cp_async_wait<0>();
     }
     __syncthreads();  // tile it (and, first, Q) has landed for every thread
-    if (it == 0) {
+    if constexpr (kQInRegs) {
+      if (it == 0) {
 #pragma unroll
-      for (int kc = 0; kc < kKC; ++kc)
-        ldmatrix_x4(qf[kc], qs + swz<DP>(warp * 16 + (lane & 15), kc * 16 + (lane >> 4) * 8));
+        for (int kc = 0; kc < kKC; ++kc)
+          ldmatrix_x4(qf[kc], qs + swz<DP>(warp * 16 + (lane & 15), kc * 16 + (lane >> 4) * 8));
+      }
     }
     const __nv_bfloat16* ks = kv + (it & 1) * 2 * kTcKeys * DP;
     const __nv_bfloat16* vs = ks + kTcKeys * DP;
@@ -453,13 +453,16 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     for (int j = 0; j < kTcKeys / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < kKC; ++kc) {
+      if constexpr (!kQInRegs)
+        ldmatrix_x4(qf[0], qs + swz<DP>(warp * 16 + (lane & 15), kc * 16 + (lane >> 4) * 8));
+      const uint32_t(&qa)[4] = qf[kQInRegs ? kc : 0];
 #pragma unroll
       for (int np = 0; np < kTcKeys / 16; ++np) {
         uint32_t b[4];
         ldmatrix_x4(b, ks + swz<DP>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
                                     kc * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(sc[2 * np], qf[kc], b[0], b[1]);
-        mma_bf16(sc[2 * np + 1], qf[kc], b[2], b[3]);
+        mma_bf16(sc[2 * np], qa, b[0], b[1]);
+        mma_bf16(sc[2 * np + 1], qa, b[2], b[3]);
       }
     }
 
@@ -597,13 +600,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch<float>(q, k, v, o, BH, S, T, D, scale, causal, s);
+    err = dispatch_f32(q, k, v, o, BH, S, T, D, scale, causal, s);
   } else if (dtype == 1 && D <= 64) {
     err = launch_tc<64>(q, k, v, o, BH, S, T, D, scale, causal, s);
   } else if (dtype == 1 && D <= 128) {
     err = launch_tc<128>(q, k, v, o, BH, S, T, D, scale, causal, s);
-  } else if (dtype == 1) {  // 128 < D <= 256: the float32-core kernel
-    err = launch<__nv_bfloat16, 4, 8>(q, k, v, o, BH, S, T, D, scale, causal, s);
+  } else if (dtype == 1) {
+    err = launch_tc<256>(q, k, v, o, BH, S, T, D, scale, causal, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -56,7 +56,7 @@ def train(
     if tuple(mesh_shape) != (1, 1):
         raise NotImplementedError(
             f"mesh_shape={tuple(mesh_shape)}: the port trains on one device; sharding "
-            "waits (ROADMAP queue 1, item 10)")
+            "waits (ROADMAP queue 1, item 8)")
     dev = resolve_device(device)
     lm = LM(cfg)
     opt_cfg = AdamWConfig(lr=lr)

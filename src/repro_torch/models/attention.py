@@ -2,8 +2,9 @@
 ``repro/models/attention.py``).
 
 Prefill (:func:`attention_forward`) projects q, k and v, applies RoPE as
-the reference does, repeats the kv heads, folds (B, S, H, hd) to
-(B*H, S, hd) and hands the causal attention to the flash-attention kernel
+the reference does and repeats the kv heads.  The causal mask folds
+(B, S, H, hd) to (B*H, S, hd) and hands the attention to the
+flash-attention kernel
 (``repro_torch.kernels.flash_attention``): the CUDA kernel for CUDA
 tensors, its plain version for CPU tensors.  With grad enabled it goes
 through ``flash_attention_train``, whose backward recomputes the plain
@@ -13,13 +14,23 @@ logits and probabilities are rounded to the activation dtype there, while
 the kernel and its plain version keep them in float32 (ROADMAP R7), so
 the two agree to round-off in float32 and at the bf16 bar in bfloat16.
 
+The sliding mask (key j visible from query i iff ``i - w < j <= i``, the
+long-context variants') is plain PyTorch, as in the reference, whose
+Pallas kernel has no window (ROADMAP R2): the reference's chunked
+attention, query chunk by query chunk (:func:`_pick_chunk` of
+``RunFlags.q_chunk``), logits in float32, probabilities rounded to the
+activation dtype, the finite ``NEG_INF``.  Each chunk reads only the keys
+its window reaches, ``[q0 - w + 1, q0 + qc)``: the others' probabilities
+are exactly 0 in float32, so the result is the reference's, and a long
+prompt's logits stay (B, H, qc, qc + w - 1) a chunk.
+
 Decode (:func:`decode_attention`) is plain PyTorch, as in the reference,
 which has no kernel for it.  It writes the new key and value into the
 cache slot in place: the reference donates the cache to its jitted step
 (``donate_argnums``), so no caller keeps the old cache.
 
-Only causal self-attention with the full mask is ported: the sliding and
-full masks and cross attention raise ``NotImplementedError`` (ROADMAP).
+The full mask and cross attention raise ``NotImplementedError`` (ROADMAP
+queue 1, items 3-4).
 """
 
 from __future__ import annotations
@@ -48,6 +59,16 @@ def attn_schema(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamSpec]:
     }
 
 
+def _pick_chunk(s: int, target: int = 512) -> int:
+    """Largest divisor of s that is <= target (q-chunk size)."""
+    if s <= target:
+        return s
+    for c in range(target, 0, -1):
+        if s % c == 0:
+            return c
+    return s
+
+
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     if n_rep == 1:
         return k
@@ -63,19 +84,22 @@ def attention_forward(
     mask_kind: str = "causal",
     kv_input: Optional[torch.Tensor] = None,
     impl: str = "",
+    q_chunk: int = 512,
 ) -> torch.Tensor:
-    """(B, S, D) -> (B, S, D), with RoPE on q and k.  The reference's
-    ``q_chunk`` has no counterpart (the kernel tiles the queries itself);
-    ``impl`` as in :func:`repro_torch.kernels.flash_attention.flash_attention`."""
-    if mask_kind != "causal":
+    """(B, S, D) -> (B, S, D), with RoPE on q and k.  ``mask_kind`` is
+    "causal" (the flash kernel; ``impl`` as in
+    :func:`repro_torch.kernels.flash_attention.flash_attention`, the kernel
+    tiles the queries itself) or "sliding" (plain PyTorch over query
+    chunks of ``_pick_chunk(S, q_chunk)``, as the reference)."""
+    if mask_kind not in ("causal", "sliding"):
         raise NotImplementedError(
-            f"mask_kind={mask_kind!r}: the port has the causal mask only; the sliding "
-            "and full masks wait (ROADMAP queue 1, item 7)"
+            f"mask_kind={mask_kind!r}: the port has the causal and sliding masks; the "
+            "full mask waits for the vlm and audio families (ROADMAP queue 1, items 3-4)"
         )
     if kv_input is not None:
         raise NotImplementedError(
             "cross attention (kv_input) waits for the vlm and audio families "
-            "(ROADMAP queue 1, item 7)"
+            "(ROADMAP queue 1, items 3-4)"
         )
     b, s, _ = x.shape
     h, kvh, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim_
@@ -88,6 +112,9 @@ def attention_forward(
     k = apply_rope(k, pos, cfg.rope_theta)
     k = _repeat_kv(k, h // kvh)
     v = _repeat_kv(v, h // kvh)
+    if mask_kind == "sliding":
+        out = _sliding_attention(q, k, v, cfg.sliding_window, _pick_chunk(s, q_chunk))
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
     def fold(t):  # (B, S, H, hd) -> (B*H, S, hd), contiguous for the kernel
         return t.transpose(1, 2).reshape(b * h, t.shape[1], hd).contiguous()
@@ -98,6 +125,26 @@ def attention_forward(
     out = attend(fold(q), fold(k), fold(v), causal=True, impl=impl)
     out = out.reshape(b, h, s, hd).transpose(1, 2)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def _sliding_attention(q, k, v, window: int, qc: int) -> torch.Tensor:
+    """q, k, v (B, S, H, hd) -> (B, S, H, hd): query i sees keys
+    ``i - window < j <= i``; chunks of ``qc`` queries, each against the keys
+    its window reaches."""
+    s, hd = q.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for q0 in range(0, s, qc):
+        k0 = max(0, q0 - window + 1)
+        q_pos = torch.arange(q0, q0 + qc, device=q.device)[:, None]
+        kv_pos = torch.arange(k0, q0 + qc, device=q.device)[None, :]
+        mask = (kv_pos <= q_pos) & (kv_pos > q_pos - window)
+        logits = torch.einsum("bqhk,bthk->bhqt", q[:, q0:q0 + qc], k[:, k0:q0 + qc])
+        logits = logits.to(torch.float32) * scale
+        logits = logits.masked_fill(~mask[None, None], NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        outs.append(torch.einsum("bhqt,bthk->bqhk", probs, v[:, k0:q0 + qc]))
+    return torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,9 @@
 
 A trimmed copy of ``ModelConfig``: the fields, derived sizes and analytic
 parameter count of the ``ssm``, ``dense``, ``moe`` and ``hybrid``
-families, the four whose models the port has (mamba2-130m, llama3.2-1b,
-olmoe-1b-7b, jamba-v0.1-52b).  The enc-dec and vlm fields come with their
-slices (ROADMAP queue 1, item 7).
+families, the four whose models the port has (every text-only arch of
+the reference).  The enc-dec and vlm fields come with their
+slices (ROADMAP queue 1, items 3-4).
 """
 
 from __future__ import annotations
@@ -137,7 +137,7 @@ class ModelConfig:
         if self.family in ("audio", "vlm"):
             raise NotImplementedError(
                 f"the port's ModelConfig counts the ssm, dense, moe and hybrid families, "
-                f"not {self.family!r} (ROADMAP queue 1, item 7)"
+                f"not {self.family!r} (ROADMAP queue 1, items 3-4)"
             )
         if self.family == "ssm":
             return self._ssm_params()

@@ -78,10 +78,10 @@ class RunFlags:
     ``loss_impl``: "dense" materialises the (B, S, V) logits, "chunked"
     computes the loss over sequence chunks of ``loss_chunk`` (each chunk
     recomputed in the backward pass), as the reference does.  ``q_chunk``
-    has no effect (the attention kernel tiles the queries itself); it is
-    kept so callers build flags as for the reference.  ``ssd_impl`` as in
+    is the sliding mask's query chunk, as the reference's (the causal
+    mask's kernel tiles the queries itself).  ``ssd_impl`` as in
     :func:`repro_torch.kernels.ssd.ssd_decode_step` and ``attn_impl`` (the
-    prefill and training attention) as in
+    causal prefill and training attention) as in
     :func:`repro_torch.kernels.flash_attention.flash_attention`: "" lets
     the device decide (CUDA kernel on the card, plain version on the CPU),
     "ref" forces the plain version."""
@@ -97,7 +97,7 @@ class RunFlags:
         if self.remat == "dots":
             raise NotImplementedError(
                 "remat='dots' (save the matmul outputs, recompute the rest) waits; the "
-                "port has 'none' and 'block' (ROADMAP queue 1, item 9)")
+                "port has 'none' and 'block' (ROADMAP queue 1, item 5)")
         if self.remat not in ("none", "block"):
             raise ValueError(f"unknown remat {self.remat!r}; expected 'none' or 'block'")
         if self.loss_impl not in ("dense", "chunked"):
@@ -110,7 +110,7 @@ class LM:
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the port's LM covers the {PORTED_FAMILIES} families, not "
-                f"{cfg.family!r} (ROADMAP queue 1, item 7)"
+                f"{cfg.family!r} (ROADMAP queue 1, items 3-4)"
             )
         self.cfg = cfg
         if cfg.family == "hybrid":
@@ -179,7 +179,8 @@ class LM:
         cfg = self.cfg
         h = rms_norm(x, norm)
         mask = "sliding" if cfg.sliding_window else "causal"
-        x = x + attn_mod.attention_forward(h, ap, cfg, mask_kind=mask, impl=flags.attn_impl)
+        x = x + attn_mod.attention_forward(h, ap, cfg, mask_kind=mask, impl=flags.attn_impl,
+                                           q_chunk=flags.q_chunk)
         if not collect_kv:
             return x, None
         k = torch.einsum("btd,dgk->btgk", h, ap["wk"])

@@ -23,8 +23,6 @@ further from a float32 evaluation of the same inputs than the
 reference's own bfloat16 path is.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -189,16 +187,15 @@ class TestLayers:
             assert np.abs(_f32(got) - exact).max() <= np.abs(_f32(ref) - exact).max()
 
     def test_attention_forward_waits_for_other_masks(self, model):
+        """Cross attention and the full mask wait for the vlm and audio
+        families (the sliding mask computes: tests/test_torch_sliding_lm.py)."""
         _, _, pp = model
         _, tx = _acts("float32", (B, 8, CFG.d_model), seed=4)
         ap = _layer0(pp["blocks"]["attn"])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pattn.attention_forward(tx, ap, CFG, mask_kind="sliding")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
             pattn.attention_forward(tx, ap, CFG, kv_input=tx)
-        swa = dataclasses.replace(CFG, sliding_window=16)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            plm.LM(swa).prefill_fn(pp, {"tokens": torch.zeros((B, 8), dtype=torch.int32)}, 16)
+            pattn.attention_forward(tx, ap, CFG, mask_kind="full")
 
     @pytest.mark.parametrize("pos", [0, 13, 40])
     def test_decode_attention(self, model, pos):

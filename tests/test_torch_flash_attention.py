@@ -11,8 +11,8 @@ shapes and causal cases with S != T (top-left aligned), at the JAX suite's
 to the same plain version on the card
 (``tests/test_torch_flash_attention_cuda.py``).
 
-The CUDA kernel's bf16 tensor-core path rounds P to bf16 before the
-product with V, where ``ref.py`` keeps it in float32.  Its arithmetic is
+The CUDA kernel's bf16 tensor-core path (every head dim up to 256) rounds
+P to bf16 before the product with V, where ``ref.py`` keeps it in float32.  Its arithmetic is
 emulated in plain torch (``tensor_core_emulation``, in the CUDA test file,
 which imports no JAX), and the emulation is held here to the JAX reference
 and the interpret-mode Pallas kernel at the bf16 ``tol_for``, over the same
@@ -76,8 +76,11 @@ class TestPlainVersion:
         _close(got, jax_flash_attention(*jx, causal=causal, impl="interpret"), tol_for(name))
 
 
-#: the shapes above in bf16, and the peaked regime (q x 8, k x 16)
-EMULATED = [(*shape, (1.0, 1.0, 1.0)) for shape in SHAPES] + [(*PEAKED, (8.0, 16.0, 1.0))]
+#: the shapes above in bf16, the peaked regime (q x 8, k x 16), and head dim
+#: 256 (the tensor-core path's DP-256 instantiation, gemma-7b's head dim)
+#: causal with S and T off the 64-row tiles
+EMULATED = ([(*shape, (1.0, 1.0, 1.0)) for shape in SHAPES] + [(*PEAKED, (8.0, 16.0, 1.0))]
+            + [(2, 130, 70, 256, True, (1.0, 1.0, 1.0)), (2, 200, 200, 256, True, (1.0, 1.0, 1.0))])
 
 
 @pytest.mark.parametrize("bh,s,t,d,causal,mul", EMULATED)

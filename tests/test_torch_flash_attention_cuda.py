@@ -9,8 +9,8 @@ Inputs are made with numpy from a seed.  Bars: ``tol_for(dtype)`` of the
 JAX suite for its Pallas kernel against ``ref.py``
 (``tests/test_kernels.py``): 2e-5 in float32 (the same float32 operations,
 summed in another order), 3e-2 in bfloat16 (both keep scores and sums in
-float32; the bf16 tensor-core path, D <= 128, also rounds P to bf16 before
-the product with V, where ``ref.py`` keeps it in float32).
+float32; the bf16 tensor-core path, every D in bf16, also rounds P to bf16
+before the product with V, where ``ref.py`` keeps it in float32).
 
 ``tensor_core_emulation`` repeats that path's arithmetic in plain torch;
 the bf16 kernel is held to it at 1e-2 (see ``EMULATION_TOL``), and the CPU
@@ -79,7 +79,10 @@ def tensor_core_emulation(q, k, v, *, causal=True, scale=None, round_p=True):
 #: the serve shape of llama3.2-1b (batch 8 x 32 heads, prompt 512, head dim
 #: 64), a head dim that is not a multiple of 4, a float32 D 256 causal case,
 #: a sequence shorter than one key tile, S and T that are not multiples of
-#: the tensor-core path's 64-row tiles (both ways) and D 128 causal.
+#: the tensor-core path's 64-row tiles (both ways) and D 128 causal; then
+#: head dim 256 (the tensor-core path's DP-256 instantiation in bf16) with S
+#: and T off the tiles and at gemma-7b's prefill shape (batch 8 x 16 heads,
+#: prompt 512), and arctic-480b's (batch 8 x 64 padded heads, D 128).
 SHAPES = [
     (4, 256, 256, 64, True),
     (3, 200, 200, 64, True),
@@ -95,6 +98,9 @@ SHAPES = [
     (2, 130, 70, 64, True),
     (2, 70, 130, 64, True),
     (2, 200, 200, 128, True),
+    (2, 130, 70, 256, True),
+    (128, 512, 512, 256, True),
+    (512, 512, 512, 128, True),
 ]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -140,7 +146,7 @@ class TestCudaKernel:
         assert flash_attention_cuda.launches == launches + 1
         _compare(out, plain, name)
 
-    @pytest.mark.parametrize("bh,s,t,d,causal", [c for c in SHAPES if c[3] <= 128])
+    @pytest.mark.parametrize("bh,s,t,d,causal", SHAPES)
     def test_bf16_matches_tensor_core_emulation(self, cuda_device, bh, s, t, d, causal):
         q, k, v = make_qkv(bh * 1000 + s + d, bh, s, t, d, torch.bfloat16, cuda_device)
         out = flash_attention(q, k, v, causal=causal)

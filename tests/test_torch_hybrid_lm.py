@@ -89,10 +89,10 @@ class TestJamba(LMParity):
 
 def test_other_families_raise():
     """The enc-dec and vlm families are still unported (ROADMAP queue 1,
-    item 7): their configs' counts and LMs raise."""
+    items 3-4): their configs' counts and LMs raise."""
     cfg = ModelConfig(name="x", family="audio", n_layers=2, d_model=64, vocab_size=128,
                       n_heads=4, n_kv_heads=4, d_ff=64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         plm.LM(cfg)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="items 3-4"):
         cfg.param_count()

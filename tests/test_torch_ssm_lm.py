@@ -86,23 +86,21 @@ class TestConfig:
             assert got.param_count(padded=True) == ref.param_count(padded=True)
 
     def test_other_archs_raise(self):
-        """The port serves olmoe-1b-7b and jamba-v0.1-52b now; the other zoo
-        archs have configs (their counts feed the model zoo) but the port
-        serves no model of them; the vlm, audio and arctic archs have none."""
+        """The port serves every text-only arch; the vlm and audio archs (and
+        unknown ones) have no config in it yet."""
         from repro_torch.configs import served_config
 
         assert get_config("olmoe-1b-7b").family == "moe"
+        assert get_config("arctic-480b").family == "moe"
         assert get_config("jamba-v0.1-52b").family == "hybrid"
-        for arch in ("olmoe-1b-7b", "jamba-v0.1-52b", "mamba2-130m", "llama3.2-1b"):
+        for arch in ("olmoe-1b-7b", "jamba-v0.1-52b", "mamba2-130m", "llama3.2-1b",
+                     "arctic-480b", "gemma-7b", "yi-9b", "phi4-mini-3.8b"):
             assert served_config(arch) is get_config(arch)
             assert plm.LM(served_config(arch, reduced=True)).cfg is get_config(arch, reduced=True)
-        for arch in ("gemma-7b", "yi-9b", "phi4-mini-3.8b"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                served_config(arch)
-        for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2", "arctic-480b",
-                     "no-such-arch"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                get_config(arch)
+        for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2", "no-such-arch"):
+            for lookup in (get_config, served_config):
+                with pytest.raises(NotImplementedError, match="ROADMAP"):
+                    lookup(arch)
 
     def test_schema_matches_reference(self):
         got = dict(pcommon.tree_leaves(plm.LM(CFG).schema()))

@@ -160,7 +160,7 @@ class TestLoss:
                     _close_scaled(g.numpy(), base[k].numpy(), 1e-5, k)
 
     def test_remat_dots_raises(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
             plm.RunFlags(remat="dots")
         with pytest.raises(ValueError, match="loss_impl"):
             plm.RunFlags(loss_impl="sparse")
@@ -334,7 +334,7 @@ class TestTrainDriver:
 
     def test_options_and_device(self):
         cfg = dataclasses.replace(get_config("llama3.2-1b", reduced=True), **TINY)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
             ptrain_mod.train(cfg, steps=1, mesh_shape=(2, 1), device="cpu")
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
