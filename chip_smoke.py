@@ -258,19 +258,50 @@ Phases (any failed check raises, so the exit code is non-zero):
 43. the reduced arctic, gemma, phi4 and yi configs, and the reduced llama
     and gemma with a window of 16 (prompt 32, 8 new tokens: the sliding
     prefill and the ring's wrap), as phase 37: identical tokens on the card
-    and on the CPU.
+    and on the CPU;
+44. the flash kernel under the full mask (``causal=False``) at the three
+    shapes the new models give it: the VLM's cross attention (BH 256, S
+    512, T 1,601, D 128: a last key tile of one valid key), seamless's
+    encoder (BH 128, S = T 3,000, D 64) and its decoder's cross attention
+    (BH 128, S 512, T 3,000), against its plain version and, in bf16, its
+    tensor-core emulation, as phase 39; then timed in CUDA graphs beside
+    the bound (S * T pairs), the plain version and SDPA;
+45. the VLM serving main path: llama-3.2-vision-11b at full width (40
+    layers, every 5th a gated cross-attention layer over 1,601 vision
+    tokens; 9,252,966,408 parameters, 18.5 GB in bf16), batch 8, prompt
+    512, 64 new tokens, the stub image embeddings (8, 1601, 4096) drawn as
+    ``serve_batch`` draws them; as phase 40: identical tokens through the
+    decode graph and eagerly, exactly 40 flash launches (32 causal, 8 full
+    mask over T 1,601, counted by mask), the decode step beside its bytes
+    bound, a profiled prefill and decode steps, and the per-step repeat of
+    the cross cache's heads timed alone beside the decode step;
+46. the enc-dec serving main path: seamless-m4t-large-v2 at full width (24
+    encoder layers over 3,000 stub audio frames, 24 decoder layers with
+    cross attention; 1,371,662,336 parameters), as phase 45: exactly 72
+    flash launches (24 full-mask encoder, 24 causal, 24 full-mask cross),
+    the encoder's share of the prefill's device time, the decode step
+    beside its bytes bound (the cross cache, 2.36 GB, outweighs the
+    decoder's weights);
+47. the reduced vision and audio configs (their wq and wk scaled by 1/4,
+    the VLM's cross gates at 0.5, on both sides), as phase 37: identical
+    tokens on the card and on the CPU.
 
 Phases run in the order of their numbers, but for 31 and 32, which run
 after 29.  Worker processes run only during phases 10-11 and 31-32, so
 the phases that time host-bound work (7, 12-30, 33) have the host to
-themselves.  A profiler window that shows no device time at all (CUPTI
-drops one now and then) is logged and taken again, up to 3 windows,
-before the check that needs it fails.
+themselves.  The served models' prefill windows (phases 35-36, 40-41,
+45-46), whose flash records are counted, run the prefill once as a
+discarded warm-up step before the one they report (in a whole run a
+window loses its first records while CUPTI starts).  A profiler window
+that shows no device time at all (CUPTI drops one now and then), or too
+few flash records for a served model's prefill, is logged and taken
+again, up to 3 windows, before the check that needs it fails.
 
 Then the kernels line (JSON; the flash kernel's launches are the serving,
 training and multi_job main paths' of every family, the SSD step's those
-of mamba and jamba, the fluid step's include phase 29's; phases 34's and
-39's shapes under "shapes") and, last, ``{"ok": true, "device": ...}``.
+of mamba and jamba, the fluid step's include phase 29's; phases 34's,
+39's and 44's shapes under "shapes") and, last, ``{"ok": true, "device":
+...}``.
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
@@ -324,30 +355,47 @@ def _require(ok: bool, what: str) -> None:
 PROFILE_WINDOWS = 3
 
 
-def _profile(torch, run, what: str, required: bool = True, prepare=None):
+def _profile(torch, run, what: str, required: bool = True, prepare=None, complete=None,
+             warmup: bool = False):
     """``run()`` under ``torch.profiler`` (host and CUDA activity), then a
     synchronize, inside the window (``prepare()`` and a synchronize before
-    each window, outside it).  Returns the profile and its averages on the
-    device.  CUPTI now and then hands back a window with no device
-    record at all, though the run launched kernels: such a window is
-    logged and taken again, up to ``PROFILE_WINDOWS`` in all.  With
-    ``required``, the check fails if no window shows device time; without
-    it, the last window is returned as it is."""
-    from torch.profiler import ProfilerActivity, profile
+    each run, outside the window).  Returns the profile and its averages
+    on the device.  In a whole chip_smoke.py run a window loses its first
+    kernel records while CUPTI starts (42-44 of gemma's prefill's 2,925,
+    and of a VLM prefill's its first flash launch; a fresh process loses
+    none): with ``warmup`` each window first runs ``run()`` once as a
+    discarded warm-up step, then reports the second run.  CUPTI now and
+    then also hands back a window with no device record at all: such a
+    window, or one where ``complete(averages)`` is false, is logged and
+    taken again, up to ``PROFILE_WINDOWS`` in all.  With ``required``,
+    the check fails if no window shows device time; without it, the last
+    window is returned as it is; the caller checks what ``complete``
+    tests."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    runs = 2 if warmup else 1
+    kw = {"schedule": schedule(wait=0, warmup=1, active=1, repeat=1)} if warmup else {}
     for window in range(1, PROFILE_WINDOWS + 1):
-        if prepare is not None:
-            prepare()
-            torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
+            for i in range(runs):
+                if prepare is not None:
+                    prepare()
+                    torch.cuda.synchronize()
+                if i == 1:
+                    prof.step()  # the warm-up run ends, the reported one begins
+                run()
+                torch.cuda.synchronize()
+            if warmup:
+                prof.step()
+        # the step's own range shows as a device-side annotation: not a kernel
         on_device = [e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-        if sum(e.self_device_time_total for e in on_device) > 0:
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.key.startswith("ProfilerStep")]
+        has_time = sum(e.self_device_time_total for e in on_device) > 0
+        if has_time and (complete is None or complete(on_device) or window == PROFILE_WINDOWS):
             return prof, on_device
-        _log(f"the profiler saw no device time in {what} (window {window} of "
-             f"{PROFILE_WINDOWS})")
+        _log(f"the profiler saw {'too few records' if has_time else 'no device time'} in "
+             f"{what} (window {window} of {PROFILE_WINDOWS})")
     _require(not required, f"the profiler saw the device time of {what}")
     return prof, on_device
 
@@ -673,18 +721,18 @@ def _serve_both(torch, tag, cfg, params, counters) -> dict:
     return res
 
 
-def _decode_modes(torch, tag, lm, params, cache0, tok, flags, key, expect_key) -> None:
+def _decode_modes(torch, tag, lm, params, cache0, tok, flags, key, expect_key) -> dict:
     """Phases 17 and 23: decode steps through the runner's CUDA graph and
     eagerly, from copies of one prefill cache, each mode's steps greedy
     from ``tok``: wall per step (3 rounds of 10, modes in turns), then one
     step under the profiler: device time, kernels and copies per step, the
     share of the kernels whose name holds ``key`` (there must be some iff
-    ``expect_key``), device idle share."""
+    ``expect_key``), device idle share.  Returns each mode's device ms."""
     from repro_torch.launch.serve import _DecodeRunner
     from repro_torch.launch.steps import make_serve_step
 
     decode = make_serve_step(lm, flags)
-    runners, walls = {}, {}
+    runners, walls, device = {}, {}, {}
     with torch.no_grad():
         for mode in ("graph", "eager"):
             runners[mode] = _DecodeRunner(decode, params, _clone(cache0), tok,
@@ -701,6 +749,7 @@ def _decode_modes(torch, tag, lm, params, cache0, tok, flags, key, expect_key) -
         for mode, r in runners.items():
             _, on_device = _profile(torch, r.step, f"the {tag} decode step ({mode})")
             device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+            device[mode] = device_ms
             key_ms = sum(e.self_device_time_total for e in on_device if key in e.key) / 1e3
             n_kernels = sum(e.count for e in on_device)
             _require((key_ms > 0) == expect_key, f"{key} kernel time in the {tag} decode step")
@@ -715,6 +764,7 @@ def _decode_modes(torch, tag, lm, params, cache0, tok, flags, key, expect_key) -
             for e in top:
                 _log(f"  {e.key[:80]}: {e.count} x, {e.self_device_time_total / 1e3:.4f} ms")
             r.release()
+    return device
 
 
 def _serve_phases(torch, dev) -> int:
@@ -811,11 +861,14 @@ def _serve_phases(torch, dev) -> int:
 #: (slow cases included), causal with S != T both ways, and the serve shape
 #: of llama3.2-1b (batch 8 x 32 heads, prompt 512, head dim 64); then S and
 #: T that are not multiples of the tensor-core path's 64-row tiles, D 128
-#: causal and D 30 (staged without 16-byte copies)
+#: causal and D 30 (staged without 16-byte copies); then the full mask over
+#: key lengths one past a 64-key tile (T 1,601) and with a last tile of 56
+#: keys (T 3,000), at D 128 and 64
 FLASH_SWEEP = [(4, 256, 256, 64, True), (3, 200, 200, 64, True), (2, 128, 384, 128, False),
                (1, 64, 512, 256, False), (2, 512, 512, 64, True), (2, 128, 384, 64, True),
                (2, 384, 128, 64, True), (256, 512, 512, 64, True), (2, 130, 70, 64, True),
-               (2, 70, 130, 64, True), (2, 200, 200, 128, True), (3, 77, 91, 30, True)]
+               (2, 70, 130, 64, True), (2, 200, 200, 128, True), (3, 77, 91, 30, True),
+               (2, 64, 1601, 128, False), (2, 200, 3000, 64, False)]
 #: the peaked regime (ROADMAP R8): q x 8 and k x 16, scores of std 128
 FLASH_PEAKED = ((2, 256, 256, 64, True), (8.0, 16.0, 1.0))
 FLASH_SERVE = (256, 512, 512, 64)
@@ -842,12 +895,13 @@ def _ptxas_entries(log: str) -> dict:
     return out
 
 
-def _flash_bound(bh, s, t, d, elt):
-    """(bound ms, "bytes" or "operations", bytes, ops) of causal attention:
-    q, k, v read once and the output written once; two products of
-    2 * D operations for each (query, visible key) pair, top-left causal."""
+def _flash_bound(bh, s, t, d, elt, causal=True):
+    """(bound ms, "bytes" or "operations", bytes, ops) of attention: q, k,
+    v read once and the output written once; two products of 2 * D
+    operations for each (query, visible key) pair: top-left causal, or all
+    S * T pairs without the mask."""
     nbytes = (2 * bh * s * d + 2 * bh * t * d) * elt
-    pairs = sum(min(i + 1, t) for i in range(s))
+    pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
     ops = 4 * bh * d * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_OPS_PER_S * 1e3
@@ -2188,14 +2242,62 @@ SWA_BATCH = 2
 SWA_PROMPTS = (12_288, 8_160)
 #: phase 43: the reduced configs' sliding window, prompt and new tokens
 SWA_REDUCED = dict(window=16, prompt=32, gen=8)
+#: phase 44: the flash kernel under the full mask at the cross and encoder
+#: attention of the two served models: the VLM's cross attention (batch 8 x
+#: 32 query heads of 128, the 8 kv heads repeated, over 1,601 vision tokens:
+#: 25 tiles of 64 keys and one of 1), seamless's encoder (batch 8 x 16
+#: heads of 64 over 3,000 frames: 46 tiles and one of 56) and its decoder's
+#: cross attention (a 512-token prompt over those frames)
+FLASH_FULL = {"llama-3.2-vision-11b cross attention": (256, 512, 1601, 128),
+              "seamless-m4t-large-v2 encoder": (128, 3000, 3000, 64),
+              "seamless-m4t-large-v2 cross attention": (128, 512, 3000, 64)}
+#: phase 47: the reduced vlm's cross gate (0 at init: the image would count
+#: for nothing), and every attention's wq and wk scaled for both reduced
+#: models, whose random init is chaotic even in float32 (ROADMAP R19)
+CROSS_GATE = 0.5
+TAME = 0.25
 
 
 def _attention_layers(lm) -> int:
-    """Attention layers of a model: one flash launch each per forward."""
+    """Attention layers of a model: one flash launch each per forward (an
+    audio model's encoder layers and its decoder's self and cross
+    attention; a vlm's cross layers are among its layers)."""
     cfg = lm.cfg
     if cfg.family == "ssm":
         return 0
+    if cfg.family == "audio":
+        return cfg.enc_layers + 2 * cfg.n_layers
     return lm.n_blocks if cfg.family == "hybrid" else cfg.n_layers
+
+
+def _flash_masks(lm) -> dict:
+    """Flash launches of one prefill of a vlm or audio model by mask:
+    {"causal": self-attention layers, "full": encoder and cross layers}."""
+    cfg = lm.cfg
+    if cfg.family == "vlm":
+        return {"causal": cfg.n_layers - lm.n_blocks, "full": lm.n_blocks}
+    return {"causal": cfg.n_layers, "full": cfg.enc_layers + cfg.n_layers}
+
+
+def _count_masks(run) -> dict:
+    """{(causal, q shape, T): calls} of the flash kernel by the model's
+    attention in one ``run()`` (outside the main path: a spy on the name
+    ``models/attention.py`` calls, the kernel's own count untouched)."""
+    from repro_torch.models import attention as attn_mod
+
+    orig, calls = attn_mod.flash_attention, {}
+
+    def spy(q, k, v, *, causal=True, **kw):
+        key = (bool(causal), tuple(q.shape), k.shape[1])
+        calls[key] = calls.get(key, 0) + 1
+        return orig(q, k, v, causal=causal, **kw)
+
+    attn_mod.flash_attention = spy
+    try:
+        run()
+    finally:
+        attn_mod.flash_attention = orig
+    return calls
 
 
 def _ssm_layers(lm) -> int:
@@ -2206,9 +2308,10 @@ def _ssm_layers(lm) -> int:
     return lm.n_blocks * (cfg.block_len - 1) if cfg.family == "hybrid" else 0
 
 
-def _flash_shapes(torch, dev, shapes: dict, emulation=None) -> list:
-    """The flash kernel at each of ``shapes`` ({model: (BH, S, T, D)},
-    causal) against its plain version in float32 (2e-5) and bf16 (3e-2)
+def _flash_shapes(torch, dev, shapes: dict, emulation=None, causal=True) -> list:
+    """The flash kernel at each of ``shapes`` ({model: (BH, S, T, D)} of
+    prefill attention; with ``causal`` False {path: (BH, S, T, D)} of the
+    full mask) against its plain version in float32 (2e-5) and bf16 (3e-2)
     and, given ``emulation``, in bf16 against the tensor-core path's
     emulation (1e-2); then timed in CUDA graphs of 10 calls beside its
     bound, the plain version and SDPA.  Returns each shape's numbers."""
@@ -2216,36 +2319,39 @@ def _flash_shapes(torch, dev, shapes: dict, emulation=None) -> list:
 
     from repro_torch.kernels.flash_attention import flash_attention
 
+    mask = "causal" if causal else "full mask"
     rows = []
     for arch, (bh, s, t, d) in shapes.items():
+        where = f"{arch}'s prefill shape" if causal else arch
         max_abs = 0.0
         for name, dtype, tol in (("float32", torch.float32, 2e-5),
                                  ("bfloat16", torch.bfloat16, 3e-2)):
             q, k, v = _qkv(torch, bh + d, bh, s, t, d, dtype, dev)
-            got = flash_attention(q, k, v, causal=True)
-            ref = flash_attention(q, k, v, causal=True, impl="ref")
+            got = flash_attention(q, k, v, causal=causal)
+            ref = flash_attention(q, k, v, causal=causal, impl="ref")
             torch.cuda.synchronize()
             diff = (got.float() - ref.float()).abs()
             err = float(diff.max())
-            _log(f"flash parity at {arch}'s prefill shape BH={bh} S={s} T={t} D={d} causal "
+            _log(f"flash parity at {where} BH={bh} S={s} T={t} D={d} {mask} "
                  f"{name}: max abs err {err} (bar {tol})")
             _require(bool((diff <= tol + tol * ref.float().abs()).all()),
-                     f"flash kernel vs plain at {(bh, s, t, d)} {name}")
+                     f"flash kernel vs plain at {(bh, s, t, d, causal)} {name}")
             max_abs = max(max_abs, err)
+            del ref, diff
             if emulation is not None and dtype == torch.bfloat16:
-                emu = emulation(q, k, v, causal=True)
+                emu = emulation(q, k, v, causal=causal)
                 diff = (got.float() - emu.float()).abs()
-                _log(f"flash at {arch}'s prefill shape bf16 against the tensor-core emulation: "
+                _log(f"flash at {where} bf16 against the tensor-core emulation: "
                      f"max abs err {float(diff.max())} (bar {FLASH_EMULATION_TOL})")
                 _require(bool((diff <= FLASH_EMULATION_TOL
                                + FLASH_EMULATION_TOL * emu.float().abs()).all()),
-                         f"flash kernel vs its emulation at {(bh, s, t, d)}")
-                del emu
+                         f"flash kernel vs its emulation at {(bh, s, t, d, causal)}")
+                del emu, diff
         q, k, v = _qkv(torch, bh, bh, s, t, d, torch.bfloat16, dev)
-        fns = {"ref": lambda: flash_attention(q, k, v, causal=True, impl="ref"),
-               "cuda": lambda: flash_attention(q, k, v, causal=True),
+        fns = {"ref": lambda: flash_attention(q, k, v, causal=causal, impl="ref"),
+               "cuda": lambda: flash_attention(q, k, v, causal=causal),
                "sdpa": lambda: F.scaled_dot_product_attention(
-                   q[None], k[None], v[None], is_causal=True)[0]}
+                   q[None], k[None], v[None], is_causal=causal)[0]}
 
         def run_of(fn, calls=10):
             def run():
@@ -2256,18 +2362,22 @@ def _flash_shapes(torch, dev, shapes: dict, emulation=None) -> list:
         timings = {}
         for impl in ("ref", "cuda", "sdpa", "sdpa", "cuda", "ref"):
             timings.setdefault(impl, []).append(_cuda_ms(torch, run_of(fns[impl]), True, 20) / 10)
-        bound_ms, bound_by, nbytes, ops = _flash_bound(bh, s, t, d, 2)
+        bound_ms, bound_by, nbytes, ops = _flash_bound(bh, s, t, d, 2, causal)
         kernel_ms, plain_ms, sdpa_ms = (min(timings[i]) for i in ("cuda", "ref", "sdpa"))
-        _log(f"flash timing at {arch}'s prefill shape BH={bh} S={s} T={t} D={d} causal bf16 "
+        _log(f"flash timing at {where} BH={bh} S={s} T={t} D={d} {mask} bf16 "
              f"(ms per call, device time in a CUDA graph of 10 calls, plain/kernel/sdpa/sdpa/"
              f"kernel/plain): kernel {timings['cuda']}, plain {timings['ref']}, "
              f"F.scaled_dot_product_attention {timings['sdpa']}; bound {bound_ms:.8f} ms "
              f"({bound_by}: {nbytes} B, {ops} ops), share of bound reached "
              f"{bound_ms / kernel_ms:.4f}, achieved {ops / kernel_ms / 1e9:.2f} TFLOP/s; kernel / "
              f"SDPA {kernel_ms / sdpa_ms:.4f}")
-        rows.append({"shape": f"{arch} prefill BH {bh} S {s} D {d} bf16",
-                     "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms})
+        label = (f"{arch} prefill BH {bh} S {s} D {d} bf16" if causal
+                 else f"{arch} BH {bh} S {s} T {t} D {d} full mask bf16")
+        rows.append({"shape": label, "max_abs_err": max_abs, "ms": kernel_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": sdpa_ms})
+        del q, k, v
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2351,8 +2461,9 @@ def _family_serve_phase(torch, dev, arch: str, n_layers=None) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.ssd.kernel import ssd_decode_step_cuda
-    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.serve import serve_batch, stub_embeddings
     from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.attention import _repeat_kv
     from repro_torch.models.common import param_count, tree_leaves
     from repro_torch.models.ffn import expert_capacity
     from repro_torch.models.lm import LM, RunFlags
@@ -2383,6 +2494,10 @@ def _family_serve_phase(torch, dev, arch: str, n_layers=None) -> dict:
          + (f", dense residual FFN of d_ff {cfg.d_ff}" if cfg.dense_residual else "")
          + (f", SSD {cfg.ssm_n_heads} heads x P {cfg.ssm_head_dim}, N {cfg.ssm_state}"
             if cfg.family == "hybrid" else "")
+         + (f", gated cross attention every {cfg.cross_attn_every}th layer over "
+            f"{cfg.vision_tokens} vision tokens" if cfg.family == "vlm" else "")
+         + (f", {cfg.enc_layers} full-mask encoder layers over {cfg.audio_frames} frames, "
+            f"cross attention in every decoder layer" if cfg.family == "audio" else "")
          + f", vocab {cfg.vocab_size}), {n_params} parameters ({cfg.param_count()} by the "
          f"analytic count), {param_bytes} B in bf16 from PRNGKey({seed}), drawn by the threefry "
          f"on the card in {init_s:.2f} s (peak {torch.cuda.max_memory_allocated()} B)")
@@ -2405,15 +2520,22 @@ def _family_serve_phase(torch, dev, arch: str, n_layers=None) -> dict:
     _require(tuple(logits.shape) == (bsz, gen, cfg.vocab_size), "logits shape")
     _require(bool(torch.isfinite(logits).all()), "finite logits")
     # a decode step reads every weight (each expert's, at capacity 4 per
-    # sequence) and the cache once
-    cache_bytes = sum(t.numel() * t.element_size() for _, t in tree_leaves(
-        lm.init_cache(bsz, plen + gen, torch.bfloat16, dev)))
+    # sequence) and the cache once; not the encoder's weights, nor the cross
+    # sub-layers' wk and wv, whose keys and values the cache holds
+    read_bytes = sum(t.numel() * t.element_size() for key, t in tree_leaves(params)
+                     if not key.startswith("enc_") and not re.search(r"cross_attn/w[kv]$", key))
+    cache = dict(tree_leaves(lm.init_cache(bsz, plen + gen, torch.bfloat16, dev)))
+    cache_bytes = sum(t.numel() * t.element_size() for key, t in cache.items() if key != "pos")
+    cross_bytes = sum(t.numel() * t.element_size() for key, t in cache.items()
+                      if "/cross/" in key)
+    del cache
     step_ms = res["decode_s"] / (gen - 1) * 1e3
-    bound_ms = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    bound_ms = (read_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
     _log(f"serve {cfg.name}: decode step through the graph {step_ms:.4f} ms (wall, capture "
-         f"included) against its bytes bound {bound_ms:.4f} ms ({param_bytes} B of weights + "
-         f"{cache_bytes} B of cache at {HBM_BYTES_PER_S / 1e12} TB/s): "
-         f"{bound_ms / step_ms:.4f} of the bound")
+         f"included) against its bytes bound {bound_ms:.4f} ms ({read_bytes} B of weights "
+         f"read at decode + {cache_bytes} B of cache"
+         + (f", of which {cross_bytes} B the cross keys and values" if cross_bytes else "")
+         + f", at {HBM_BYTES_PER_S / 1e12} TB/s): {bound_ms / step_ms:.4f} of the bound")
     del logits, res
     sampled = serve_batch(cfg, bsz, plen, gen, seed, greedy=False, temperature=SAMPLE_T,
                           params=params)
@@ -2428,20 +2550,30 @@ def _family_serve_phase(torch, dev, arch: str, n_layers=None) -> dict:
 
     # ---- one prefill and decode steps under the profiler ---------------------
     flags = RunFlags(remat="none", q_chunk=min(512, plen))
-    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (bsz, plen))
-    tokens = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
+    rng = np.random.default_rng(seed)  # serve_batch's draws: prompts, then the stub frontend's
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (bsz, plen)),
+                             dtype=torch.int32).to(dev)
+    inputs = {"tokens": tokens, **stub_embeddings(cfg, rng, bsz, torch.bfloat16, dev)}
     prefill = make_prefill_step(lm, plen + gen, flags)
     with torch.no_grad():
-        _, cache0 = prefill(params, {"tokens": tokens})
+        _, cache0 = prefill(params, inputs)
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            prefill(params, {"tokens": tokens})
+            prefill(params, inputs)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t1) * 1e3)
-        _, on_device = _profile(torch, lambda: prefill(params, {"tokens": tokens}),
-                                f"the {cfg.name} prefill")
+        _, on_device = _profile(torch, lambda: prefill(params, inputs),
+                                f"the {cfg.name} prefill", warmup=True,
+                                complete=lambda on_device: sum(
+                                    e.count for e in on_device if "flash_fwd" in e.key)
+                                == want_flash)
+        if cfg.family in ("vlm", "audio"):
+            masks = _count_masks(lambda: prefill(params, inputs))
+        if cfg.family == "audio":
+            _, enc_on_device = _profile(torch, lambda: lm._encode(
+                params, inputs["audio_embeds"], flags), f"the {cfg.name} encoder")
     device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
     flash_ms = sum(e.self_device_time_total for e in on_device if "flash_fwd" in e.key) / 1e3
     _require(flash_ms > 0, f"the profiler saw the {cfg.name} prefill's flash kernel")
@@ -2460,25 +2592,59 @@ def _family_serve_phase(torch, dev, arch: str, n_layers=None) -> dict:
          f"{1 - device_ms / min(walls):.4f}")
     for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]:
         _log(f"  {e.key[:80]}: {e.count} x, {e.self_device_time_total / 1e3:.4f} ms")
+    if cfg.family in ("vlm", "audio"):
+        by_mask = {"causal": sum(n for (c, _, _), n in masks.items() if c),
+                   "full": sum(n for (c, _, _), n in masks.items() if not c)}
+        _log(f"{cfg.name} prefill's flash launches by mask and (BH, S, D), T: "
+             + "; ".join(f"{'causal' if c else 'full'} {shape}, T {t}: {n}"
+                         for (c, shape, t), n in sorted(masks.items())))
+        _require(by_mask == _flash_masks(lm),
+                 f"{cfg.name}: flash launches by mask {by_mask}, expected {_flash_masks(lm)}")
+    if cfg.family == "audio":
+        enc_ms = sum(e.self_device_time_total for e in enc_on_device) / 1e3
+        enc_flash = sum(e.self_device_time_total for e in enc_on_device
+                        if "flash_fwd" in e.key) / 1e3
+        _log(f"{cfg.name} encoder alone ({cfg.enc_layers} layers over {cfg.audio_frames} frames, "
+             f"batch {bsz}): device time {enc_ms:.4f} ms, {enc_ms / device_ms:.4f} of the "
+             f"prefill's; its flash kernel {enc_flash:.4f} ms ({enc_flash / enc_ms:.4f})")
     key, expect = ("ssd_step", True) if cfg.family == "hybrid" else ("flash_fwd", False)
-    _decode_modes(torch, cfg.name, lm, params, cache0, torch.as_tensor(generated[:, :1]).to(dev),
-                  flags, key, expect)
+    decode_ms = _decode_modes(torch, cfg.name, lm, params, cache0,
+                              torch.as_tensor(generated[:, :1]).to(dev), flags, key, expect)
+    if cfg.family == "vlm":
+        # decode_cross_attention repeats each cross layer's 8 kv heads to 32
+        # for every step: the copies alone, in a CUDA graph
+        cross, n_rep = cache0["layers"]["cross"], cfg.q_heads_padded // cfg.n_kv_heads
+
+        def repeat_cross():
+            for i in range(lm.n_blocks):
+                _repeat_kv(cross["k"][i], n_rep)
+                _repeat_kv(cross["v"][i], n_rep)
+
+        rep_ms = _cuda_ms(torch, repeat_cross, True, 20)
+        rep_bytes = cross_bytes * (1 + n_rep)
+        _log(f"{cfg.name} decode: the cross cache's head repeat ({lm.n_blocks} layers x k and v, "
+             f"{cfg.n_kv_heads} -> {cfg.q_heads_padded} heads; {rep_bytes} B read and written) "
+             f"alone in a CUDA graph {rep_ms:.4f} ms, {rep_ms / decode_ms['graph']:.4f} of the "
+             f"graph's decode step device time {decode_ms['graph']:.4f} ms")
     del params, cache0
     torch.cuda.empty_cache()
     return {"flash": flash_n, "ssd": ssd_n}
 
 
-def _reduced_family_phase(torch, dev, cfgs, prompt=32, gen=8) -> None:
-    """Phases 37 and 43: reduced configs in float32 on the plain path,
+def _reduced_family_phase(torch, dev, cfgs, prompt=32, gen=8, params_of=None) -> None:
+    """Phases 37, 43 and 47: reduced configs in float32 on the plain path,
     served greedily and sampled (temperature 0.8) on the card and on the
-    CPU: identical tokens."""
+    CPU: identical tokens.  ``params_of(cfg)``, where given, makes the
+    weights both sides take (else each draws PRNGKey(0)'s)."""
     from repro_torch.launch.serve import serve_batch
 
     for red in cfgs:
+        params = params_of(red) if params_of is not None else None
         for mode, kw in (("greedy", {}), ("sampled", dict(greedy=False, temperature=SAMPLE_T))):
             on_card = serve_batch(red, 2, prompt, gen, 0, device=dev, dtype=torch.float32,
-                                  attn_impl="ref", ssd_impl="ref", **kw)
-            on_cpu = serve_batch(red, 2, prompt, gen, 0, device="cpu", dtype=torch.float32, **kw)
+                                  attn_impl="ref", ssd_impl="ref", params=params, **kw)
+            on_cpu = serve_batch(red, 2, prompt, gen, 0, device="cpu", dtype=torch.float32,
+                                 params=params, **kw)
             same = on_card["generated"] == on_cpu["generated"]
             diff = float((on_card["logits"].cpu() - on_cpu["logits"]).abs().max())
             if not same.all():
@@ -2491,6 +2657,31 @@ def _reduced_family_phase(torch, dev, cfgs, prompt=32, gen=8) -> None:
             _log(f"{red.name}{window} f32 {mode}, prompt {prompt}, plain path, card vs CPU: "
                  f"identical generated tokens {on_card['generated'].tolist()}, max abs logit "
                  f"difference {diff}")
+
+
+def _cross_params(red):
+    """Phase 47's weights of a reduced vlm or audio config, float32 on the
+    CPU: PRNGKey(0)'s, every attention's wq and wk times ``TAME``, the
+    vlm's cross gates at ``CROSS_GATE``."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.models.lm import LM
+
+    params = LM(red).init(prng.PRNGKey(0), torch.float32, "cpu")
+
+    def tame(tree):
+        if "wq" in tree:
+            tree["wq"].mul_(TAME)
+            tree["wk"].mul_(TAME)
+        for v in tree.values():
+            if isinstance(v, dict):
+                tame(v)
+
+    tame(params)
+    if red.family == "vlm":
+        params["blocks"]["cross_gate"].fill_(CROSS_GATE)
+    return params
 
 
 def _sliding_serve_phase(torch, dev) -> None:
@@ -2917,6 +3108,22 @@ def main() -> int:
     _reduced_family_phase(torch, dev, [
         dataclasses.replace(get_config(a, reduced=True), sliding_window=SWA_REDUCED["window"])
         for a in ("llama3.2-1b", "gemma-7b")], SWA_REDUCED["prompt"], SWA_REDUCED["gen"])
+
+    # ---- 44. the flash kernel under the full mask: cross attention, encoder --
+    _mark("44")
+    flash["shapes"] += _flash_shapes(torch, dev, FLASH_FULL, tensor_core_emulation, causal=False)
+
+    # ---- 45./46. llama-3.2-vision-11b and seamless-m4t-large-v2 at full width -
+    for phase, arch in (("45", "llama-3.2-vision-11b"), ("46", "seamless-m4t-large-v2")):
+        _mark(phase)
+        served = _family_serve_phase(torch, dev, arch)
+        flash["launches"] += served["flash"]
+        ssd["launches"] += served["ssd"]
+
+    # ---- 47. the reduced vision and audio configs: card against CPU ----------
+    _mark("47")
+    _reduced_family_phase(torch, dev, [get_config(a, reduced=True) for a in (
+        "llama-3.2-vision-11b", "seamless-m4t-large-v2")], params_of=_cross_params)
 
     line = {"kernels": [{
         "name": "fluid_step_core",

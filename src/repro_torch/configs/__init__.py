@@ -1,8 +1,8 @@
 """Architecture configs (port of ``repro/configs/__init__.py``).
 
 The same ids and aliases as the reference.  The port has the config
-module of every text-only arch (:data:`PORTED_ARCH_IDS`) and serves a model
-of each (``models/lm.py``); the vlm and audio archs wait.  Each
+module of every arch of the reference (:data:`ARCH_IDS`) and serves a
+model of each (``models/lm.py``).  Each
 ``<id>.py`` exports ``CONFIG`` (the published hyper-parameters) and
 ``REDUCED`` (the reference's small variant for CPU tests); the dense archs
 with a long-context variant also export ``LONG_CONTEXT_VARIANT``
@@ -28,10 +28,6 @@ ARCH_IDS = (
     "llama32_1b",
 )
 
-#: The archs whose config module the port has, each served.
-PORTED_ARCH_IDS = ("mamba2_130m", "llama32_1b", "phi4_mini_3_8b", "olmoe_1b_7b",
-                   "gemma_7b", "yi_9b", "jamba_v01_52b", "arctic_480b")
-
 _ALIASES = {
     "mamba2-130m": "mamba2_130m",
     "jamba-v0.1-52b": "jamba_v01_52b",
@@ -52,17 +48,13 @@ def canonical(arch: str) -> str:
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     name = canonical(arch)
-    if name not in PORTED_ARCH_IDS:
-        known = "an architecture of the reference" if name in ARCH_IDS else "unknown"
-        raise NotImplementedError(
-            f"arch {arch!r} ({known}) is not ported yet: the port registers "
-            f"{PORTED_ARCH_IDS} (ROADMAP queue 1, items 3-4)"
-        )
+    if name not in ARCH_IDS:
+        raise ValueError(f"unknown arch {arch!r}; expected one of {ARCH_IDS} or an alias")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.REDUCED if reduced else mod.CONFIG
 
 
 def served_config(arch: str, reduced: bool = False) -> ModelConfig:
     """:func:`get_config` for an arch the port serves a model of (every
-    ported arch); raises ``NotImplementedError`` for the others."""
+    arch of the reference)."""
     return get_config(arch, reduced)

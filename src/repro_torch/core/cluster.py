@@ -5,7 +5,7 @@ capacity and may host several resident jobs (admission by memory,
 Alg. 1 line 3) that time-share it at task granularity.  The event engine
 (:mod:`repro_torch.core.engine`) reads and mutates it; the fluid path reads
 only the job descriptions.  The reference's fault-injection ``down`` flag
-is not ported (chaos waits: ROADMAP queue 1, item 9b).
+is not ported (chaos waits: ROADMAP queue 1, item 7b).
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ change and recomputed lazily *in the exact accumulation order of a full
 rescan*, so the gangs the placement picks — and the whole event stream —
 are the rescan's bit for bit.  It is the engine's one workload mode (the
 reference's default); the reference's ``rescan`` oracle is not ported
-(ROADMAP queue 1, item 9g).
+(ROADMAP queue 1, item 7g).
 
 Exact-float discipline: the index never maintains a sum by adding and
 subtracting deltas.  It tracks, per GPU, the ordered list of resident live

@@ -15,7 +15,7 @@ for bit.  It holds no tensors.  Its one mode is the reference's default:
 incremental gating and the maintained workload index
 (:mod:`repro_torch.core.clusterindex`).  What the reference engine has
 beyond that raises ``NotImplementedError`` naming its ROADMAP item (queue
-1, items 9a-9h): preemptive and elastic scheduling, fault injection, the
+1, items 7a-7h): preemptive and elastic scheduling, fault injection, the
 observability recorder, a streaming ``TraceSource`` feed, chunked
 all-reduces and the ring-edge ``"link"`` reading, trace recording,
 per-phase profiling, and the ``rescan`` oracle modes.
@@ -339,28 +339,28 @@ class EventEngine:
         observe: Optional[object] = None,
     ) -> None:
         if hasattr(jobs, "arrivals"):
-            raise _not_ported("a streaming TraceSource feed", "9c")
+            raise _not_ported("a streaming TraceSource feed", "7c")
         if record_trace:
-            raise _not_ported("record_trace=True (the task trace and core/dag.py)", "9d")
+            raise _not_ported("record_trace=True (the task trace and core/dag.py)", "7d")
         if comm_chunks != 1:
-            raise _not_ported(f"comm_chunks={comm_chunks} (chunked all-reduce)", "9e")
+            raise _not_ported(f"comm_chunks={comm_chunks} (chunked all-reduce)", "7e")
         if contention_domain == "link":
-            raise _not_ported('contention_domain="link" (RingEdgeTopology)', "9e")
+            raise _not_ported('contention_domain="link" (RingEdgeTopology)', "7e")
         if contention_domain != "server":
             raise ValueError(f"unknown contention domain {contention_domain!r}")
         if chaos is not None:
-            raise _not_ported("fault injection (chaos=)", "9b")
+            raise _not_ported("fault injection (chaos=)", "7b")
         for knob, value in (("preemption_quantum", preemption_quantum),
                             ("checkpoint_cost", checkpoint_cost)):
             if value is not None:
-                raise _not_ported(f"{knob}= (the preemptive and elastic policies' input)", "9a")
+                raise _not_ported(f"{knob}= (the preemptive and elastic policies' input)", "7a")
         if observe is not None:
-            raise _not_ported("the observability recorder (observe=)", "9f")
+            raise _not_ported("the observability recorder (observe=)", "7f")
         if profile_phases:
-            raise _not_ported("profile_phases=True", "9f")
+            raise _not_ported("profile_phases=True", "7f")
         for mode_name, mode in (("gating", gating), ("workloads", workloads)):
             if mode == "rescan":
-                raise _not_ported(f'{mode_name}="rescan" (the oracle mode)', "9g")
+                raise _not_ported(f'{mode_name}="rescan" (the oracle mode)', "7g")
             if mode not in (None, "incremental"):
                 raise ValueError(
                     f"unknown {mode_name} mode {mode!r} (expected 'incremental' or 'rescan')"

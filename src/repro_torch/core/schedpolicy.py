@@ -10,7 +10,7 @@ queue, runs, cluster and SRSF keys.
 :class:`StaticGangPolicy` is the paper's Algorithm 3 admission: the wait
 queue is scanned in SRSF order and each gang placement is held until the
 job completes.  The reference's preemptive and elastic policies are not
-ported (ROADMAP queue 1, item 9a).
+ported (ROADMAP queue 1, item 7a).
 
 The communication gating policies (AdaDUAL Algorithm 2, SRSF(n), k-way
 AdaDUAL) are the comm-task half of the strategy layer, consulted by the
@@ -263,7 +263,7 @@ def sched_policy_from_name(sched: str) -> SchedPolicy:
     if s in ("preemptive_srsf", "preemptive", "elastic"):
         raise NotImplementedError(
             f"sched={sched!r}: the preemptive and elastic policies (preempt_job, "
-            "request_resize) are not ported; ROADMAP queue 1, item 9a"
+            "request_resize) are not ported; ROADMAP queue 1, item 7a"
         )
     raise ValueError(
         f"unknown scheduling policy {sched!r}; expected one of {SCHED_POLICIES}"

@@ -1,7 +1,7 @@
 """Network fabric as contention domains (port of ``repro/core/topology.py``,
 trimmed to the static fabrics: the event engine reads each task's loaded
 domains, the fluid path the incidence matrix; the ring-edge reading,
-``RingEdgeTopology``, waits: ROADMAP queue 1, item 9e).
+``RingEdgeTopology``, waits: ROADMAP queue 1, item 7e).
 
 A domain is a cut of the fabric: a server set whose boundary is a shared
 resource.  A communication task loads a domain iff its ring crosses the cut

@@ -2,8 +2,9 @@
 of ``repro/data/pipeline.py``).
 
 :class:`SyntheticLMDataset` is the reference's numpy code, unchanged: a
-step maps to the same batch in both packages (Zipf-like unigram tokens and
-the shifted labels).  :func:`make_train_iterator` replaces the reference's
+step maps to the same batch in both packages (Zipf-like unigram tokens,
+the shifted labels and the stub frontend's embeddings of the audio and
+vlm families).  :func:`make_train_iterator` replaces the reference's
 ``jax.device_put`` with a host thread that builds each batch ahead, pins
 it and copies it to the device with ``non_blocking=True``.
 """
@@ -38,13 +39,25 @@ class SyntheticLMDataset:
         self._probs = p / p.sum()
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
-        """tokens and labels (batch, seq_len) int32.  The port's families
-        (``ssm``, ``dense``) take no modality embeddings."""
+        """tokens and labels (batch, seq_len) int32; for ``audio`` also
+        ``audio_embeds`` (batch, audio_frames, d_model), for ``vlm``
+        ``image_embeds`` (batch, vision_tokens, d_model), float32, drawn
+        from the same generator right after the tokens."""
+        cfg = self.cfg
         rng = np.random.default_rng(np.uint64(self.seed * 1_000_003 + step))
         seq = rng.choice(
-            self.cfg.vocab_size, size=(self.batch, self.seq_len + 1), p=self._probs
+            cfg.vocab_size, size=(self.batch, self.seq_len + 1), p=self._probs
         ).astype(np.int32)
-        return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+        out = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+        if cfg.family == "audio":
+            # the reference casts these to numpy's bfloat16 where numpy has one;
+            # it has none (hasattr(np, "bfloat16") is False), so they stay float32
+            out["audio_embeds"] = rng.standard_normal(
+                (self.batch, cfg.audio_frames, cfg.d_model), dtype=np.float32)
+        if cfg.family == "vlm":
+            out["image_embeds"] = rng.standard_normal(
+                (self.batch, cfg.vision_tokens, cfg.d_model), dtype=np.float32)
+        return out
 
 
 class _Prefetcher:

@@ -2,7 +2,7 @@
 KV or SSM cache (port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch {mamba2-130m,llama3.2-1b,olmoe-1b-7b,jamba-v0.1-52b} [--reduced] \
+        --arch {mamba2-130m,llama3.2-1b,olmoe-1b-7b,llama-3.2-vision-11b,...} [--reduced] \
         [--batch 4 --prompt-len 64 --gen 32] [--device cpu]
 
 Runs on CUDA unless asked for the CPU.  On the card each decode step is
@@ -10,7 +10,9 @@ replayed from a CUDA graph (:class:`_DecodeRunner`), the port's counterpart
 of the reference's jitted step with its donated cache; on the CPU the same
 steps run eagerly.  The prompts are the reference's draws for the same
 seed, and without ``params`` the weights are the reference's too
-(``LM.init(PRNGKey(seed))``, the threefry of ``repro_torch.prng``).  With
+(``LM.init(PRNGKey(seed))``, the threefry of ``repro_torch.prng``).  The
+audio and vlm archs also take the stub frontend's output, drawn as the
+reference draws it (:func:`stub_embeddings`).  With
 ``greedy=False`` each token is drawn by ``categorical`` from the logits over
 ``temperature``, the first from ``PRNGKey(seed)`` and each later one from a
 split of it, as the reference draws; the draw runs outside the decode
@@ -38,6 +40,24 @@ from repro_torch.models.lm import LM, RunFlags
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def stub_embeddings(cfg, rng: np.random.Generator, batch: int, dtype: torch.dtype,
+                    device) -> Dict[str, torch.Tensor]:
+    """The stub frontend's output that the audio and vlm families take with
+    the prompt, drawn as the reference's ``serve_batch`` draws it: standard
+    normals from ``rng`` (right after the prompt's tokens), (batch,
+    audio_frames, d_model) ``audio_embeds`` or (batch, vision_tokens,
+    d_model) ``image_embeds``, rounded to bf16, then cast to ``dtype``
+    (the weights' dtype: where it is float32 the values stay the bf16
+    ones, as the reference's einsums promote them).  {} for the other
+    families."""
+    if cfg.family not in ("audio", "vlm"):
+        return {}
+    name, length = (("audio_embeds", cfg.audio_frames) if cfg.family == "audio"
+                    else ("image_embeds", cfg.vision_tokens))
+    draw = rng.standard_normal((batch, length, cfg.d_model)).astype(np.float32)
+    return {name: torch.from_numpy(draw).to(torch.bfloat16).to(device=device, dtype=dtype)}
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -158,13 +178,15 @@ def serve_batch(
     rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
                              dtype=torch.int32).to(dev)
+    inputs = {"tokens": tokens,
+              **stub_embeddings(cfg, rng, batch, params["embed"].dtype, dev)}
     prefill = make_prefill_step(lm, max_seq=prompt_len + gen, flags=flags)
     decode = make_serve_step(lm, flags)
 
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, inputs)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
 

@@ -1,18 +1,22 @@
-"""Grouped-query attention: prefill forward and decode step (port of
-``repro/models/attention.py``).
+"""Grouped-query attention: prefill forward, decode step and cross
+attention (port of ``repro/models/attention.py``).
 
-Prefill (:func:`attention_forward`) projects q, k and v, applies RoPE as
-the reference does and repeats the kv heads.  The causal mask folds
-(B, S, H, hd) to (B*H, S, hd) and hands the attention to the
-flash-attention kernel
+Prefill (:func:`attention_forward`) projects q from x and k, v from x or,
+for cross attention, from ``kv_input``; applies RoPE as the reference does
+(only to self attention, and only with ``use_rope``) and repeats the kv
+heads.  The causal and full masks fold (B, S, H, hd) to (B*H, S, hd) and
+hand the attention to the flash-attention kernel
 (``repro_torch.kernels.flash_attention``): the CUDA kernel for CUDA
-tensors, its plain version for CPU tensors.  With grad enabled it goes
-through ``flash_attention_train``, whose backward recomputes the plain
-version (the reference has no attention backward kernel either).  The reference computes the
-same attention inline, query chunk by query chunk (``lax.map``); its
-logits and probabilities are rounded to the activation dtype there, while
-the kernel and its plain version keep them in float32 (ROADMAP R7), so
-the two agree to round-off in float32 and at the bf16 bar in bfloat16.
+tensors, its plain version for CPU tensors; the full mask (the audio
+encoder, and cross attention over T keys) is the kernel with
+``causal=False``, which masks nothing but the tail of the last key tile.
+With grad enabled it goes through ``flash_attention_train``, whose
+backward recomputes the plain version (the reference has no attention
+backward kernel either).  The reference computes the same attention
+inline, query chunk by query chunk (``lax.map``); its logits and
+probabilities are rounded to the activation dtype there, while the kernel
+and its plain version keep them in float32 (ROADMAP R7), so the two agree
+to round-off in float32 and at the bf16 bar in bfloat16.
 
 The sliding mask (key j visible from query i iff ``i - w < j <= i``, the
 long-context variants') is plain PyTorch, as in the reference, whose
@@ -24,13 +28,12 @@ its window reaches, ``[q0 - w + 1, q0 + qc)``: the others' probabilities
 are exactly 0 in float32, so the result is the reference's, and a long
 prompt's logits stay (B, H, qc, qc + w - 1) a chunk.
 
-Decode (:func:`decode_attention`) is plain PyTorch, as in the reference,
-which has no kernel for it.  It writes the new key and value into the
-cache slot in place: the reference donates the cache to its jitted step
-(``donate_argnums``), so no caller keeps the old cache.
-
-The full mask and cross attention raise ``NotImplementedError`` (ROADMAP
-queue 1, items 3-4).
+Decode (:func:`decode_attention`, :func:`decode_cross_attention`) is plain
+PyTorch, as in the reference, which has no kernel for it.  Self attention
+writes the new key and value into the cache slot in place: the reference
+donates the cache to its jitted step (``donate_argnums``), so no caller
+keeps the old cache.  Cross attention reads the keys and values that
+:func:`precompute_cross_kv` made once at prefill and writes nothing.
 """
 
 from __future__ import annotations
@@ -83,33 +86,32 @@ def attention_forward(
     *,
     mask_kind: str = "causal",
     kv_input: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
     impl: str = "",
     q_chunk: int = 512,
 ) -> torch.Tensor:
-    """(B, S, D) -> (B, S, D), with RoPE on q and k.  ``mask_kind`` is
-    "causal" (the flash kernel; ``impl`` as in
+    """(B, S, D) -> (B, S, D); k and v from ``kv_input`` (B, T, D) where
+    given (cross attention), else from x.  RoPE on q and k at positions
+    0..S-1 when ``use_rope`` and there is no ``kv_input``, as the
+    reference.  ``mask_kind`` is "causal" or "full" (the flash kernel,
+    causal or not; ``impl`` as in
     :func:`repro_torch.kernels.flash_attention.flash_attention`, the kernel
     tiles the queries itself) or "sliding" (plain PyTorch over query
     chunks of ``_pick_chunk(S, q_chunk)``, as the reference)."""
-    if mask_kind not in ("causal", "sliding"):
-        raise NotImplementedError(
-            f"mask_kind={mask_kind!r}: the port has the causal and sliding masks; the "
-            "full mask waits for the vlm and audio families (ROADMAP queue 1, items 3-4)"
-        )
-    if kv_input is not None:
-        raise NotImplementedError(
-            "cross attention (kv_input) waits for the vlm and audio families "
-            "(ROADMAP queue 1, items 3-4)"
-        )
+    if mask_kind not in ("causal", "sliding", "full"):
+        raise ValueError(f"unknown mask_kind {mask_kind!r}; expected 'causal', 'sliding' "
+                         "or 'full'")
     b, s, _ = x.shape
+    kv_x = x if kv_input is None else kv_input
     h, kvh, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim_
 
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("btd,dgk->btgk", x, params["wk"])
-    v = torch.einsum("btd,dgk->btgk", x, params["wv"])
-    pos = torch.arange(s, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    k = torch.einsum("btd,dgk->btgk", kv_x, params["wk"])
+    v = torch.einsum("btd,dgk->btgk", kv_x, params["wv"])
+    if use_rope and kv_input is None:
+        pos = torch.arange(s, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     k = _repeat_kv(k, h // kvh)
     v = _repeat_kv(v, h // kvh)
     if mask_kind == "sliding":
@@ -122,7 +124,7 @@ def attention_forward(
     # with grad enabled (training) the autograd Function around the same
     # kernel call; under torch.no_grad() (serving) the kernel call alone
     attend = flash_attention_train if torch.is_grad_enabled() else flash_attention
-    out = attend(fold(q), fold(k), fold(v), causal=True, impl=impl)
+    out = attend(fold(q), fold(k), fold(v), causal=mask_kind == "causal", impl=impl)
     out = out.reshape(b, h, s, hd).transpose(1, 2)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
@@ -202,3 +204,32 @@ def decode_attention(
     out = torch.einsum("bhst,bthk->bshk", probs, vv)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return y, {"k": ck, "v": cv}
+
+
+def decode_cross_attention(
+    x1: torch.Tensor,  # (B, 1, D)
+    params: Dict[str, torch.Tensor],
+    cross_k: torch.Tensor,  # (B, T, KV, hd), from the encoder's or the vision tokens
+    cross_v: torch.Tensor,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """One decode step of cross attention against the prefill's keys and
+    values: no mask, no RoPE, float32 logits, probabilities in the
+    activation dtype (R7), as the reference.  Reads the cache only."""
+    h, kvh, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim_
+    q = torch.einsum("bsd,dhk->bshk", x1, params["wq"])
+    kk = _repeat_kv(cross_k, h // kvh)
+    vv = _repeat_kv(cross_v, h // kvh)
+    logits = torch.einsum("bshk,bthk->bhst", q, kk).to(torch.float32) / math.sqrt(hd)
+    probs = torch.softmax(logits, dim=-1).to(x1.dtype)
+    out = torch.einsum("bhst,bthk->bshk", probs, vv)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def precompute_cross_kv(enc_out: torch.Tensor, params: Dict[str, torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross sub-layer's keys and values (B, T, KV, hd) of the encoder
+    output or the vision tokens (B, T, D), computed once at prefill."""
+    k = torch.einsum("btd,dgk->btgk", enc_out, params["wk"])
+    v = torch.einsum("btd,dgk->btgk", enc_out, params["wv"])
+    return k, v

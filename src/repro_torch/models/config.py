@@ -1,10 +1,12 @@
 """Model configuration (port of ``repro/models/config.py``).
 
-A trimmed copy of ``ModelConfig``: the fields, derived sizes and analytic
-parameter count of the ``ssm``, ``dense``, ``moe`` and ``hybrid``
-families, the four whose models the port has (every text-only arch of
-the reference).  The enc-dec and vlm fields come with their
-slices (ROADMAP queue 1, items 3-4).
+A copy of ``ModelConfig``: the fields, derived sizes and analytic
+parameter count of all six families (``ssm``, ``dense``, ``moe``,
+``hybrid``, the ``audio`` enc-dec backbone and the ``vlm``), the
+reference's numbers to the parameter.  The analytic count is the
+reference's own model, not the schema's leaf sum (it counts two norms a
+layer and none for the encoder or the cross sub-layer); it is copied as
+it is.
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ class ModelConfig:
     attn_index_in_block: int = -1
     # -- enc-dec (audio backbone) ---------------------------------------------
     enc_layers: int = 0
+    audio_frames: int = 3000     # stub frontend output length (~60 s @ 50 Hz)
+    # -- vlm ------------------------------------------------------------------
+    cross_attn_every: int = 0    # every Nth layer is cross-attn (1-indexed pos N)
+    vision_tokens: int = 0       # stub vision encoder output length
     # -- sharding / padding ----------------------------------------------------
     padded_heads: int = 0        # pad q heads for TP divisibility (arctic)
     # -- bookkeeping ----------------------------------------------------------
@@ -114,6 +120,17 @@ class ModelConfig:
         total += self.n_layers * 2 * d  # norms (approx: 2 per layer)
         return total
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        d = self.d_model
+        total = self.vocab_size * d
+        for i in range(self.n_layers):
+            total += self._layer_params(i, False, active_only=True)
+        if self.enc_layers:
+            total += self.enc_layers * self._enc_layer_params(False)
+        total += self.n_layers * 2 * d
+        return total
+
     def _attn_params(self, padded: bool) -> int:
         h = self.q_heads_padded if padded else self.n_heads
         hd = self.head_dim_
@@ -134,11 +151,6 @@ class ModelConfig:
     def _layer_params(self, i: int, padded: bool, active_only: bool = False) -> int:
         """Parameters of decoder layer ``i`` (``active_only``: a MoE layer's
         routed experts only)."""
-        if self.family in ("audio", "vlm"):
-            raise NotImplementedError(
-                f"the port's ModelConfig counts the ssm, dense, moe and hybrid families, "
-                f"not {self.family!r} (ROADMAP queue 1, items 3-4)"
-            )
         if self.family == "ssm":
             return self._ssm_params()
         if self.family == "hybrid":
@@ -152,6 +164,11 @@ class ModelConfig:
                 mlp = self._mlp_params(self.d_ff)
             return mixer + mlp
         mixer = self._attn_params(padded)
+        if self.family == "audio":
+            mixer += self._attn_params(padded)  # decoder blocks add cross-attn
+        if (self.family == "vlm" and self.cross_attn_every
+                and (i + 1) % self.cross_attn_every == 0):
+            mixer += self._attn_params(padded)  # cross-attn has its own qkv/o
         if self.is_moe_layer(i):
             n_exp = self.experts_per_token if active_only else self.n_experts
             mlp = n_exp * self._mlp_params(self.moe_d_ff_) + self.d_model * self.n_experts

@@ -6,6 +6,10 @@ params)``), or the flat ``/``-keyed mapping of a checkpoint npz
 (``np.load(path)``, ``__meta__`` dtype sidecar included).  bfloat16 arrives
 either as ``ml_dtypes.bfloat16`` arrays or as uint16 bit patterns named in
 the sidecar.  :func:`cache_to_numpy` goes the other way for comparisons.
+Both are generic over the tree: every family's leaves cross under the
+reference's keys, the audio encoder's ``enc_blocks`` and ``enc_norm``, the
+vlm's stacked ``self_*`` sub-layers, ``cross_attn`` and ``cross_gate``, and
+a cache's ``cross`` keys and values included.
 """
 
 from __future__ import annotations

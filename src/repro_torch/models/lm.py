@@ -1,5 +1,6 @@
-"""Model assembly (port of ``repro/models/lm.py``) for the ``ssm``,
-``dense``, ``moe`` and ``hybrid`` families.
+"""Model assembly (port of ``repro/models/lm.py``) for all six families:
+``ssm``, ``dense``, ``moe``, ``hybrid``, ``vlm`` and the ``audio``
+enc-dec backbone.
 
 One :class:`LM` object per config provides what training and serving
 need, as plain functions of nested dicts of tensors:
@@ -7,9 +8,9 @@ need, as plain functions of nested dicts of tensors:
 * ``schema()`` / ``init`` — the reference's parameter schema (same flat
   keys) and its initialisation from a threefry key (``repro_torch.prng``),
   so the same seed gives the reference's weights;
-* ``loss_fn`` — the causal-LM training loss, dense or chunked over the
-  sequence, with per-block rematerialisation (``torch.utils.checkpoint``
-  in place of ``jax.checkpoint``);
+* ``loss_fn`` — the causal-LM training loss (enc-dec for ``audio``),
+  dense or chunked over the sequence, with per-block rematerialisation
+  (``torch.utils.checkpoint`` in place of ``jax.checkpoint``);
 * ``prefill_fn`` — prompt pass producing last-token logits + the cache;
 * ``decode_fn`` — one-token serve step, updating the cache in place;
 * ``init_cache`` — ``{"pos", "layers": ...}``, each leaf stacked over
@@ -17,14 +18,25 @@ need, as plain functions of nested dicts of tensors:
   for ``ssm``, the ring-buffer KV cache ``{k, v}`` (L, B, window, KV, hd)
   for ``dense`` and ``moe``, and for ``hybrid`` both, nested:
   ``{"attn": {k, v}, "ssm": {...}}`` with the SSM leaves stacked again over
-  a block's 7 mixers.
+  a block's 7 mixers; for ``vlm`` and ``audio`` ``{"self": {k, v},
+  "cross": {k, v}}``, the vlm's self caches stacked again over a block's 4
+  self-attention sub-layers, the cross keys and values (B, T, KV, hd) of
+  the vision tokens or the encoder output, written once by the prefill
+  and only read by decode.
 
 A ``hybrid`` block is one pattern of ``block_len`` layers (jamba: the SSD
 mixer at 7 positions, attention at ``attn_index_in_block``, each followed
 by a gated MLP at even positions and MoE at odd ones), its sub-layers
-stacked inside the block along a ``sublayer`` axis.  The reference's
-``lax.scan`` over the stacked block axis is a Python loop over that axis.
-The ``audio`` and ``vlm`` families raise ``NotImplementedError``.
+stacked inside the block along a ``sublayer`` axis.  A ``vlm`` block is
+one pattern of ``cross_attn_every`` layers: ``cross_attn_every - 1``
+self-attention layers, then a cross-attention layer over the vision tokens
+(``batch["image_embeds"]``) whose output is gated by
+``tanh(cross_gate)`` (0 at init), each followed by an MLP.  An ``audio``
+decoder block is self attention, ungated cross attention over the
+encoder's output, MLP; the encoder (``enc_blocks``) is ``enc_layers``
+full-mask self-attention layers over ``batch["audio_embeds"]``.  The
+reference's ``lax.scan`` over the stacked block axis is a Python loop over
+that axis.
 """
 
 from __future__ import annotations
@@ -44,10 +56,6 @@ from repro_torch.models.common import (
     ParamSpec, Schema, apply_rope, cross_entropy_loss, init_params, rms_norm, tree_map,
 )
 from repro_torch.models.config import ModelConfig
-
-#: The families whose blocks the port has.
-PORTED_FAMILIES = ("ssm", "dense", "moe", "hybrid")
-
 
 def stack_schema(schema: Schema, n: int, axis: str = "layers") -> Schema:
     return tree_map(lambda s: ParamSpec((n,) + s.shape, (axis,) + s.axes, s.init, s.scale),
@@ -107,17 +115,17 @@ class RunFlags:
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the port's LM covers the {PORTED_FAMILIES} families, not "
-                f"{cfg.family!r} (ROADMAP queue 1, items 3-4)"
-            )
         self.cfg = cfg
         if cfg.family == "hybrid":
             if cfg.block_len <= 0 or cfg.n_layers % cfg.block_len:
                 raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of "
                                  f"block_len {cfg.block_len}")
             self.n_blocks = cfg.n_layers // cfg.block_len
+        elif cfg.family == "vlm":
+            if cfg.cross_attn_every <= 0 or cfg.n_layers % cfg.cross_attn_every:
+                raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of "
+                                 f"cross_attn_every {cfg.cross_attn_every}")
+            self.n_blocks = cfg.n_layers // cfg.cross_attn_every
         else:
             self.n_blocks = cfg.n_layers
 
@@ -156,15 +164,49 @@ class LM:
                 "mlp": stack_schema(ffn_mod.mlp_schema(cfg, cfg.d_ff), n_mlp, "sublayer"),
                 "moe": stack_schema(ffn_mod.moe_schema(cfg), n_moe, "sublayer"),
             }
+        if cfg.family == "vlm":
+            n_self = cfg.cross_attn_every - 1
+            per = cfg.cross_attn_every
+            return {
+                "self_norm": ParamSpec((n_self, d), ("sublayer", "embed"), init="ones"),
+                "self_attn": stack_schema(attn_mod.attn_schema(cfg), n_self, "sublayer"),
+                "cross_norm": _norm_spec(d),
+                "cross_attn": attn_mod.attn_schema(cfg, cross=True),
+                "cross_gate": ParamSpec((1,), (None,), init="zeros"),
+                "mlp_norm": ParamSpec((per, d), ("sublayer", "embed"), init="ones"),
+                "mlp": stack_schema(ffn_mod.mlp_schema(cfg, cfg.d_ff), per, "sublayer"),
+            }
+        if cfg.family == "audio":
+            return {  # decoder block
+                "self_norm": _norm_spec(d),
+                "self_attn": attn_mod.attn_schema(cfg),
+                "cross_norm": _norm_spec(d),
+                "cross_attn": attn_mod.attn_schema(cfg, cross=True),
+                "mlp_norm": _norm_spec(d),
+                "mlp": ffn_mod.mlp_schema(cfg, cfg.d_ff),
+            }
         return {"norm": _norm_spec(d), "ssm": ssm_mod.ssm_schema(cfg)}
+
+    def _enc_block_schema(self) -> Schema:
+        cfg = self.cfg
+        return {
+            "attn_norm": _norm_spec(cfg.d_model),
+            "attn": attn_mod.attn_schema(cfg),
+            "mlp_norm": _norm_spec(cfg.d_model),
+            "mlp": ffn_mod.mlp_schema(cfg, cfg.d_ff),
+        }
 
     def schema(self) -> Schema:
         cfg = self.cfg
-        return {
+        out = {
             "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), scale=1.0),
             "blocks": stack_schema(self._block_schema(), self.n_blocks),
             "final_norm": _norm_spec(cfg.d_model),
         }
+        if cfg.family == "audio":
+            out["enc_blocks"] = stack_schema(self._enc_block_schema(), cfg.enc_layers)
+            out["enc_norm"] = _norm_spec(cfg.d_model)
+        return out
 
     def init(self, key, dtype: torch.dtype = torch.bfloat16, device=None):
         """The reference's ``LM.init(key, dtype)``: weights drawn from the
@@ -188,13 +230,25 @@ class LM:
         v = torch.einsum("btd,dgk->btgk", h, ap["wv"])
         return x, {"k": k, "v": v}
 
-    def _apply_block(self, x, bp, *, flags: RunFlags, collect_kv: bool):
+    def _cross_attn(self, x, norm, ap, cross_src, flags: RunFlags):
+        """attention(rms_norm(x)) over ``cross_src``'s keys and values: the
+        full mask, no RoPE (the residual is the caller's)."""
+        return attn_mod.attention_forward(rms_norm(x, norm), ap, self.cfg, mask_kind="full",
+                                          kv_input=cross_src, use_rope=False,
+                                          impl=flags.attn_impl, q_chunk=flags.q_chunk)
+
+    def _apply_block(self, x, bp, *, flags: RunFlags, collect_kv: bool, cross_src=None):
         """Returns (x, aux loss (0-dim float32), this block's cache pieces
         or None): the RoPE'd keys and the values for ``dense`` and ``moe``,
-        the SSM cache for ``ssm``, both for ``hybrid``."""
+        the SSM cache for ``ssm``, both for ``hybrid``; for ``vlm`` and
+        ``audio`` the self-attention keys and values and the cross
+        sub-layer's of ``cross_src``."""
         cfg = self.cfg
         fam = cfg.family
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if fam in ("vlm", "audio"):
+            x, kvs = self._apply_cross_block(x, bp, flags, collect_kv, cross_src)
+            return x, aux, kvs
         if fam in ("dense", "moe"):
             x, kv = self._self_attn(x, bp["attn_norm"], bp["attn"], flags, collect_kv)
             h = rms_norm(x, bp["mlp_norm"])
@@ -241,7 +295,36 @@ class LM:
         kvs["ssm"] = _stack(ssm_caches)
         return x, aux, kvs
 
-    def _run_blocks(self, x, blocks, *, flags: RunFlags, collect_kv: bool = False):
+    def _apply_cross_block(self, x, bp, flags: RunFlags, collect_kv: bool, cross_src):
+        """A ``vlm`` pattern block (self-attention layers, then the gated
+        cross-attention layer, each with its MLP) or an ``audio`` decoder
+        block (self attention, cross attention, MLP).  Returns (x, cache
+        pieces or None)."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            x, self_kv = self._self_attn(x, bp["self_norm"], bp["self_attn"], flags, collect_kv)
+            x = x + self._cross_attn(x, bp["cross_norm"], bp["cross_attn"], cross_src, flags)
+            x = x + ffn_mod.mlp(rms_norm(x, bp["mlp_norm"]), bp["mlp"], cfg.act)
+        else:
+            n_self = cfg.cross_attn_every - 1
+            self_kvs = []
+            for i in range(n_self):
+                x, kv = self._self_attn(x, bp["self_norm"][i], _layer(bp["self_attn"], i), flags,
+                                        collect_kv)
+                self_kvs.append(kv)
+                x = x + ffn_mod.mlp(rms_norm(x, bp["mlp_norm"][i]), _layer(bp["mlp"], i), cfg.act)
+            y = self._cross_attn(x, bp["cross_norm"], bp["cross_attn"], cross_src, flags)
+            x = x + torch.tanh(bp["cross_gate"]).to(x.dtype) * y
+            x = x + ffn_mod.mlp(rms_norm(x, bp["mlp_norm"][n_self]), _layer(bp["mlp"], n_self),
+                                cfg.act)
+            self_kv = _stack(self_kvs) if collect_kv else None
+        if not collect_kv:
+            return x, None
+        ck, cv = attn_mod.precompute_cross_kv(cross_src, bp["cross_attn"])
+        return x, {"self": self_kv, "cross": {"k": ck, "v": cv}}
+
+    def _run_blocks(self, x, blocks, *, flags: RunFlags, collect_kv: bool = False,
+                    cross_src=None):
         """(x, the blocks' aux losses summed in block order, the stacked
         caches or None)."""
         remat = flags.remat == "block" and not collect_kv and torch.is_grad_enabled()
@@ -251,24 +334,59 @@ class LM:
             bp = _layer(blocks, i)
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(
-                    self._block_out, x, bp, flags, use_reentrant=False)
+                    self._block_out, x, bp, flags, cross_src, use_reentrant=False)
             else:
-                x, a, cache = self._apply_block(x, bp, flags=flags, collect_kv=collect_kv)
+                x, a, cache = self._apply_block(x, bp, flags=flags, collect_kv=collect_kv,
+                                                cross_src=cross_src)
                 caches.append(cache)
             aux = aux + a
         return x, aux, (_stack(caches) if collect_kv else None)
 
-    def _block_out(self, x, bp, flags: RunFlags):
-        return self._apply_block(x, bp, flags=flags, collect_kv=False)[:2]
+    def _block_out(self, x, bp, flags: RunFlags, cross_src=None):
+        return self._apply_block(x, bp, flags=flags, collect_kv=False, cross_src=cross_src)[:2]
+
+    def _encode(self, params, audio_embeds, flags: RunFlags):
+        """The audio encoder: ``enc_layers`` full-mask self-attention layers
+        (RoPE at positions 0..F-1) with their MLPs over the frame
+        embeddings (B, F, D), then ``enc_norm``."""
+        remat = flags.remat == "block" and torch.is_grad_enabled()
+        x = audio_embeds
+        for i in range(self.cfg.enc_layers):
+            bp = _layer(params["enc_blocks"], i)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(self._enc_block, x, bp, flags,
+                                                      use_reentrant=False)
+            else:
+                x = self._enc_block(x, bp, flags)
+        return rms_norm(x, params["enc_norm"])
+
+    def _enc_block(self, x, bp, flags: RunFlags):
+        cfg = self.cfg
+        x = x + attn_mod.attention_forward(rms_norm(x, bp["attn_norm"]), bp["attn"], cfg,
+                                           mask_kind="full", impl=flags.attn_impl,
+                                           q_chunk=flags.q_chunk)
+        return x + ffn_mod.mlp(rms_norm(x, bp["mlp_norm"]), bp["mlp"], cfg.act)
+
+    def _cross_source(self, params, batch: Dict[str, Any], flags: RunFlags):
+        """What the cross sub-layers attend to: the encoded
+        ``audio_embeds`` (audio), the ``image_embeds`` as given (vlm), or
+        None."""
+        if self.cfg.family == "audio":
+            return self._encode(params, batch["audio_embeds"], flags)
+        if self.cfg.family == "vlm":
+            return batch["image_embeds"]
+        return None
 
     # -- training loss --------------------------------------------------------
     def loss_fn(self, params, batch: Dict[str, Any], flags: RunFlags = RunFlags()):
-        """batch: tokens (B,S) and labels (B,S), integers.  Returns
-        ``(ce + aux, {"ce": ce, "aux": aux})``; ``aux`` is the MoE layers'
-        router losses summed over blocks (0 for families without MoE)."""
+        """batch: tokens (B,S) and labels (B,S), integers [+ audio_embeds
+        (B,F,D) | image_embeds (B,V,D)].  Returns ``(ce + aux, {"ce": ce,
+        "aux": aux})``; ``aux`` is the MoE layers' router losses summed over
+        blocks (0 for families without MoE)."""
         cfg = self.cfg
         x = params["embed"][batch["tokens"].long()]
-        x, aux, _ = self._run_blocks(x, params["blocks"], flags=flags)
+        cross_src = self._cross_source(params, batch, flags)
+        x, aux, _ = self._run_blocks(x, params["blocks"], flags=flags, cross_src=cross_src)
         x = rms_norm(x, params["final_norm"])
         if flags.loss_impl == "chunked":
             loss = self._chunked_ce(x, params["embed"], batch["labels"], flags)
@@ -317,6 +435,13 @@ class LM:
             layer = attn_mod.init_kv_cache(cfg, batch, self.kv_window(max_seq), dtype, device)
         elif cfg.family == "ssm":
             layer = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+        elif cfg.family in ("vlm", "audio"):
+            kv = attn_mod.init_kv_cache(cfg, batch, self.kv_window(max_seq), dtype, device)
+            n_cross = cfg.vision_tokens if cfg.family == "vlm" else cfg.audio_frames
+            layer = {
+                "self": _stack([kv] * (cfg.cross_attn_every - 1)) if cfg.family == "vlm" else kv,
+                "cross": attn_mod.init_kv_cache(cfg, batch, n_cross, dtype, device),
+            }
         else:
             layer = {
                 "attn": attn_mod.init_kv_cache(cfg, batch, self.kv_window(max_seq), dtype,
@@ -332,10 +457,12 @@ class LM:
     # -- decode ---------------------------------------------------------------
     def _decode_block(self, x, bp, bc, pos, flags: RunFlags):
         """One block of a decode step; writes its new state into ``bc``
-        (for ``hybrid``, each sub-layer into its view of the stacked
-        cache)."""
+        (for ``hybrid`` and ``vlm``, each sub-layer into its view of the
+        stacked cache; the cross keys and values are only read)."""
         cfg = self.cfg
         fam = cfg.family
+        if fam in ("vlm", "audio"):
+            return self._decode_cross_block(x, bp, bc, pos)
         if fam in ("dense", "moe"):
             h = rms_norm(x, bp["attn_norm"])
             y, _ = attn_mod.decode_attention(h, bp["attn"], bc, pos, cfg)
@@ -373,6 +500,32 @@ class LM:
             x = x + y
         return x
 
+    def _decode_cross_block(self, x, bp, bc, pos):
+        """A ``vlm`` pattern block or an ``audio`` decoder block of a decode
+        step (see :meth:`_apply_cross_block`)."""
+        cfg = self.cfg
+
+        def cross(x, norm):
+            return attn_mod.decode_cross_attention(rms_norm(x, norm), bp["cross_attn"],
+                                                   bc["cross"]["k"], bc["cross"]["v"], cfg)
+
+        if cfg.family == "audio":
+            y, _ = attn_mod.decode_attention(rms_norm(x, bp["self_norm"]), bp["self_attn"],
+                                             bc["self"], pos, cfg)
+            x = x + y
+            x = x + cross(x, bp["cross_norm"])
+            return x + ffn_mod.mlp(rms_norm(x, bp["mlp_norm"]), bp["mlp"], cfg.act)
+        n_self = cfg.cross_attn_every - 1
+        for i in range(n_self):
+            y, _ = attn_mod.decode_attention(rms_norm(x, bp["self_norm"][i]),
+                                             _layer(bp["self_attn"], i), _layer(bc["self"], i),
+                                             pos, cfg)
+            x = x + y
+            x = x + ffn_mod.mlp(rms_norm(x, bp["mlp_norm"][i]), _layer(bp["mlp"], i), cfg.act)
+        x = x + torch.tanh(bp["cross_gate"]).to(x.dtype) * cross(x, bp["cross_norm"])
+        return x + ffn_mod.mlp(rms_norm(x, bp["mlp_norm"][n_self]), _layer(bp["mlp"], n_self),
+                               cfg.act)
+
     def decode_fn(self, params, cache, token, flags: RunFlags = RunFlags()):
         """One serve step.  token: (B, 1) int -> (logits (B, vocab), cache).
 
@@ -382,7 +535,8 @@ class LM:
         caches and the SSM state for ``ssm``) and ``pos`` advances in
         place, so the returned cache is the one passed in (``moe`` as
         ``dense``; ``hybrid`` both, each sub-layer in its view of the
-        stacked cache).  A caller that
+        stacked cache; ``vlm`` and ``audio`` their self caches, the cross
+        keys and values read, never copied).  A caller that
         needs the old cache again clones it first.  Nothing here waits for
         the host, so the step can be captured in a CUDA graph."""
         pos = cache["pos"]
@@ -398,14 +552,17 @@ class LM:
     # -- prefill --------------------------------------------------------------
     def prefill_fn(self, params, batch: Dict[str, Any], max_seq: int,
                    flags: RunFlags = RunFlags()) -> Tuple[torch.Tensor, dict]:
-        """Prompt pass: batch["tokens"] (B,S) -> (last-token logits, cache).
+        """Prompt pass: batch["tokens"] (B,S) [+ audio_embeds | image_embeds]
+        -> (last-token logits, cache).
 
         The cache is laid out as ``init_cache(B, max_seq)``, so ``decode_fn``
         continues from position S."""
         tokens = batch["tokens"]
         s = tokens.shape[1]
         x = params["embed"][tokens.long()]
-        x, _, kvs = self._run_blocks(x, params["blocks"], flags=flags, collect_kv=True)
+        cross_src = self._cross_source(params, batch, flags)
+        x, _, kvs = self._run_blocks(x, params["blocks"], flags=flags, collect_kv=True,
+                                     cross_src=cross_src)
         x = rms_norm(x, params["final_norm"])
         logits = torch.einsum("bd,vd->bv", x[:, -1], params["embed"])[:, : self.cfg.vocab_size]
         pos = torch.tensor(s, dtype=torch.int32, device=tokens.device)
@@ -424,11 +581,14 @@ class LM:
         inv[slots] = np.arange(w)
         return last[:, torch.from_numpy(inv).to(k.device)]
 
-    def _ring_pack_stacked(self, k: torch.Tensor, s: int, w: int) -> torch.Tensor:
-        """k: (L, B, S, KV, hd) stacked over layers; the reference's
-        ``vmap`` over L is a fold of L into the batch axis."""
-        packed = self._ring_pack(k.reshape((-1,) + tuple(k.shape[2:])), s, w)
-        return packed.reshape(tuple(k.shape[:2]) + tuple(packed.shape[1:]))
+    def _ring_pack_stacked(self, k: torch.Tensor, s: int, w: int,
+                           extra_lead: int = 0) -> torch.Tensor:
+        """k: (L[, sub], B, S, KV, hd) stacked over layers (and sub-layers
+        with ``extra_lead``); the reference's ``vmap`` over the stacked
+        axes is a fold of them into the batch axis."""
+        n = 2 + extra_lead
+        packed = self._ring_pack(k.reshape((-1,) + tuple(k.shape[n:])), s, w)
+        return packed.reshape(tuple(k.shape[:n]) + tuple(packed.shape[1:]))
 
     def _pack_cache(self, kvs, s: int, w: int):
         fam = self.cfg.family
@@ -437,6 +597,13 @@ class LM:
                     "v": self._ring_pack_stacked(kvs["v"], s, w)}
         if fam == "ssm":
             return kvs  # stacked ssm caches from prefill
+        if fam in ("vlm", "audio"):
+            lead = 1 if fam == "vlm" else 0
+            return {
+                "self": {"k": self._ring_pack_stacked(kvs["self"]["k"], s, w, lead),
+                         "v": self._ring_pack_stacked(kvs["self"]["v"], s, w, lead)},
+                "cross": kvs["cross"],
+            }
         return {
             "attn": {"k": self._ring_pack_stacked(kvs["attn"]["k"], s, w),
                      "v": self._ring_pack_stacked(kvs["attn"]["v"], s, w)},

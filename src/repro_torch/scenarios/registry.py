@@ -1,6 +1,6 @@
 """Scenario registry (port of ``repro/scenarios/registry.py``, without the
 chaos and streaming-source fields: fault injection and trace replays wait,
-ROADMAP queue 1, items 9b and 9c).
+ROADMAP queue 1, items 7b and 7c).
 
 A scenario bundles a cluster shape, a job list and the contention model;
 builders are registered by name and instantiated with :func:`get_scenario`.
@@ -40,7 +40,7 @@ class Scenario:
     #: static gang scheduling and ignores them, as the reference's does.
     #: The port's engine is static only, and the reference's
     #: ``checkpoint_cost`` field waits with the preemptive policy that
-    #: reads it (ROADMAP queue 1, item 9a)
+    #: reads it (ROADMAP queue 1, item 7a)
     sched: str = "static"
     preemption_quantum: Optional[float] = None
     exclusive_gpus: bool = False

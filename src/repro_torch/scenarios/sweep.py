@@ -1,5 +1,5 @@
 """Runs of registered scenarios (port of ``repro/scenarios/sweep.py``
-without the multiprocessing ``sweep`` runner, ROADMAP queue 1, item 9h).
+without the multiprocessing ``sweep`` runner, ROADMAP queue 1, item 7h).
 
 * :func:`run_scenario_event` — one exact event-engine simulation of a
   scenario, on the host.
@@ -58,9 +58,9 @@ def run_scenario_event(
     scenario's scheduling fields (``sched``, ``exclusive_gpus``) are
     defaults that ``sim_kw`` overrides; ``max_time`` goes to ``run``.  Its
     ``preemption_quantum`` is the preemptive policies' tick, which the
-    static engine does not read (ROADMAP queue 1, item 9a).  The
+    static engine does not read (ROADMAP queue 1, item 7a).  The
     reference's scenarios with fault injection or a streaming trace source
-    are not registered here (items 9b and 9c)."""
+    are not registered here (items 7b and 7c)."""
     sim_kw.setdefault("fusion", scenario.fusion)
     sim_kw.setdefault("sched", scenario.sched)
     sim_kw.setdefault("exclusive_gpus", scenario.exclusive_gpus)

@@ -187,15 +187,24 @@ class TestLayers:
             assert np.abs(_f32(got) - exact).max() <= np.abs(_f32(ref) - exact).max()
 
     def test_attention_forward_waits_for_other_masks(self, model):
-        """Cross attention and the full mask wait for the vlm and audio
-        families (the sliding mask computes: tests/test_torch_sliding_lm.py)."""
-        _, _, pp = model
-        _, tx = _acts("float32", (B, 8, CFG.d_model), seed=4)
-        ap = _layer0(pp["blocks"]["attn"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pattn.attention_forward(tx, ap, CFG, kv_input=tx)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pattn.attention_forward(tx, ap, CFG, mask_kind="full")
+        """The full mask and cross attention (``kv_input`` of T 40 != S 8),
+        which waited for the vlm and audio families, compute as the
+        reference's, with and without RoPE; an unknown mask raises (the
+        sliding mask: tests/test_torch_sliding_lm.py)."""
+        name, jp, pp = model
+        jx, tx = _acts(name, (B, 8, CFG.d_model), seed=4)
+        jsrc, tsrc = _acts(name, (B, 40, CFG.d_model), seed=5)
+        ap, jap = _layer0(pp["blocks"]["attn"]), _layer0(jp["blocks"]["attn"])
+        for cross in (False, True):
+            for use_rope in (True, False):
+                got = pattn.attention_forward(tx, ap, CFG, mask_kind="full", use_rope=use_rope,
+                                              kv_input=tsrc if cross else None)
+                ref = jattn.attention_forward(jx, jap, JCFG, mask_kind="full", use_rope=use_rope,
+                                              kv_input=jsrc if cross else None, q_chunk=4)
+                assert got.dtype == DTYPES[name][1] and tuple(got.shape) == (B, 8, CFG.d_model)
+                _close(got, ref, BAR[name], f"cross {cross} rope {use_rope}")
+        with pytest.raises(ValueError, match="mask_kind"):
+            pattn.attention_forward(tx, ap, CFG, mask_kind="diagonal")
 
     @pytest.mark.parametrize("pos", [0, 13, 40])
     def test_decode_attention(self, model, pos):

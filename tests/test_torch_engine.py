@@ -52,7 +52,7 @@ def assert_same_result(got, ref):
 
 def test_registers_every_fluid_scenario():
     """The port registers the reference's scenarios but for the chaos and
-    trace-replay ones (ROADMAP queue 1, items 9b and 9c)."""
+    trace-replay ones (ROADMAP queue 1, items 7b and 7c)."""
     ref = {n for n in R.scenario_names()
            if not n.startswith("chaos_") and not n.startswith("trace_replay_")}
     assert set(NAMES) == ref
@@ -141,18 +141,18 @@ class TestNotPorted:
     """What the trimmed engine leaves out raises, naming its ROADMAP item."""
 
     @pytest.mark.parametrize("kw, item", [
-        (dict(sched="preemptive_srsf"), "9a"),
-        (dict(sched="elastic"), "9a"),
-        (dict(preemption_quantum=10.0), "9a"),
-        (dict(checkpoint_cost=3.0), "9a"),
-        (dict(chaos=object()), "9b"),
-        (dict(record_trace=True), "9d"),
-        (dict(comm_chunks=4), "9e"),
-        (dict(contention_domain="link"), "9e"),
-        (dict(observe=object()), "9f"),
-        (dict(profile_phases=True), "9f"),
-        (dict(gating="rescan"), "9g"),
-        (dict(workloads="rescan"), "9g"),
+        (dict(sched="preemptive_srsf"), "7a"),
+        (dict(sched="elastic"), "7a"),
+        (dict(preemption_quantum=10.0), "7a"),
+        (dict(checkpoint_cost=3.0), "7a"),
+        (dict(chaos=object()), "7b"),
+        (dict(record_trace=True), "7d"),
+        (dict(comm_chunks=4), "7e"),
+        (dict(contention_domain="link"), "7e"),
+        (dict(observe=object()), "7f"),
+        (dict(profile_phases=True), "7f"),
+        (dict(gating="rescan"), "7g"),
+        (dict(workloads="rescan"), "7g"),
     ])
     def test_raises(self, kw, item):
         jobs = scenario("port", "smoke").job_list()
@@ -164,7 +164,7 @@ class TestNotPorted:
             def arrivals(self):
                 return iter(())
 
-        with pytest.raises(NotImplementedError, match=r"item 9c\b"):
+        with pytest.raises(NotImplementedError, match=r"item 7c\b"):
             pengine.EventEngine(Source())
 
     def test_bad_names_raise(self):

@@ -34,13 +34,16 @@ from test_torch_flash_attention_cuda import PEAKED, tensor_core_emulation
 torch.set_num_threads(1)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
-#: (bh, s, t, d, causal): TestFlashAttention's default shapes, and causal
-#: attention with S != T both ways
+#: (bh, s, t, d, causal): TestFlashAttention's default shapes, causal
+#: attention with S != T both ways, and the full mask (cross attention's)
+#: at D 64 with T one key past a 64-key tile
 SHAPES = [
     (4, 256, 256, 64, True),
     (3, 200, 200, 64, True),
     (2, 128, 384, 64, True),
     (2, 384, 128, 32, True),
+    (2, 64, 65, 64, False),
+    (2, 100, 129, 64, False),
 ]
 
 

@@ -82,7 +82,10 @@ def tensor_core_emulation(q, k, v, *, causal=True, scale=None, round_p=True):
 #: the tensor-core path's 64-row tiles (both ways) and D 128 causal; then
 #: head dim 256 (the tensor-core path's DP-256 instantiation in bf16) with S
 #: and T off the tiles and at gemma-7b's prefill shape (batch 8 x 16 heads,
-#: prompt 512), and arctic-480b's (batch 8 x 64 padded heads, D 128).
+#: prompt 512), and arctic-480b's (batch 8 x 64 padded heads, D 128); then
+#: the full mask at the cross and encoder attention's regime: D 128 over
+#: the VLM's 1,601 vision tokens (a last key tile of one valid key) and D
+#: 64 over 3,000 audio frames (25 * 64 + 1 and 46 * 64 + 56 keys).
 SHAPES = [
     (4, 256, 256, 64, True),
     (3, 200, 200, 64, True),
@@ -101,6 +104,8 @@ SHAPES = [
     (2, 130, 70, 256, True),
     (128, 512, 512, 256, True),
     (512, 512, 512, 128, True),
+    (2, 64, 1601, 128, False),
+    (2, 200, 3000, 64, False),
 ]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

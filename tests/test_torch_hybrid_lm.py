@@ -18,6 +18,7 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models import lm as jlm
+from repro.models.config import ModelConfig as JModelConfig
 from repro_torch import prng
 from repro_torch.configs import get_config
 from repro_torch.models import lm as plm
@@ -88,11 +89,18 @@ class TestJamba(LMParity):
 
 
 def test_other_families_raise():
-    """The enc-dec and vlm families are still unported (ROADMAP queue 1,
-    items 3-4): their configs' counts and LMs raise."""
+    """Every family of the reference builds now (the enc-dec and vlm ones
+    since their slice, with the reference's analytic counts); a vlm whose
+    layers are not whole pattern blocks raises, where the reference's
+    ``assert`` stops it."""
     cfg = ModelConfig(name="x", family="audio", n_layers=2, d_model=64, vocab_size=128,
-                      n_heads=4, n_kv_heads=4, d_ff=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plm.LM(cfg)
-    with pytest.raises(NotImplementedError, match="items 3-4"):
-        cfg.param_count()
+                      n_heads=4, n_kv_heads=4, d_ff=64, enc_layers=2)
+    ref = JModelConfig(name="x", family="audio", n_layers=2, d_model=64, vocab_size=128,
+                       n_heads=4, n_kv_heads=4, d_ff=64, enc_layers=2)
+    assert plm.LM(cfg).n_blocks == 2
+    assert cfg.param_count() == ref.param_count()
+    for every in (0, 3):
+        vlm = ModelConfig(name="v", family="vlm", n_layers=5, d_model=64, vocab_size=128,
+                          n_heads=4, n_kv_heads=4, d_ff=64, cross_attn_every=every)
+        with pytest.raises(ValueError, match="cross_attn_every"):
+            plm.LM(vlm)

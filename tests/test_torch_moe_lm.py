@@ -62,7 +62,8 @@ CONFIG_FIELDS = ("name", "family", "n_layers", "d_model", "vocab_size", "n_heads
                  "n_experts", "experts_per_token", "moe_d_ff", "moe_every", "moe_offset",
                  "dense_residual", "capacity_factor", "router_aux_weight", "router_z_weight",
                  "ssm_state", "ssm_head_dim", "ssm_expand", "ssm_conv_width", "ssm_chunk",
-                 "block_len", "attn_index_in_block", "padded_heads", "source", "dtype")
+                 "block_len", "attn_index_in_block", "enc_layers", "audio_frames",
+                 "cross_attn_every", "vision_tokens", "padded_heads", "source", "dtype")
 
 
 def _f32(a):
@@ -134,7 +135,10 @@ def _flat_ref(tree):
 class LMParity:
     """The port's LM of ``ARCH``'s reduced config (with ``OVERRIDES``
     replaced on both sides) against the reference's.  A config without
-    experts is held the same way: no routing to record, aux 0."""
+    experts is held the same way: no routing to record, aux 0.  The audio
+    and vlm families also take their stub frontend's embeddings
+    (:meth:`_embeds`), and a subclass may change the reference's weights
+    before both sides get them (:meth:`_params`)."""
 
     ARCH = ""
     #: the full config's analytic parameter count
@@ -167,15 +171,33 @@ class LMParity:
         """(dtype name, JAX params, port params) with the same weights."""
         name = request.param
         jdt, tdt = DTYPES[name]
-        jparams = jlm.LM(self.jcfg).init(jax.random.PRNGKey(0), jdt)
+        jparams = self._params(jlm.LM(self.jcfg).init(jax.random.PRNGKey(0), jdt))
         pparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
         assert pparams["embed"].dtype == tdt
         return name, jparams, pparams
+
+    def _params(self, jparams):
+        """The reference's weights as both sides get them (unchanged here)."""
+        return jparams
 
     def _tokens(self, seed, s=None):
         s = self.S if s is None else s
         toks = np.random.default_rng(seed).integers(0, self.cfg.vocab_size, (B, s))
         return jnp.asarray(toks, jnp.int32), torch.from_numpy(toks).to(torch.int32)
+
+    def _embeds(self, name, seed=7):
+        """(reference batch entries, port batch entries): the audio and vlm
+        families' stub frontend output, (B, audio_frames | vision_tokens,
+        d_model) standard normals made with numpy, in the model's dtype;
+        empty for the other families."""
+        cfg = self.cfg
+        if cfg.family not in ("audio", "vlm"):
+            return {}, {}
+        key, n = (("audio_embeds", cfg.audio_frames) if cfg.family == "audio"
+                  else ("image_embeds", cfg.vision_tokens))
+        x = np.random.default_rng(seed).standard_normal((B, n, cfg.d_model)).astype(np.float32)
+        jdt, tdt = DTYPES[name]
+        return {key: jnp.asarray(x, jdt)}, {key: torch.from_numpy(x).to(tdt)}
 
     def _run_port(self, name, run, ref_ids):
         """``run()`` on the port with its routing recorded; float32 must
@@ -208,6 +230,7 @@ class LMParity:
             ref.is_moe_layer(i) for i in range(ref.n_layers)]
         assert got.param_count() == ref.param_count()
         assert got.param_count(padded=True) == ref.param_count(padded=True)
+        assert got.active_param_count() == ref.active_param_count()
         if not reduced:
             assert got.param_count() == self.FULL_PARAMS
         assert served_config(self.ARCH, reduced=reduced) is got
@@ -262,12 +285,13 @@ class LMParity:
         name, jp, pp = model
         jt, tt = self._tokens(1)
         jl, jlab = self._tokens(2)
+        je, te = self._embeds(name)
         with record_ref_routing() as ref_ids:
             ref, rm = jax.jit(lambda p, b: jlm.LM(self.jcfg).loss_fn(p, b, FLAGS))(
-                jp, {"tokens": jt, "labels": jl})
+                jp, {"tokens": jt, "labels": jl, **je})
             jax.effects_barrier()
         got, gm = self._run_port(name, lambda: plm.LM(self.cfg).loss_fn(
-            pp, {"tokens": tt, "labels": jlab}, PFLAGS), ref_ids)
+            pp, {"tokens": tt, "labels": jlab, **te}, PFLAGS), ref_ids)
         if self.cfg.n_experts:
             assert float(gm["aux"]) > 0 and float(rm["aux"]) > 0
         else:
@@ -293,13 +317,15 @@ class LMParity:
         """Last-token logits and every cache leaf."""
         name, jp, pp = model
         jt, tt = self._tokens(8)
+        je, te = self._embeds(name)
         with record_ref_routing() as ref_ids:
             logits_ref, cache_ref = jax.jit(
-                lambda p, t: jlm.LM(self.jcfg).prefill_fn(p, {"tokens": t}, max_seq=self.S + 8,
-                                                          flags=FLAGS))(jp, jt)
+                lambda p, t, e: jlm.LM(self.jcfg).prefill_fn(p, {"tokens": t, **e},
+                                                             max_seq=self.S + 8, flags=FLAGS))(
+                jp, jt, je)
             jax.effects_barrier()
         logits, cache = self._run_port(name, lambda: plm.LM(self.cfg).prefill_fn(
-            pp, {"tokens": tt}, max_seq=self.S + 8), ref_ids)
+            pp, {"tokens": tt, **te}, max_seq=self.S + 8), ref_ids)
         assert tuple(logits.shape) == (B, self.cfg.vocab_size)
         _close(logits, logits_ref, BAR[name])
         self._compare_cache(cache, cache_ref, name)
@@ -314,12 +340,13 @@ class LMParity:
     def _decode_check(self, model, s, steps):
         name, jp, pp = model
         jt, tt = self._tokens(9, s=s)
+        je, te = self._embeds(name)
         max_seq = s + max(8, steps)
         forced = np.random.default_rng(10).integers(0, self.cfg.vocab_size, (steps, B, 1))
         jlm_, plm_ = jlm.LM(self.jcfg), plm.LM(self.cfg)
         with record_ref_routing() as ref_ids:
-            _, jcache = jax.jit(lambda p, t: jlm_.prefill_fn(p, {"tokens": t}, max_seq=max_seq,
-                                                             flags=FLAGS))(jp, jt)
+            _, jcache = jax.jit(lambda p, t, e: jlm_.prefill_fn(
+                p, {"tokens": t, **e}, max_seq=max_seq, flags=FLAGS))(jp, jt, je)
             jdec = jax.jit(lambda p, c, t: jlm_.decode_fn(p, c, t, FLAGS))
             ref_logits = []
             for step in range(steps):
@@ -328,7 +355,7 @@ class LMParity:
             jax.effects_barrier()
 
         def run():
-            _, pcache = plm_.prefill_fn(pp, {"tokens": tt}, max_seq=max_seq)
+            _, pcache = plm_.prefill_fn(pp, {"tokens": tt, **te}, max_seq=max_seq)
             ptrs = {k: t.data_ptr() for k, t in pcommon.tree_leaves(pcache)}
             out = []
             for step in range(steps):
@@ -339,9 +366,9 @@ class LMParity:
 
         exact = c32 = None
         if name == "bfloat16":  # the float32 evaluation of the same weights
-            jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
-            _, c32 = jax.jit(lambda p, t: jlm_.prefill_fn(p, {"tokens": t}, max_seq=max_seq,
-                                                          flags=FLAGS))(jp32, jt)
+            jp32, je32 = (jax.tree.map(lambda a: a.astype(jnp.float32), t) for t in (jp, je))
+            _, c32 = jax.jit(lambda p, t, e: jlm_.prefill_fn(
+                p, {"tokens": t, **e}, max_seq=max_seq, flags=FLAGS))(jp32, jt, je32)
             exact = []
             for step in range(steps):
                 l32, c32 = jdec(jp32, c32, jnp.asarray(forced[step], jnp.int32))
@@ -371,13 +398,14 @@ class LMParity:
         of a prefill over S + 1 tokens (the reference's own bar, 0.15;
         ``tests/test_models.py::TestDecodeMatchesPrefill``: prefill drops
         choices past capacity, decode at capacity 4 never does)."""
-        _, _, pp = model
+        name, _, pp = model
         s = self.S
         _, toks = self._tokens(11, s=s + 1)
+        _, te = self._embeds(name)
         lm = plm.LM(self.cfg)
-        _, cache = lm.prefill_fn(pp, {"tokens": toks[:, :s]}, max_seq=s + 4)
+        _, cache = lm.prefill_fn(pp, {"tokens": toks[:, :s], **te}, max_seq=s + 4)
         dec, _ = lm.decode_fn(pp, cache, toks[:, s:s + 1])
-        ref, _ = lm.prefill_fn(pp, {"tokens": toks}, max_seq=s + 4)
+        ref, _ = lm.prefill_fn(pp, {"tokens": toks, **te}, max_seq=s + 4)
         np.testing.assert_allclose(_f32(dec), _f32(ref), atol=0.15, rtol=0.15)
 
 

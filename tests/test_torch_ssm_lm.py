@@ -86,21 +86,23 @@ class TestConfig:
             assert got.param_count(padded=True) == ref.param_count(padded=True)
 
     def test_other_archs_raise(self):
-        """The port serves every text-only arch; the vlm and audio archs (and
-        unknown ones) have no config in it yet."""
-        from repro_torch.configs import served_config
+        """The port serves every arch of the reference (the vlm and audio
+        archs since their slice); an unknown arch raises."""
+        from repro.configs import ARCH_IDS as JARCH_IDS
+        from repro_torch.configs import ARCH_IDS, served_config
 
         assert get_config("olmoe-1b-7b").family == "moe"
         assert get_config("arctic-480b").family == "moe"
         assert get_config("jamba-v0.1-52b").family == "hybrid"
-        for arch in ("olmoe-1b-7b", "jamba-v0.1-52b", "mamba2-130m", "llama3.2-1b",
-                     "arctic-480b", "gemma-7b", "yi-9b", "phi4-mini-3.8b"):
+        assert get_config("llama-3.2-vision-11b").family == "vlm"
+        assert get_config("seamless-m4t-large-v2").family == "audio"
+        assert ARCH_IDS == JARCH_IDS
+        for arch in ARCH_IDS:
             assert served_config(arch) is get_config(arch)
             assert plm.LM(served_config(arch, reduced=True)).cfg is get_config(arch, reduced=True)
-        for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2", "no-such-arch"):
-            for lookup in (get_config, served_config):
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    lookup(arch)
+        for lookup in (get_config, served_config):
+            with pytest.raises(ValueError, match="unknown arch"):
+                lookup("no-such-arch")
 
     def test_schema_matches_reference(self):
         got = dict(pcommon.tree_leaves(plm.LM(CFG).schema()))
@@ -134,16 +136,16 @@ class TestConfig:
         assert torch.equal(ssm["A_log"], torch.zeros_like(ssm["A_log"]))
         std = float(ssm["out_proj"].std())
         assert abs(std - 0.5 / np.sqrt(CFG.ssm_d_inner)) < 0.05 * std
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            plm.LM(_unported_config())
+        with pytest.raises(ValueError, match="cross_attn_every"):
+            plm.LM(_unbuildable_config())
 
 
-def _unported_config():
-    """A family the port does not serve yet (enc-dec audio)."""
+def _unbuildable_config():
+    """A vlm whose 4 layers are not whole pattern blocks of 5."""
     from repro_torch.models.config import ModelConfig
 
-    return ModelConfig(name="audio-x", family="audio", n_layers=2, d_model=64, vocab_size=128,
-                       n_heads=4, n_kv_heads=4)
+    return ModelConfig(name="vlm-x", family="vlm", n_layers=4, d_model=64, vocab_size=128,
+                       n_heads=4, n_kv_heads=4, cross_attn_every=5)
 
 
 class TestLayers:

@@ -31,7 +31,6 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import common as jcommon
 from repro.models import lm as jlm
-from repro_torch import prng
 from repro_torch.configs import get_config
 from repro_torch.models import common as pcommon
 from repro_torch.models import lm as plm
@@ -43,16 +42,19 @@ torch.set_num_threads(1)
 
 def grads_match_jax_grad(case: LMParity):
     """float32 grads of the total loss against ``jax.grad``, 1e-4 of each
-    leaf's scale; the losses at rtol 1e-5."""
-    jp = jlm.LM(case.jcfg).init(jax.random.PRNGKey(0), jnp.float32)
-    pp = plm.LM(case.cfg).init(prng.PRNGKey(0), torch.float32, "cpu")
+    leaf's scale; the losses at rtol 1e-5.  The weights are the
+    reference's init (as ``case._params`` leaves them) and the batch
+    carries ``case._embeds`` where the family takes them."""
+    jp = case._params(jlm.LM(case.jcfg).init(jax.random.PRNGKey(0), jnp.float32))
+    pp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     jt, tt = case._tokens(3)
     jl, tl = case._tokens(4)
+    je, te = case._embeds("float32")
     jloss, grads = jax.value_and_grad(lambda p: jlm.LM(case.jcfg).loss_fn(
-        p, {"tokens": jt, "labels": jl}, FLAGS)[0])(jp)
+        p, {"tokens": jt, "labels": jl, **je}, FLAGS)[0])(jp)
     for _, t in pcommon.tree_leaves(pp):
         t.requires_grad_()
-    loss, _ = plm.LM(case.cfg).loss_fn(pp, {"tokens": tt, "labels": tl}, PFLAGS)
+    loss, _ = plm.LM(case.cfg).loss_fn(pp, {"tokens": tt, "labels": tl, **te}, PFLAGS)
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
     ref = dict(zip([k for k, _ in pcommon.tree_leaves(pp)], jax.tree.leaves(grads)))
