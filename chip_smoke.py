@@ -62,7 +62,9 @@ Phases (any failed check raises, so the exit code is non-zero):
 10. the model_zoo ada and paper kway2 batches again with the plain step
     core in the graph and with the kernel eagerly (the eager runs, and
     phase 5's, in worker processes): finished mask, every finish tick and
-    chunk count identical to phase 9;
+    chunk count identical to phase 9; the eager kway2 run at half phase
+    9's depth (iterations 50-300), held to the same batch through the
+    graph, so that phases 10-11 fit the time limit;
 11. fusion_sweep (2 seeds, 32 MB) and model_zoo (2 seeds, 12 jobs) under
     ada, srsf2, kway2 and ada with ``gating="rounds"``, on the card and on
     the CPU (worker processes): identical finish ticks; on a difference,
@@ -284,13 +286,34 @@ Phases (any failed check raises, so the exit code is non-zero):
     decoder's weights);
 47. the reduced vision and audio configs (their wq and wk scaled by 1/4,
     the VLM's cross gates at 0.5, on both sides), as phase 37: identical
-    tokens on the card and on the CPU.
+    tokens on the card and on the CPU;
+48. rematerialisation on the training main path: phase 25's llama3.2-1b
+    run (batch 8 x seq 512, 8 steps, bf16) again with ``remat="dots"``
+    (each block selectively checkpointed: the products with no batch
+    dimension saved, the rest recomputed) and with ``remat="block"``,
+    beside phase 25's ``"none"``: step 1's loss identical to phase 25's,
+    the later losses within phase 26's bar (0.15 of the loss, relative),
+    ``torch.cuda.max_memory_allocated`` ordered block < dots < none, and
+    exactly 16 layers x 8 steps x 2 flash launches per run (the forward,
+    and the recompute's forward in the backward pass: the kernel is bound
+    through ctypes, so the checkpoint runs it again); step ms and peak
+    memory of the three;
+49. the dynamic event engine on the host, seed 0, comm ada, at registered
+    size: ``preemption_gain`` under ``sched`` static and
+    preemptive_srsf, ``elastic_surge`` under static and elastic, the three
+    ``chaos_*`` scenarios (fault injection) and the three
+    ``trace_replay_*`` (arrivals streamed from their sources): each run's
+    avg JCT and its preemption, resize, fault, cancellation and censored
+    counts ``==`` the JAX reference's on the CPU
+    (``scripts/event_dynamic_reference.py``), in phase 31-32's worker
+    processes.
 
-Phases run in the order of their numbers, but for 31 and 32, which run
-after 29.  Worker processes run only during phases 10-11 and 31-32, so
-the phases that time host-bound work (7, 12-30, 33) have the host to
-themselves.  The served models' prefill windows (phases 35-36, 40-41,
-45-46), whose flash records are counted, run the prefill once as a
+Phases run in the order of their numbers, but for 31, 32 and 49, which run
+after 29, and 48, which runs after phase 25's main path.  Worker processes
+run only during phases 10-11 and 31-32 (49 with them), so the phases that
+time host-bound work (7, 12-30, 33) have the host to themselves.  The
+served models' prefill windows (phases 35-36, 40-41, 45-46), whose flash
+records are counted, run the prefill once as a
 discarded warm-up step before the one they report (in a whole run a
 window loses its first records while CUPTI starts).  A profiler window
 that shows no device time at all (CUPTI drops one now and then), or too
@@ -298,10 +321,10 @@ few flash records for a served model's prefill, is logged and taken
 again, up to 3 windows, before the check that needs it fails.
 
 Then the kernels line (JSON; the flash kernel's launches are the serving,
-training and multi_job main paths' of every family, the SSD step's those
-of mamba and jamba, the fluid step's include phase 29's; phases 34's,
-39's and 44's shapes under "shapes") and, last, ``{"ok": true, "device":
-...}``.
+training (phase 48's too) and multi_job main paths' of every family, the
+SSD step's those of mamba and jamba, the fluid step's include phase 29's;
+phases 34's, 39's and 44's shapes under "shapes") and, last, ``{"ok":
+true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
@@ -1206,6 +1229,9 @@ ZOO_CUT = dict(min_iters=6, max_iters=40)
 #: the paper batch under kway2 (phase 9): its seeds, cut from SEEDS only
 #: where the batch would not fit the time limit (jobs are never cut)
 KWAY_SEEDS = SEEDS
+#: phase 10's eager paper kway2 run (~4.5 ms a tick): half PAPER_CUT's
+#: iterations, held to the same batch through the graph
+KWAY_EAGER_CUT = dict(min_iters=50, max_iters=300)
 #: phase 9's batches, each through monte_carlo_fluid: (tag, scenario,
 #: seeds, comm, overrides); fusion_sweep at its registered size (6 jobs of
 #: 8 GPUs on 4 x 4, 32-48 iterations)
@@ -1540,7 +1566,7 @@ def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> dict:
               ("paper kway2", "paper", KWAY_SEEDS, PAPER_CUT, "kway2"))
     cpu_jobs = [(name, seeds, over, comm, fast_kw, "cpu", None)
                 for name, seeds, over in CARD_CPU_CELLS for comm, fast_kw in CARD_CPU_POLICIES]
-    eager_runs = (("paper kway2", "paper", KWAY_SEEDS, PAPER_CUT, "kway2"),
+    eager_runs = (("paper kway2", "paper", KWAY_SEEDS, KWAY_EAGER_CUT, "kway2"),
                   ("paper ada", "paper", SEEDS, PAPER_CUT, "ada"),
                   ("model_zoo ada", "model_zoo", SEEDS, ZOO_CUT, "ada"))
     t0 = time.perf_counter()
@@ -1557,6 +1583,10 @@ def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> dict:
             _check_same(f"{tag}, plain step core in the graph", res, main[tag])
             _log(f"{tag}, plain step core in the graph: identical finished mask, finish ticks "
                  f"and chunk count ({res['chunks']}); wall {res['wall']:.3f} s (card shared)")
+        # the graph side of the shallower eager kway2 run
+        eager_ref = {tag: main[tag] for tag, *_ in eager_runs}
+        eager_ref["paper kway2"] = _batch_worker(
+            ("paper", KWAY_SEEDS, KWAY_EAGER_CUT, "kway2", {}, "cuda", None))
         # ---- 11. card side ---------------------------------------------------
         on_card = [_batch_worker((name, seeds, over, comm, fast_kw, "cuda", None))
                    for name, seeds, over, comm, fast_kw, _, _ in cpu_jobs]
@@ -1570,13 +1600,14 @@ def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> dict:
             _check_same(f"{tag}: card vs CPU", card, cpu)
             _log(f"{tag}: card == CPU on every finish tick ({int(card['finished'].sum())} "
                  f"jobs, {card['chunks']} chunks)")
-        for (tag, *_), fut in zip(eager_runs, eager):
+        for (tag, _, _, over, _), fut in zip(eager_runs, eager):
             res = fut.result()
             ticks = res["chunks"] * chunk_steps
             _require(res["launches"] == ticks, f"{tag} eager: one launch per executed tick")
-            _check_same(f"{tag}, kernel eagerly", res, main[tag])
-            _log(f"{tag}, kernel eagerly (worker process, card shared): identical finished "
-                 f"mask, finish ticks and chunk count; wall {res['wall']:.3f} s, "
+            _check_same(f"{tag}, kernel eagerly", res, eager_ref[tag])
+            _log(f"{tag} (iterations {over.get('min_iters')}-{over.get('max_iters')}), kernel "
+                 f"eagerly (worker process, card shared): finished mask, finish ticks and "
+                 f"chunk count identical to the graph's; wall {res['wall']:.3f} s, "
                  f"{res['wall'] / ticks * 1e3:.4f} ms per tick, {res['launches']} launches")
         mc = mc_cpu.result()
     _log(f"phases 10-11: {time.perf_counter() - t0:.3f} s wall (phase 29's CPU side "
@@ -1706,6 +1737,40 @@ def _train_main(torch, cfg, counter, remat="none") -> dict:
             "launches": launches, "wall": wall, "gnorm": gnorm, "aux": aux}
 
 
+def _remat_phase(torch, cfg, none_run, counter) -> int:
+    """Phase 48: phase 25's training run again under ``remat="dots"`` and
+    ``"block"``.  Returns the flash kernel's launches of the two runs."""
+    runs = {"none": none_run}
+    for remat in ("dots", "block"):
+        runs[remat] = _train_main(torch, cfg, counter, remat=remat)
+    expected = cfg.n_layers * TRAIN["steps"] * 2
+    for remat in ("dots", "block"):
+        r = runs[remat]
+        rel = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(r["losses"], none_run["losses"])]
+        _log(f"train {cfg.name} remat {remat!r} vs 'none' (phase 25): step 1 loss "
+             f"{r['losses'][0]} vs {none_run['losses'][0]}; relative loss differences per step "
+             f"{rel} (bar {BF16_BAR} after step 1); flash launches {r['launches']} (expected "
+             f"{cfg.n_layers} layers x {TRAIN['steps']} steps x 2 = {expected}: the forward, and "
+             f"the checkpoint's recompute of it in the backward pass)")
+        _require(r["losses"][0] == none_run["losses"][0],
+                 f"remat {remat}: step 1's loss identical to phase 25's")
+        _require(max(rel) <= BF16_BAR, f"remat {remat}: losses within the bar of phase 25's")
+        _require(r["launches"] == expected, f"remat {remat}: two flash launches per layer "
+                 "and step")
+    peaks = {k: v["peak"] for k, v in runs.items()}
+    median_ms = {k: float(np.median(v["step_ms"][1:])) for k, v in runs.items()}
+    _log(f"train {cfg.name} (batch {TRAIN['batch']} x seq {TRAIN['seq']}, {TRAIN['steps']} "
+         f"steps) by remat: steady-state step ms (median of steps 2-{TRAIN['steps']}) "
+         f"{median_ms}; step ms {({k: v['step_ms'] for k, v in runs.items()})}; "
+         f"torch.cuda.max_memory_allocated B {peaks} = "
+         f"{({k: round(v / 2**30, 3) for k, v in peaks.items()})} GiB; dots / none step time "
+         f"{median_ms['dots'] / median_ms['none']:.4f}, block / none "
+         f"{median_ms['block'] / median_ms['none']:.4f}")
+    _require(peaks["block"] < peaks["dots"] < peaks["none"],
+             "peak memory ordered block < dots < none")
+    return 2 * expected
+
+
 def _cast(params, dtype):
     from repro_torch.models.common import tree_map
 
@@ -1731,8 +1796,9 @@ def _close_to_scale(got, want) -> float:
 
 
 def _train_phases(torch, dev) -> int:
-    """Phases 25-28: the training main path (full-width llama3.2-1b, then
-    mamba2-130m), the kernel against the plain attention in training, the
+    """Phases 25-28 and 48: the training main path (full-width llama3.2-1b,
+    then mamba2-130m; llama again under remat "dots" and "block"), the
+    kernel against the plain attention in training, the
     reduced float32 config on the card and the CPU with a checkpoint
     resume, and one profiled training step.  Returns the flash kernel's
     launches on the training main path."""
@@ -1768,6 +1834,10 @@ def _train_phases(torch, dev) -> int:
     ssm = _train_main(torch, ssm_cfg, None)
     _require(float(np.mean(ssm["losses"][-3:])) < ssm["losses"][0],
              f"{ssm_cfg.name}: the mean of the last 3 losses is below the first")
+
+    # ---- 48. rematerialisation: dots and block beside phase 25's none -------
+    _mark("48")
+    launches += _remat_phase(torch, cfg, main, flash_attention_cuda)
 
     # ---- 26. the kernel against the plain attention in training ------------
     red = get_config("llama3.2-1b", reduced=True)
@@ -2050,6 +2120,27 @@ MULTI_JOB = dict(jobs=("llama3.2-1b:4:300", "mamba2-130m:2:500", "olmoe-1b-7b:8:
 #: spanning servers of the 4 x 4 cluster so that their all-reduces contend
 SPAN_JOBS = ("llama3.2-1b:8:300", "mamba2-130m:12:500")
 EVENT_WORKERS = 4
+#: phase 49: (scenario, sched or None for the scenario's own), seed 0, ada
+DYNAMIC_CELLS = (("preemption_gain", "static"), ("preemption_gain", "preemptive_srsf"),
+                 ("elastic_surge", "static"), ("elastic_surge", "elastic"),
+                 ("chaos_steady", None), ("chaos_recovery_storm", None),
+                 ("chaos_stragglers", None), ("trace_replay_synth", None),
+                 ("trace_replay_philly", None), ("trace_replay_alibaba", None))
+#: the JAX reference's (avg JCT, preemptions, resizes, faults, cancelled,
+#: censored) of each phase-49 cell, on the CPU
+#: (``scripts/event_dynamic_reference.py``)
+REFERENCE_DYNAMIC = {
+    "preemption_gain/static": (186.3731798571446, 0, 0, 0, 0, 0),
+    "preemption_gain/preemptive_srsf": (50.832682980952505, 14, 0, 0, 0, 0),
+    "elastic_surge/static": (18.75590624999967, 0, 0, 0, 0, 0),
+    "elastic_surge/elastic": (14.190570533333304, 0, 7, 0, 0, 0),
+    "chaos_steady/static": (28.826776826732218, 1, 0, 1, 0, 0),
+    "chaos_recovery_storm/static": (55.97712124472672, 11, 0, 4, 0, 0),
+    "chaos_stragglers/static": (53.52164131097776, 0, 0, 3, 0, 0),
+    "trace_replay_synth/static": (106.15214601361744, 0, 0, 0, 0, 0),
+    "trace_replay_philly/static": (17.77224062499993, 0, 0, 0, 0, 0),
+    "trace_replay_alibaba/static": (11.508681014999738, 0, 0, 0, 0, 0),
+}
 
 
 def _host_cpu() -> str:
@@ -2092,13 +2183,58 @@ def _event_worker(name, seed, comm, placement, overrides) -> dict:
             "makespan": res.makespan, "events": res.events_processed, "wall": wall}
 
 
+def _dynamic_worker(name, sched) -> dict:
+    """One phase-49 run: a registered scenario at seed 0 under ada, with
+    ``sched`` (None: the scenario's own), on the host."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.scenarios import get_scenario, run_scenario_event
+
+    scn = get_scenario(name, seed=0)
+    t0 = time.perf_counter()
+    res = run_scenario_event(scn, comm="ada", **({} if sched is None else {"sched": sched}))
+    wall = time.perf_counter() - t0
+    return {"cell": f"{name}/{res.sched_name}", "n_jobs": scn.n_jobs, "gpus": scn.total_gpus,
+            "streamed": scn.source is not None, "n_finished": len(res.jct),
+            "values": (res.avg_jct() if res.jct else math.nan, res.preemptions, res.resizes,
+                       res.faults, res.cancelled, res.censored),
+            "work_lost": res.work_lost_samples, "events": res.events_processed,
+            "peak_calendar": res.peak_calendar, "wall": wall}
+
+
 def _submit_event_runs(pool) -> dict:
-    """Phases 31-32's host runs, queued on ``pool`` (worker processes
-    started when phase 29 ends, so they run beside no card phase)."""
+    """Phases 31-32's and 49's host runs, queued on ``pool`` (worker
+    processes started when phase 29 ends, so they run beside no card
+    phase)."""
+    dyn = [pool.submit(_dynamic_worker, name, sched) for name, sched in DYNAMIC_CELLS]
     reg = [pool.submit(_event_worker, name, 0, comm, pl, {}) for name, comm, pl in EVENT_CELLS]
     cut = {(comm, s): pool.submit(_event_worker, "paper", s, comm, "lwf", PAPER_CUT)
            for comm in EVENT_FLUID_COMMS for s in SEEDS}
-    return {"registered": reg, "cut": cut}
+    return {"registered": reg, "cut": cut, "dynamic": dyn}
+
+
+def _dynamic_phase(futures) -> None:
+    """Phase 49: the dynamic event engine (preemption, elastic resizing,
+    fault injection, streamed trace replays) against the reference's
+    constants."""
+    cpu = _host_cpu()
+    names = ("avg JCT", "preemptions", "resizes", "faults", "cancelled", "censored")
+    for fut in futures["dynamic"]:
+        r = fut.result()
+        want = REFERENCE_DYNAMIC[r["cell"]]
+        _log(f"event engine {r['cell']} ({r['n_jobs']} jobs, {r['gpus']} GPUs, seed 0, ada"
+             f"{', arrivals streamed' if r['streamed'] else ''}): "
+             + ", ".join(f"{n} {v}" for n, v in zip(names, r["values"]))
+             + f"; the reference's {want}; work lost {r['work_lost']} samples, "
+             f"{r['events']} events, calendar high-water {r['peak_calendar']}, "
+             f"{r['wall']:.3f} s wall on the host ({cpu}, one of {EVENT_WORKERS} worker "
+             f"processes)")
+        _require(tuple(r["values"]) == want, f"{r['cell']}: equal to the reference's")
+        _require(r["n_finished"] + r["values"][4] + r["values"][5] == r["n_jobs"],
+                 f"{r['cell']}: finished, cancelled and censored jobs add up")
+        if r["streamed"]:
+            _require(r["peak_calendar"] < r["n_jobs"] + r["gpus"],
+                     f"{r['cell']}: the streamed calendar stays O(cluster)")
 
 
 def _event_phases(futures, fluid_results) -> None:
@@ -3051,7 +3187,11 @@ def main() -> int:
 
     with ProcessPoolExecutor(max_workers=EVENT_WORKERS,
                              mp_context=multiprocessing.get_context("spawn")) as pool:
-        _event_phases(_submit_event_runs(pool), results[:3])
+        event_runs = _submit_event_runs(pool)
+        _event_phases(event_runs, results[:3])
+        # ---- 49. the dynamic event engine, in the same worker processes ------
+        _mark("49")
+        _dynamic_phase(event_runs)
 
     # ---- 30. sampled serving ------------------------------------------------
     _mark("30")

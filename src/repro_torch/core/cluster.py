@@ -3,9 +3,9 @@
 The cluster is ``N_s`` servers x ``N_g`` GPUs; each GPU has a memory
 capacity and may host several resident jobs (admission by memory,
 Alg. 1 line 3) that time-share it at task granularity.  The event engine
-(:mod:`repro_torch.core.engine`) reads and mutates it; the fluid path reads
-only the job descriptions.  The reference's fault-injection ``down`` flag
-is not ported (chaos waits: ROADMAP queue 1, item 7b).
+(:mod:`repro_torch.core.engine`) reads and mutates it, its fault injection
+(:mod:`repro_torch.core.chaos`) through each GPU's ``down`` flag; the fluid
+path reads only the job descriptions.
 """
 
 from __future__ import annotations
@@ -93,6 +93,10 @@ class JobSpec:
         return lo, hi
 
     @property
+    def is_elastic(self) -> bool:
+        return self.gpu_bounds != (self.n_gpus, self.n_gpus)
+
+    @property
     def total_samples(self) -> int:
         """Total work in per-GPU batches (``iterations x n_gpus``)."""
         return self.iterations * self.n_gpus
@@ -138,6 +142,9 @@ class GpuState:
     busy_job: Optional[int] = None
     #: total busy seconds (the utilization metric)
     busy_accum: float = 0.0
+    #: the server is broken down (fault injection): left out of every
+    #: placement and of compute scheduling until repair
+    down: bool = False
 
     @property
     def gpu_id(self) -> GpuId:
@@ -189,7 +196,8 @@ class Cluster:
         return [
             g
             for g in self.gpus.values()
-            if g.mem_free_mb() >= mem_required_mb
+            if not g.down
+            and g.mem_free_mb() >= mem_required_mb
             and not (self.exclusive and g.resident_jobs)
         ]
 

@@ -25,8 +25,8 @@ order as the rescan.  Server loads fold GPU workloads in GPU-index order
 * ``Cluster.release`` does not touch workloads; the release dirties the
   gang's GPUs for the next ``refresh``.
 * Server/rack sums and the feasibility aggregates (max free memory over
-  the server's GPUs, and over its empty GPUs for exclusive mode) are
-  flushed lazily on first read.
+  the server's GPUs that are not down, and over its empty ones for
+  exclusive mode) are flushed lazily on first read.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ class ClusterIndex:
     """Maintained per-GPU/server/rack workload and feasibility aggregates.
 
     Owned by the engine; the engine calls the ``on_*`` hooks from its
-    place/release/decay paths and
+    place/release/decay/fault paths and
     dispatches ``refresh_workloads`` here.  The placement layer reads the
     aggregates through :meth:`server_loads` / :meth:`rack_loads` /
     :meth:`server_feas`.
@@ -89,8 +89,8 @@ class ClusterIndex:
         self._feas_dirty.update(servers)
 
     def on_release(self, job_id: int, gpu_ids: Sequence[GpuId]) -> None:
-        """A gang finished: drop the
-        job from the resident lists and dirty its GPUs for the refresh the
+        """A gang was torn down (finish, preemption, resize, cancellation):
+        drop the job from the resident lists and dirty its GPUs for the refresh the
         engine always performs before the next placement."""
         self._share.pop(job_id, None)
         self._decayed.discard(job_id)
@@ -111,6 +111,11 @@ class ClusterIndex:
         stale until the next refresh."""
         if job_id in self._share:
             self._decayed.add(job_id)
+
+    def on_server_capacity(self, server: int) -> None:
+        """A server went down or came back (fault injection): only placement
+        feasibility changes; the preemptions' releases handle workloads."""
+        self._feas_dirty.add(server)
 
     # -- refresh (the refresh_workloads replacement) -------------------------
 
@@ -176,13 +181,15 @@ class ClusterIndex:
         return self._rack_load
 
     def server_feas(self, server: int) -> Tuple[float, float]:
-        """(max free MB over the server's GPUs, same over its *empty*
-        GPUs).  ``-1.0`` when no GPU qualifies, so ``feas < mem_mb`` is an
+        """(max free MB over the server's GPUs that are not down, same over
+        its *empty* ones).  ``-1.0`` when no GPU qualifies, so ``feas < mem_mb`` is an
         exact whole-server skip for any job profile."""
         if server in self._feas_dirty:
             mf = -1.0
             mfe = -1.0
             for g in self.cluster.gpus_of_server(server):
+                if g.down:
+                    continue
                 free = g.mem_capacity_mb - g.mem_used_mb
                 if free > mf:
                     mf = free
@@ -244,6 +251,8 @@ class ClusterIndex:
             want_mf = -1.0
             want_mfe = -1.0
             for g in cluster.gpus_of_server(s):
+                if g.down:
+                    continue
                 free = g.mem_free_mb()
                 want_mf = max(want_mf, free)
                 if not g.resident_jobs:

@@ -1,13 +1,33 @@
 """Event engine for multi-job DDL cluster simulation (port of
-``repro/core/engine.py``, trimmed to static gang scheduling; paper
-Algorithm 3 and Section V, exact continuous-time variant).
+``repro/core/engine.py``; paper Algorithm 3 and Section V, exact
+continuous-time variant).
 
-The engine owns the mechanism — the event calendar, cluster/GPU occupancy,
+The engine owns the mechanism: the event calendar, cluster/GPU occupancy,
 the communication streams (Eq. 5 contention with exact piecewise-constant-
-rate integration, WFBP bucket pipelines, topology domain sets) and result
-collection — and leaves every admission decision to a
-:class:`~repro_torch.core.schedpolicy.SchedPolicy`, which commits gangs
-through :meth:`EventEngine.place_job`.
+rate integration, WFBP bucket pipelines, topology domain sets), the task
+trace and result collection.  Every job-level decision (admit, place,
+preempt, resize) goes to a :class:`~repro_torch.core.schedpolicy.SchedPolicy`
+through its hooks, which act through a small decision API:
+
+* :meth:`EventEngine.place_job` commits a gang placement (the WFBP fusion
+  plan and topology domain sets of the placed world);
+* :meth:`EventEngine.preempt_job` tears a running gang down atomically:
+  its in-flight compute and communication are cancelled, its memory is
+  released, its completed iterations are carried and it is requeued (the
+  iteration in progress is lost; the next placement pays the
+  checkpoint/restore penalty :func:`repro_torch.core.netmodel.preemption_cost`);
+* :meth:`EventEngine.request_resize` asks for an elastic world-size change,
+  applied at the job's next iteration boundary.
+
+Fault injection (:mod:`repro_torch.core.chaos`): a :class:`ChaosSpec` arms
+server breakdown/repair (a breakdown preempts every gang on the dead
+server, whose GPUs are unplaceable until repair), NIC degradation windows
+(per-server bandwidth multipliers, integrated exactly), straggler jitter
+per iteration and stochastic cancellation.  A :class:`TraceSource` in
+place of the job list streams the arrivals, one ahead in the calendar.
+``record_trace=True`` records every task as ``(job, iteration, kind,
+worker, t0, t1)`` (with the preempt, resize and cancel markers), the
+schedule :mod:`repro_torch.core.dag` validates.
 
 It is plain Python on Python floats, in the reference's order of
 operations, so a run gives the reference's event stream and results bit
@@ -15,15 +35,14 @@ for bit.  It holds no tensors.  Its one mode is the reference's default:
 incremental gating and the maintained workload index
 (:mod:`repro_torch.core.clusterindex`).  What the reference engine has
 beyond that raises ``NotImplementedError`` naming its ROADMAP item (queue
-1, items 7a-7h): preemptive and elastic scheduling, fault injection, the
-observability recorder, a streaming ``TraceSource`` feed, chunked
-all-reduces and the ring-edge ``"link"`` reading, trace recording,
-per-phase profiling, and the ``rescan`` oracle modes.
+1, items 7e-7g): chunked all-reduces and the ring-edge ``"link"`` reading,
+the observability recorder and per-phase profiling, and the ``rescan``
+oracle modes.
 
 Progress is counted in samples (per-GPU batches): a job's work is
 ``iterations x n_gpus`` and each completed iteration contributes its world
-size.  Jobs still running when ``run(max_time=...)`` stops are reported as
-``SimResult.censored``.
+size, so elastic resizes conserve the work.  Jobs still running or queued
+when ``run(max_time=...)`` stops are reported as ``SimResult.censored``.
 """
 
 from __future__ import annotations
@@ -33,9 +52,16 @@ import heapq
 import itertools
 import math
 from bisect import insort
-from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple, Union
 
 from repro_torch.core import netmodel
+from repro_torch.core.chaos import (
+    ChaosSpec,
+    cancel_time,
+    jitter_factor,
+    nic_degradation_stream,
+    server_failure_stream,
+)
 from repro_torch.core.cluster import Cluster, GpuId, JobSpec
 from repro_torch.core.clusterindex import ClusterIndex
 from repro_torch.core.contention import ContentionParams
@@ -48,6 +74,7 @@ from repro_torch.core.schedpolicy import (
     sched_policy_from_name,
 )
 from repro_torch.core.topology import Topology, nic_topology
+from repro_torch.core.trace import TraceSource
 
 _EPS = 1e-9
 
@@ -103,12 +130,23 @@ class JobRun:
     next_bucket: int = 0
     buckets_done: int = 0
     finished_at: Optional[float] = None
-    #: progress in samples: total work and the part done
+    #: progress in samples: total work (conserved across preemptions and
+    #: resizes) and the part done
     samples_total: int = 0
     samples_done: int = 0
+    #: iterations this incarnation will have completed when the remaining
+    #: samples drain at its world size (None = ``spec.iterations``)
+    target_iters: Optional[int] = None
+    #: workers that still owe the checkpoint-restore penalty (charged on
+    #: each one's first compute task after a preemption or resize)
+    restore_need: Set[int] = dataclasses.field(default_factory=set)
+    restore_cost: float = 0.0
+    #: elastic world size requested for the next iteration boundary
+    pending_resize: Optional[int] = None
     #: memo of the nominal per-iteration service time
     _svc_cache: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
-    #: memo of the SRSF key, valid while ``iter_done`` is unchanged
+    #: memo of the SRSF key, valid while ``iter_done`` and the engine's
+    #: service epoch are unchanged
     _key_cache: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
     #: lazily-built gpu -> worker-rank map
     _worker_of: Optional[Dict[GpuId, int]] = dataclasses.field(
@@ -130,6 +168,10 @@ class JobRun:
     @property
     def n_buckets(self) -> int:
         return len(self.plan[0]) if self.plan is not None else 1
+
+    @property
+    def _target(self) -> int:
+        return self.target_iters if self.target_iters is not None else self.spec.iterations
 
     def per_iter_service(
         self, params: ContentionParams, bandwidth_aware: bool = False
@@ -154,8 +196,18 @@ class JobRun:
         self, params: ContentionParams, bandwidth_aware: bool = False
     ) -> float:
         """SRSF key: remaining time x allocated GPUs (Tiresias-style)."""
-        rem_iters = self.spec.iterations - self.iter_done
+        rem_iters = self._target - self.iter_done
         return rem_iters * self.per_iter_service(params, bandwidth_aware) * self.n_world
+
+
+@dataclasses.dataclass(frozen=True)
+class _Carry:
+    """Progress of a preempted or resized job between placements."""
+
+    iter_done: int
+    samples_done: int
+    samples_total: int
+    restore_cost: float
 
 
 def median(xs: Sequence[float]) -> float:
@@ -179,8 +231,7 @@ def percentile(xs: Sequence[float], q: float) -> float:
 @dataclasses.dataclass
 class SimResult:
     """The reference's result record, field for field.  The fields of the
-    parts not ported (preemption, resizes, faults, cancellations, traces,
-    phase profiles, observability) keep their empty values."""
+    parts not ported (phase profiles, observability) stay None."""
 
     policy_name: str
     placement_name: str
@@ -193,19 +244,23 @@ class SimResult:
     events_processed: int
     comm_started_contended: int
     comm_started_clean: int
-    #: high-water mark of the event calendar (every arrival is pushed up
-    #: front, so >= n_jobs)
+    #: high-water mark of the event calendar (with a job list every arrival
+    #: is pushed up front, so >= n_jobs; a streamed feed keeps one ahead)
     peak_calendar: int = 0
     sched_name: str = "static"
-    #: jobs with no finish time (horizon cutoff, or never placeable)
+    #: jobs that entered and have no finish time (horizon cutoff, or never
+    #: placeable); cancelled jobs are counted apart
     censored: int = 0
     preemptions: int = 0
     resizes: int = 0
+    #: server breakdowns plus NIC degradation windows
     faults: int = 0
     cancelled: int = 0
+    #: samples of in-progress work thrown away by teardowns
     work_lost_samples: int = 0
-    #: delivered samples per second of makespan
+    #: delivered samples (finished or still-live jobs) per second of makespan
     goodput: float = 0.0
+    #: ``record_trace=True``: (job, iteration, kind, worker, t0, t1) records
     task_trace: Optional[List[Tuple]] = None
     #: per-job delivered samples at finish time
     job_samples: Dict[int, int] = dataclasses.field(default_factory=dict)
@@ -310,13 +365,13 @@ class SimResult:
 
 
 class EventEngine:
-    """Exact event-driven simulation of Algorithm 3's dynamics, with job
-    admission delegated to a :class:`SchedPolicy`.  The keywords are the
-    reference's; the ones the port does not support raise."""
+    """Exact event-driven simulation of Algorithm 3's dynamics, with every
+    job-level decision delegated to a :class:`SchedPolicy`.  The keywords
+    are the reference's; the ones the port does not support raise."""
 
     def __init__(
         self,
-        jobs: Sequence[JobSpec],
+        jobs: Union[Sequence[JobSpec], TraceSource],
         cluster: Optional[Cluster] = None,
         placement: Optional[PlacementPolicy] = None,
         comm_policy: Optional[CommPolicy] = None,
@@ -332,28 +387,18 @@ class EventEngine:
         sched: Union[SchedPolicy, str, None] = None,
         preemption_quantum: Optional[float] = None,
         checkpoint_cost: Optional[float] = None,
-        chaos: Optional[object] = None,
+        chaos: Optional[ChaosSpec] = None,
         gating: Optional[str] = None,
         workloads: Optional[str] = None,
         profile_phases: bool = False,
         observe: Optional[object] = None,
     ) -> None:
-        if hasattr(jobs, "arrivals"):
-            raise _not_ported("a streaming TraceSource feed", "7c")
-        if record_trace:
-            raise _not_ported("record_trace=True (the task trace and core/dag.py)", "7d")
         if comm_chunks != 1:
             raise _not_ported(f"comm_chunks={comm_chunks} (chunked all-reduce)", "7e")
         if contention_domain == "link":
             raise _not_ported('contention_domain="link" (RingEdgeTopology)', "7e")
         if contention_domain != "server":
             raise ValueError(f"unknown contention domain {contention_domain!r}")
-        if chaos is not None:
-            raise _not_ported("fault injection (chaos=)", "7b")
-        for knob, value in (("preemption_quantum", preemption_quantum),
-                            ("checkpoint_cost", checkpoint_cost)):
-            if value is not None:
-                raise _not_ported(f"{knob}= (the preemptive and elastic policies' input)", "7a")
         if observe is not None:
             raise _not_ported("the observability recorder (observe=)", "7f")
         if profile_phases:
@@ -365,15 +410,23 @@ class EventEngine:
                 raise ValueError(
                     f"unknown {mode_name} mode {mode!r} (expected 'incremental' or 'rescan')"
                 )
-        self.jobs: Dict[int, JobSpec] = {j.job_id: j for j in jobs}
+        # A streamed feed keeps one future arrival in the calendar; a job
+        # list pushes every arrival up front
+        if isinstance(jobs, TraceSource):
+            self._source: Optional[TraceSource] = jobs
+            self.jobs: Dict[int, JobSpec] = {}
+        else:
+            self._source = None
+            self.jobs = {j.job_id: j for j in jobs}
         self.cluster = cluster or Cluster()
         self.placement = placement or PlacementPolicy("lwf", kappa=1)
         self.comm_policy = comm_policy or AdaDual()
         self.params = params or ContentionParams()
         # Fusing f+b into one GPU occupancy halves the event count; a newly
         # placed higher-priority job can then take the GPU only at (f+b)
-        # boundaries.
-        self.fuse_fb = fuse_fb
+        # boundaries.  A recorded trace keeps f and b apart.
+        self.fuse_fb = fuse_fb and not record_trace
+        self.record_trace = record_trace
         # WFBP tensor fusion: 'all' = one monolithic all-reduce per
         # iteration (the paper's model); 'none' / a byte threshold =
         # per-bucket transfers that overlap the remaining backward pass,
@@ -396,8 +449,9 @@ class EventEngine:
         if sched is None:
             sched = StaticGangPolicy()
         elif isinstance(sched, str):
-            sched = sched_policy_from_name(sched)
+            sched = sched_policy_from_name(sched, quantum=preemption_quantum)
         self.sched = sched
+        self.checkpoint_cost = checkpoint_cost
         self._windex = ClusterIndex(self.cluster)
         self.placement.index = self._windex
 
@@ -418,8 +472,12 @@ class EventEngine:
         self._domain_load: Dict[object, int] = {}
         self._domain_tasks: Dict[object, List[CommTask]] = {}
         self._comm_seq = 0
-        #: memo of ``params.rate(k)`` (b and eta are fixed for the run)
+        #: memo of ``params.rate(k)`` (b and eta are fixed for the run; NIC
+        #: faults replace only ``server_bandwidth``)
         self._rate_cache: Dict[float, float] = {}
+        #: bumped whenever NIC faults rewrite the bandwidth map: part of the
+        #: SRSF key memo's validity
+        self._svc_epoch = 0
         self._waiting_comm: List[int] = []  # job ids with a gated all-reduce
         self._waiting_set: Set[int] = set()
         #: incremental gating: waiters per contention domain, and waiters
@@ -432,8 +490,39 @@ class EventEngine:
         self._events = 0
         self._comm_contended = 0
         self._comm_clean = 0
+        self._trace: List[Tuple] = []
         self._unfinished = set(self.jobs)
+        # the streamed feed: the arrival iterator, arrival events in the
+        # calendar not yet processed (at most 1), the order check, the jobs
+        # that entered so far, and finished runs to drop at event end
+        self._stream: Optional[Iterator[JobSpec]] = None
+        self._arrivals_pending = 0
+        self._last_arrival = -math.inf
+        self._n_seen = len(self.jobs)
+        self._retire_buf: List[int] = []
+        # per-job results recorded at finish time (the streamed feed drops
+        # finished runs, so they cannot be collected from _runs at the end)
+        self._jct_at_finish: Dict[int, float] = {}
+        self._finish_at: Dict[int, float] = {}
+        self._qdelay_at_finish: Dict[int, float] = {}
         self._job_samples: Dict[int, int] = {}
+        # preemption and resize state
+        self._carry: Dict[int, _Carry] = {}  # progress of requeued jobs
+        self._epoch_of: Dict[int, int] = {}  # run incarnation (tombstones)
+        self._first_placed: Dict[int, float] = {}
+        self._preemptions = 0
+        self._resizes = 0
+        self._comm_dirty = False  # active comm set changed outside gating
+        # An absent or inactive spec pushes no fault event: the event
+        # stream is the unfaulted engine's, bit for bit.
+        self._chaos = chaos if (chaos is not None and chaos.active) else None
+        self._faults = 0
+        self._cancelled = 0
+        self._work_lost_samples = 0
+        self._fail_streams: Dict[int, Iterator[Tuple[float, float]]] = {}
+        self._nic_streams: Dict[int, Iterator[Tuple[float, float]]] = {}
+        self._nic_degraded: Set[int] = set()
+        self._base_server_bw: Tuple[float, ...] = ()
         self.sched.bind(self)
 
     # -- policy-facing state views -------------------------------------------
@@ -445,12 +534,37 @@ class EventEngine:
     @property
     def queue_buckets(self) -> Dict[tuple, List[int]]:
         """Queued jobs grouped by ``(n_gpus, mem_mb)`` resource profile."""
+        if len(self._queue_profile_of) != len(self._queue):
+            self._sync_queue_buckets()
         return self._queue_buckets
 
     @property
     def queue_profile_of(self) -> Dict[int, tuple]:
         """Resource profile of every queued job."""
+        if len(self._queue_profile_of) != len(self._queue):
+            self._sync_queue_buckets()
         return self._queue_profile_of
+
+    def _sync_queue_buckets(self) -> None:
+        """Rebuild the profile indices from the queue list, where outside
+        code appended to ``queue`` instead of going through ``_enqueue``."""
+        self._queue_profile_of = prof = {}
+        self._queue_buckets = buckets = {}
+        jobs = self.jobs
+        for jid in sorted(self._queue, key=self.srsf_key_queued):
+            spec = jobs[jid]
+            profile = (spec.n_gpus, spec.model.mem_mb)
+            prof[jid] = profile
+            bucket = buckets.get(profile)
+            if bucket is None:
+                buckets[profile] = [jid]
+            else:
+                bucket.append(jid)
+
+    @property
+    def runs(self) -> Dict[int, JobRun]:
+        """Job runs (read-only for policies; mutate through the API)."""
+        return self._runs
 
     # -- queue maintenance -----------------------------------------------------
     def _enqueue(self, job_id: int) -> None:
@@ -467,7 +581,8 @@ class EventEngine:
             insort(bucket, job_id, key=self.srsf_key_queued)
 
     def remove_queued(self, job_ids) -> None:
-        """Drop placed jobs from the wait queue and its profile buckets."""
+        """Drop placed or cancelled jobs from the wait queue and its
+        profile buckets; ids not queued are ignored."""
         drop = set(job_ids)
         if not drop:
             return
@@ -500,21 +615,36 @@ class EventEngine:
 
     # -- SRSF priority ---------------------------------------------------------
     def srsf_key_queued(self, job_id: int):
-        """SRSF key of a queued job (E_J = 0 before placement, Section IV-A)."""
+        """SRSF key of a queued job: E_J = 0 before placement (Section
+        IV-A); a requeued job's key is its carried remaining work."""
         spec = self.jobs[job_id]
-        return (spec.compute_time * spec.n_gpus, spec.arrival, job_id)
+        carry = self._carry.get(job_id)
+        if carry is None:
+            rem = spec.compute_time * spec.n_gpus
+        else:
+            rem_samples = carry.samples_total - carry.samples_done
+            rem = spec.model.t_iter_compute * rem_samples
+        return (rem, spec.arrival, job_id)
 
     def srsf_key_running(self, job_id: int):
         run = self._runs[job_id]
         cached = run._key_cache
-        if cached is not None and cached[0] == run.iter_done:
-            return cached[1]
+        if (
+            cached is not None
+            and cached[0] == run.iter_done
+            and cached[1] == self._svc_epoch
+        ):
+            return cached[2]
         rem = run.remaining_service(self.params, self.bandwidth_aware_srsf)
         key = (rem, run.spec.arrival, job_id)
-        run._key_cache = (run.iter_done, key)
+        run._key_cache = (run.iter_done, self._svc_epoch, key)
         return key
 
     # -- communication bookkeeping --------------------------------------------
+    def _domains_of(self, servers: Set[int]) -> frozenset:
+        """Topology domains a transfer over ``servers`` loads."""
+        return self.topology.loaded_domains(servers)
+
     def _comm_started(self, task: CommTask) -> None:
         for d in task.domains:
             self._domain_load[d] = self._domain_load.get(d, 0) + 1
@@ -544,6 +674,9 @@ class EventEngine:
         self._gate_candidates.add(jid)
 
     def _waiter_drop(self, jid: int, domains: frozenset) -> None:
+        """Remove a waiter from every gating index (started, preempted or
+        cancelled); ``domains`` is given since a teardown pops the run
+        first."""
         self._waiting_comm.remove(jid)
         self._waiting_set.discard(jid)
         for d in domains:
@@ -555,8 +688,8 @@ class EventEngine:
         self._gate_candidates.discard(jid)
 
     def _mark_domains_dirty(self, domains: frozenset) -> None:
-        """A comm start/end touched these domains: every waiter sharing one
-        must be re-evaluated."""
+        """A comm start/end/abort touched these domains: every waiter
+        sharing one must be re-evaluated."""
         for d in domains:
             ws = self._domain_waiters.get(d)
             if ws:
@@ -648,6 +781,16 @@ class EventEngine:
         if t is not None:
             self._push(t, "comm_check", (self._comm_epoch,))
 
+    def _abort_comm(self, job_id: int) -> None:
+        """Abort ``job_id``'s in-flight all-reduce (preemption, breakdown,
+        cancellation).  ``_comm_dirty`` makes the main loop re-predict the
+        survivors' finish times and re-run gating over every waiter in the
+        same event: a waiter gated against the aborted transfer starts at
+        the abort instant."""
+        task = self._active_comm.pop(job_id)
+        self._comm_ended(task)
+        self._comm_dirty = True
+
     # -- WFBP fusion plans -------------------------------------------------------
     def _assign_plan(self, run: JobRun) -> None:
         """Attach the WFBP fusion plan when fusion is finite, the model
@@ -686,7 +829,8 @@ class EventEngine:
 
     def place_job(self, job_id: int, gpu_ids: Sequence[GpuId], now: float) -> JobRun:
         """Commit a gang placement: member servers, topology domains, the
-        WFBP plan and the SRSF workload share."""
+        WFBP plan for the placed world and the SRSF workload share; a
+        requeued job gets its carried progress and the restore penalty."""
         spec = self.jobs[job_id]
         servers = self.cluster.servers_of(gpu_ids)
         run = JobRun(
@@ -694,8 +838,17 @@ class EventEngine:
             gpus=list(gpu_ids),
             servers=servers,
             placed_at=now,
-            domains=self.topology.loaded_domains(servers),
+            domains=self._domains_of(servers),
         )
+        carry = self._carry.pop(job_id, None)
+        if carry is not None:
+            run.iter_done = carry.iter_done
+            run.samples_done = carry.samples_done
+            run.samples_total = carry.samples_total
+            run.restore_cost = carry.restore_cost
+            run.restore_need = set(range(run.n_world))
+        rem_samples = run.samples_total - run.samples_done
+        run.target_iters = run.iter_done + max(0, -(-rem_samples // run.n_world))
         self._assign_plan(run)
         workload = run.remaining_service(self.params, self.bandwidth_aware_srsf)
         self.cluster.place(spec, gpu_ids, workload)
@@ -703,7 +856,239 @@ class EventEngine:
         self._live[job_id] = None
         self._windex.on_place(job_id, run.gpus, workload)
         self._dirty_gpus.update(gpu_ids)
+        self._first_placed.setdefault(job_id, now)
         return run
+
+    def _checkpoint_cost_of(self, run: JobRun) -> float:
+        if self.checkpoint_cost is not None:
+            return self.checkpoint_cost
+        return netmodel.preemption_cost(run.spec.model.size_bytes)
+
+    def _tear_down(self, job_id: int, run: JobRun, now: float) -> None:
+        """Stop a gang atomically: tombstone its pending compute events,
+        un-accrue the cancelled part of its in-flight tasks, release its
+        memory and drop its waiting or in-flight all-reduce."""
+        self._epoch_of[job_id] = self._epoch_of.get(job_id, 0) + 1
+        for gid in run.gpus:
+            g = self.cluster.gpus[gid]
+            if g.busy_job == job_id:
+                if g.busy_until is not None and g.busy_until > now:
+                    g.busy_accum -= g.busy_until - now  # un-accrue lost work
+                g.busy_until = None
+                g.busy_job = None
+            self._dirty_gpus.add(gid)
+        self.cluster.release(run.spec, run.gpus)
+        self._windex.on_release(job_id, run.gpus)
+        if job_id in self._waiting_set:
+            self._waiter_drop(job_id, run.domains)
+        if job_id in self._active_comm:
+            self._abort_comm(job_id)
+
+    def preempt_job(self, job_id: int, now: float) -> None:
+        """Tear a running gang down atomically and requeue the job.  Its
+        progress is carried at the last completed iteration (the iteration
+        in progress is lost, a checkpoint-restart) and its next placement
+        pays the checkpoint/restore penalty."""
+        run = self._runs.pop(job_id)
+        self._live.pop(job_id, None)
+        if run.finished_at is not None:
+            raise ValueError(f"cannot preempt finished job {job_id}")
+        self._work_lost_samples += self._lost_in_progress(run)
+        self._tear_down(job_id, run, now)
+        self._carry[job_id] = _Carry(
+            iter_done=run.iter_done,
+            samples_done=run.samples_done,
+            samples_total=run.samples_total,
+            restore_cost=self._checkpoint_cost_of(run),
+        )
+        # the queue key reads the carry: set it before the enqueue
+        self._enqueue(job_id)
+        self._preemptions += 1
+        if self.record_trace:
+            # drop the aborted iteration's records (it runs again after the
+            # resume) and mark the preemption
+            self._trace = [
+                r
+                for r in self._trace
+                if r[2] in ("preempt", "resize")
+                or not (r[0] == job_id and r[1] >= run.iter_done)
+            ]
+            self._trace.append((job_id, run.iter_done, "preempt", -1, now, now))
+
+    def request_resize(self, job_id: int, n_new: int) -> None:
+        """Ask for an elastic world-size change, applied at the job's next
+        iteration boundary (clamped to the job's bounds)."""
+        run = self._runs[job_id]
+        lo, hi = run.spec.gpu_bounds
+        n_new = max(lo, min(hi, int(n_new)))
+        run.pending_resize = None if n_new == run.n_world else n_new
+
+    def _apply_resize(self, run: JobRun, now: float) -> None:
+        """Apply a pending resize at an iteration boundary: tear the gang
+        down (nothing in the iteration is lost here), place it again at the
+        new size through the normal placement path (a new WFBP plan and
+        domain set) and charge the checkpoint/restore penalty.  A grow that
+        does not fit keeps the old GPUs, costs nothing and is not
+        counted."""
+        job_id = run.spec.job_id
+        n_new = run.pending_resize
+        run.pending_resize = None
+        self._epoch_of[job_id] = self._epoch_of.get(job_id, 0) + 1
+        self.cluster.release(run.spec, run.gpus)
+        self._windex.on_release(job_id, run.gpus)
+        self._dirty_gpus.update(run.gpus)
+        del self._runs[job_id]
+        self._live.pop(job_id, None)
+        # rank the GPUs with this gang's workload gone
+        self.refresh_workloads()
+        spec = run.spec
+        trial = spec if n_new == spec.n_gpus else dataclasses.replace(spec, n_gpus=n_new)
+        gpu_ids = self.placement(self.cluster, trial)
+        applied = gpu_ids is not None
+        if not applied:
+            gpu_ids = list(run.gpus)
+        self._carry[job_id] = _Carry(
+            iter_done=run.iter_done,
+            samples_done=run.samples_done,
+            samples_total=run.samples_total,
+            restore_cost=self._checkpoint_cost_of(run) if applied else 0.0,
+        )
+        self.place_job(job_id, gpu_ids, now)
+        if applied:
+            self._resizes += 1
+            if self.record_trace:
+                self._trace.append((job_id, run.iter_done, "resize", -1, now, now))
+        self.sched.on_resize(now, job_id)
+
+    # -- fault injection (core/chaos.py) ------------------------------------------
+    def _lost_in_progress(self, run: JobRun) -> int:
+        """Samples of in-iteration work a teardown throws away: the gang's
+        current iteration is lost if any worker made progress in it.  Call
+        it before the per-GPU busy state is cleaned up."""
+        in_prog = bool(
+            run.f_done
+            or run.b_done
+            or run.comm_active
+            or run.comm_ready_at is not None
+            or (
+                run.plan is not None
+                and (run.next_bucket or run.buckets_done or any(run.b_prog))
+            )
+        )
+        if not in_prog:
+            # nothing recorded done yet, but a worker may be mid-task
+            in_prog = any(
+                self.cluster.gpus[gid].busy_job == run.spec.job_id
+                for gid in run.gpus
+            )
+        return run.n_world if in_prog else 0
+
+    def _seed_chaos_events(self) -> None:
+        """Arm the fault processes at run start: one outstanding breakdown
+        and NIC window per server (each stream advanced lazily) and every
+        listed job's cancellation instant."""
+        spec = self._chaos
+        self._base_server_bw = tuple(self.params.server_bandwidth)
+        for s in range(self.cluster.n_servers):
+            self._fail_streams[s] = server_failure_stream(spec, s)
+            self._advance_failure(s)
+            self._nic_streams[s] = nic_degradation_stream(spec, s)
+            self._advance_nic(s)
+        for job in self.jobs.values():
+            t_c = cancel_time(spec, job.job_id, job.arrival)
+            if t_c is not None:
+                # the arrival was pushed first, so a same-instant
+                # cancellation still finds the job queued
+                self._push(max(t_c, job.arrival), "cancel", (job.job_id,))
+
+    def _advance_failure(self, server: int) -> None:
+        win = next(self._fail_streams[server], None)
+        if win is not None:
+            self._push(win[0], "breakdown", (server, win[1]))
+
+    def _advance_nic(self, server: int) -> None:
+        win = next(self._nic_streams[server], None)
+        if win is not None:
+            self._push(win[0], "nic_down", (server, win[1]))
+
+    def _on_breakdown(self, server: int, repair_t: float, now: float) -> None:
+        """A server died: preempt every gang touching it (the normal
+        preemption: tombstones, carried progress, restore penalty) and keep
+        its GPUs out of placement until repair."""
+        self._faults += 1
+        for g in self.cluster.gpus_of_server(server):
+            g.down = True
+        self._windex.on_server_capacity(server)
+        victims = sorted(
+            jid
+            for jid, run in self._runs.items()
+            if run.finished_at is None and server in run.servers
+        )
+        for jid in victims:
+            self.preempt_job(jid, now)
+        self._push(repair_t, "repair", (server,))
+        self.sched.on_fault(now, server, victims)
+
+    def _on_repair(self, server: int, now: float) -> None:
+        for g in self.cluster.gpus_of_server(server):
+            g.down = False
+        self._windex.on_server_capacity(server)
+        self.cluster.capacity_epoch += 1  # placeable capacity grew
+        self._advance_failure(server)
+        self.sched.on_recovery(now, server)
+
+    def _apply_nic_bandwidth(self) -> None:
+        """Rebuild ``params.server_bandwidth`` from the base multipliers and
+        the degraded set.  The transfers were integrated up to now before
+        this event, so the piecewise-rate integration stays exact;
+        ``_comm_dirty`` re-predicts the finish times."""
+        scale = self._chaos.nic_degraded_scale
+        base = self._base_server_bw
+        self.params = dataclasses.replace(
+            self.params,
+            server_bandwidth=tuple(
+                (base[s] if s < len(base) else 1.0)
+                * (scale if s in self._nic_degraded else 1.0)
+                for s in range(self.cluster.n_servers)
+            ),
+        )
+        self._comm_dirty = True
+        # the bandwidth-aware SRSF keys read the map just replaced
+        self._svc_epoch += 1
+
+    def _on_nic_down(self, server: int, end_t: float, now: float) -> None:
+        self._faults += 1
+        self._nic_degraded.add(server)
+        self._apply_nic_bandwidth()
+        self._push(end_t, "nic_up", (server,))
+
+    def _on_nic_up(self, server: int, now: float) -> None:
+        self._nic_degraded.discard(server)
+        self._apply_nic_bandwidth()
+        self._advance_nic(server)
+
+    def _on_cancel(self, job_id: int, now: float) -> None:
+        """A job is cancelled: a running gang is torn down as in a
+        preemption, without the requeue; a queued job leaves the queue.
+        Cancelled jobs are counted apart from ``censored`` and add nothing
+        to the JCT statistics or the goodput."""
+        if job_id not in self._unfinished:
+            return  # finished before the cancellation
+        run = self._runs.get(job_id)
+        if run is not None:
+            self._work_lost_samples += self._lost_in_progress(run)
+            del self._runs[job_id]
+            self._live.pop(job_id, None)
+            self._tear_down(job_id, run, now)
+            if self.record_trace:
+                self._trace.append((job_id, run.iter_done, "cancel", -1, now, now))
+        elif job_id in self._queue:
+            self.remove_queued((job_id,))
+            self._carry.pop(job_id, None)
+        self._cancelled += 1
+        self._unfinished.discard(job_id)
+        # freed memory or a shorter queue may admit other jobs
+        self.sched.on_job_finish(now, job_id)
 
     # -- communication gating -----------------------------------------------------
     def _gate_try_one(self, jid: int, run: JobRun, now: float) -> bool:
@@ -774,6 +1159,9 @@ class EventEngine:
             self._comm_contended += 1
         else:
             self._comm_clean += 1
+        if self.record_trace:
+            kind = "c" if bucket < 0 else f"c{bucket}"
+            self._trace.append((jid, run.iter_done, kind, -1, now, None))
         return True
 
     def _try_start_comms(self, now: float) -> bool:
@@ -784,10 +1172,11 @@ class EventEngine:
         waiters a start wakes.  Between events the in-flight transfers only
         drain, which cannot flip a False decision of a drain-monotone
         policy; the k-way lookahead is not one, so all its waiters are
-        evaluated every event."""
+        evaluated every event, as are all waiters after an abort or a
+        bandwidth change (``_comm_dirty``)."""
         if not self._waiting_comm:
             return False
-        if not self.comm_policy.drain_monotone:
+        if self._comm_dirty or not self.comm_policy.drain_monotone:
             cand = set(self._waiting_comm)
             self._gate_candidates.clear()
         else:
@@ -840,6 +1229,8 @@ class EventEngine:
         self._windex.on_decay(run.spec.job_id)
         if run.samples_done >= run.samples_total:
             self._finish_job(run, now)
+        elif run.pending_resize is not None:
+            self._apply_resize(run, now)
         else:
             self._begin_iteration(run, now)
 
@@ -851,7 +1242,15 @@ class EventEngine:
         self._dirty_gpus.update(run.gpus)
         self._unfinished.discard(jid)
         self._live.pop(jid, None)
+        # recorded now: a streamed run drops finished runs at event end
+        self._finish_at[jid] = now
+        self._jct_at_finish[jid] = now - run.spec.arrival
+        self._qdelay_at_finish[jid] = (
+            self._first_placed.get(jid, run.placed_at) - run.spec.arrival
+        )
         self._job_samples[jid] = run.samples_done
+        if self._source is not None:
+            self._retire_buf.append(jid)
 
     def _on_backward_done(self, run: JobRun, now: float) -> None:
         if len(run.b_done) < run.n_world:
@@ -868,6 +1267,11 @@ class EventEngine:
             self._complete_iteration(run, now)
 
     # -- GPU scheduling (Alg. 3 lines 22-30) -------------------------------------
+    def _restore_extra(self, run: JobRun, w: int) -> float:
+        """The checkpoint-restore penalty worker ``w`` owes on its first
+        compute task after a preemption or resize."""
+        return run.restore_cost if w in run.restore_need else 0.0
+
     def _ready_compute_tasks(self, gid: GpuId):
         """Yield (job_id, worker, kind, duration, segment) ready on this
         GPU; segment is the WFBP backward-segment index (-1 = monolithic)."""
@@ -883,29 +1287,39 @@ class EventEngine:
             w = wmap.get(gid)
             if w is None:
                 continue
+            # straggler jitter: one compute stretch per (job, iteration),
+            # never applied to the restore penalty (a state reload)
+            jit = (
+                jitter_factor(self._chaos, jid, run.iter_done)
+                if self._chaos is not None
+                else 1.0
+            )
             if run.plan is not None:
                 # WFBP: the backward runs in per-bucket segments that overlap
                 # in-flight transfers
                 if w not in run.f_done:
-                    yield (jid, w, "f", run.spec.model.t_f, -1)
+                    yield (jid, w, "f", run.spec.model.t_f * jit + self._restore_extra(run, w), -1)
                 elif run.b_prog[w] < run.n_buckets:
                     s = run.b_prog[w]
-                    yield (jid, w, "b", run.plan[1][s], s)
+                    yield (jid, w, "b", run.plan[1][s] * jit, s)
                 continue
             if run.comm_ready_at is not None or run.comm_active:
                 continue  # between barrier and next iteration
             if w not in run.f_done:
                 if self.fuse_fb:
-                    yield (jid, w, "fb", run.spec.model.t_iter_compute, -1)
+                    yield (jid, w, "fb",
+                           run.spec.model.t_iter_compute * jit + self._restore_extra(run, w), -1)
                 else:
-                    yield (jid, w, "f", run.spec.model.t_f, -1)
+                    yield (jid, w, "f", run.spec.model.t_f * jit + self._restore_extra(run, w), -1)
             elif w not in run.b_done:
-                yield (jid, w, "b", run.spec.model.t_b, -1)
+                yield (jid, w, "b", run.spec.model.t_b * jit, -1)
 
     def _schedule_gpus(self, now: float) -> None:
         for gid in list(self._dirty_gpus):
             self._dirty_gpus.discard(gid)
             g = self.cluster.gpus[gid]
+            if g.down:
+                continue  # broken server: nothing runs until repair
             # busy_job is cleared only by this GPU's own gpu_done event, so a
             # task ending exactly at `now` cannot be double-scheduled
             if g.busy_job is not None:
@@ -919,17 +1333,93 @@ class EventEngine:
             if len(candidates) > 1:
                 candidates.sort(key=lambda c: self.srsf_key_running(c[0]))
             jid, w, kind, dur, seg = candidates[0]
+            run = self._runs[jid]
+            if kind in ("f", "fb") and w in run.restore_need:
+                run.restore_need.discard(w)  # the penalty is in this task
             g.busy_until = now + dur
             g.busy_job = jid
             g.busy_accum += dur
-            self._push(now + dur, "gpu_done", (gid, jid, w, kind, seg))
+            self._push(
+                now + dur,
+                "gpu_done",
+                (gid, jid, w, kind, seg, self._epoch_of.get(jid, 0)),
+            )
+            if self.record_trace:
+                if kind == "fb":
+                    self._trace.append((jid, run.iter_done, "f", w, now, now + run.spec.model.t_f))
+                    self._trace.append((jid, run.iter_done, "b", w, now + run.spec.model.t_f,
+                                        now + dur))
+                else:
+                    tkind = kind if seg < 0 else f"{kind}{seg}"
+                    self._trace.append((jid, run.iter_done, tkind, w, now, now + dur))
+
+    # -- streaming arrival feed (TraceSource) -------------------------------------
+    def _push_next_arrival(self) -> None:
+        """Pull one arrival ahead from the streamed source into the
+        calendar (so the calendar stays O(cluster) at any trace length)."""
+        spec = next(self._stream, None)
+        if spec is None:
+            self._stream = None
+            return
+        if spec.arrival < self._last_arrival:
+            raise ValueError(
+                f"TraceSource must yield arrivals in nondecreasing order: "
+                f"job {spec.job_id} arrives at {spec.arrival} after "
+                f"{self._last_arrival}"
+            )
+        if spec.job_id in self.jobs:
+            raise ValueError(f"TraceSource repeated job_id {spec.job_id}")
+        self._last_arrival = spec.arrival
+        self._push(spec.arrival, "arrival", (spec,))
+        self._arrivals_pending += 1
+
+    def _register_arrival(self, spec: JobSpec, now: float) -> None:
+        """A streamed arrival fired: the job enters the system now."""
+        jid = spec.job_id
+        self.jobs[jid] = spec
+        self._unfinished.add(jid)
+        self._n_seen += 1
+        self._arrivals_pending -= 1
+        if self._chaos is not None:
+            # the per-arrival twin of _seed_chaos_events' cancellations
+            t_c = cancel_time(self._chaos, jid, spec.arrival)
+            if t_c is not None:
+                self._push(max(t_c, spec.arrival), "cancel", (jid,))
+        self._push_next_arrival()
+
+    def _retire_finished(self) -> None:
+        """Streamed feed, end of event: drop finished runs (their results
+        were recorded at finish; a stale gpu_done of a dropped run finds no
+        run)."""
+        for jid in self._retire_buf:
+            self._runs.pop(jid, None)
+            self.jobs.pop(jid, None)
+            self._first_placed.pop(jid, None)
+            self._epoch_of.pop(jid, None)
+        self._retire_buf.clear()
 
     # -- main loop ----------------------------------------------------------------
     def run(self, max_time: float = math.inf) -> SimResult:
-        for spec in self.jobs.values():
-            self._push(spec.arrival, "arrival", (spec.job_id,))
+        if self._source is not None:
+            self._stream = iter(self._source.arrivals())
+            self._push_next_arrival()
+        else:
+            for spec in self.jobs.values():
+                self._push(spec.arrival, "arrival", (spec.job_id,))
+        if self.sched.quantum is not None:
+            if self.jobs:
+                first = min(s.arrival for s in self.jobs.values())
+            elif self._heap:
+                first = self._heap[0][0]  # streamed: the one-ahead arrival
+            else:
+                first = None
+            if first is not None:
+                self._push(first + self.sched.quantum, "quantum", ())
+        if self._chaos is not None:
+            self._seed_chaos_events()
+        streaming = self._source is not None
         now = 0.0
-        while self._heap and self._unfinished:
+        while self._heap and (self._unfinished or self._arrivals_pending):
             t, _, kind, data = heapq.heappop(self._heap)
             if kind == "comm_check" and data[0] != self._comm_epoch:
                 continue
@@ -937,11 +1427,19 @@ class EventEngine:
                 break
             now = t
             self._events += 1
+            self._comm_dirty = False
 
             finished_comms = self._advance_comm(now)
             for jid in finished_comms:
                 run = self._runs[jid]
                 run.comm_active = False
+                if self.record_trace:
+                    # close the open comm record ("c" or a WFBP "c<bucket>")
+                    for i in range(len(self._trace) - 1, -1, -1):
+                        r = self._trace[i]
+                        if r[0] == jid and r[2].startswith("c") and r[5] is None:
+                            self._trace[i] = (r[0], r[1], r[2], r[3], r[4], now)
+                            break
                 if run.plan is not None:
                     # WFBP: the iteration completes with the last bucket's
                     # transfer; otherwise hand the next ready bucket on
@@ -954,62 +1452,112 @@ class EventEngine:
                     self._complete_iteration(run, now)
 
             if kind == "arrival":
-                jid = data[0]
+                if streaming:
+                    spec = data[0]
+                    jid = spec.job_id
+                    self._register_arrival(spec, now)
+                else:
+                    jid = data[0]
                 self._enqueue(jid)
                 self.sched.on_arrival(now, jid)
             elif kind == "gpu_done":
-                gid, jid, w, tkind, seg = data
-                run = self._runs[jid]
-                g = self.cluster.gpus[gid]
-                g.busy_until = None
-                g.busy_job = None
-                self._dirty_gpus.add(gid)
-                if run.plan is not None:
-                    if tkind == "f":
+                gid, jid, w, tkind, seg, epoch = data
+                run = self._runs.get(jid)
+                # else: a stale event of a torn-down incarnation, whose GPU
+                # was freed (and maybe booked again) at the teardown
+                if run is not None and epoch == self._epoch_of.get(jid, 0):
+                    g = self.cluster.gpus[gid]
+                    g.busy_until = None
+                    g.busy_job = None
+                    self._dirty_gpus.add(gid)
+                    if run.plan is not None:
+                        if tkind == "f":
+                            run.f_done.add(w)
+                        else:  # backward segment `seg` of worker w
+                            run.b_prog[w] += 1
+                            self._maybe_enqueue_bucket(run)
+                    elif tkind == "fb":
                         run.f_done.add(w)
-                    else:  # backward segment `seg` of worker w
-                        run.b_prog[w] += 1
-                        self._maybe_enqueue_bucket(run)
-                elif tkind == "fb":
-                    run.f_done.add(w)
-                    run.b_done.add(w)
-                    self._on_backward_done(run, now)
-                elif tkind == "f":
-                    run.f_done.add(w)
-                elif tkind == "b":
-                    run.b_done.add(w)
-                    self._on_backward_done(run, now)
-                if run.finished_at is not None:
-                    # memory freed -> queued jobs may fit now
-                    self.sched.on_job_finish(now, jid)
+                        run.b_done.add(w)
+                        self._on_backward_done(run, now)
+                    elif tkind == "f":
+                        run.f_done.add(w)
+                    elif tkind == "b":
+                        run.b_done.add(w)
+                        self._on_backward_done(run, now)
+                    if run.finished_at is not None:
+                        # memory freed -> queued jobs may fit now
+                        self.sched.on_job_finish(now, jid)
+            elif kind == "quantum":
+                self.sched.on_quantum(now)
+                # tick on only while progress is possible: a pending event
+                # or a live run (a never-placeable queue would spin forever)
+                if (self._unfinished or self._arrivals_pending) and (
+                    self._heap
+                    or any(r.finished_at is None for r in self._runs.values())
+                ):
+                    self._push(now + self.sched.quantum, "quantum", ())
+            elif kind == "breakdown":
+                self._on_breakdown(data[0], data[1], now)
+            elif kind == "repair":
+                self._on_repair(data[0], now)
+            elif kind == "nic_down":
+                self._on_nic_down(data[0], data[1], now)
+            elif kind == "nic_up":
+                self._on_nic_up(data[0], now)
+            elif kind == "cancel":
+                self._on_cancel(data[0], now)
             # a comm_check needs nothing beyond the drain above
 
             if finished_comms:
                 # a job finishing through its comm also frees memory: one
                 # re-evaluation per event
                 for j in finished_comms:
-                    if self._runs[j].finished_at is not None:
+                    run = self._runs.get(j)
+                    if run is not None and run.finished_at is not None:
                         self.sched.on_job_finish(now, j)
                         break
 
             started = self._try_start_comms(now)
             self._schedule_gpus(now)
-            # rates change only when the active set does; a comm_check that
-            # finished nothing (float drift) must still reschedule
-            if started or finished_comms or kind == "comm_check":
+            # rates change only when the active set does (or an abort or a
+            # bandwidth change marks it dirty); a comm_check that finished
+            # nothing (float drift) must still reschedule
+            if started or finished_comms or kind == "comm_check" or self._comm_dirty:
                 self._reschedule_comm_check()
+            if self._retire_buf:
+                self._retire_finished()
 
         return self._collect(now)
 
     # -- results ------------------------------------------------------------------
     def _collect(self, now: float) -> SimResult:
-        jct, finish, qdelay = {}, {}, {}
-        for jid, run in self._runs.items():
-            if run.finished_at is not None:
-                finish[jid] = run.finished_at
-                jct[jid] = run.finished_at - run.spec.arrival
-                qdelay[jid] = run.placed_at - run.spec.arrival
-        delivered = sum(r.samples_done for r in self._runs.values())
+        if self._source is None:
+            # a job list: results from the runs in their insertion order
+            # (the reference's float accumulation order)
+            jct, finish, qdelay = {}, {}, {}
+            for jid, run in self._runs.items():
+                if run.finished_at is not None:
+                    finish[jid] = run.finished_at
+                    jct[jid] = run.finished_at - run.spec.arrival
+                    qdelay[jid] = (
+                        self._first_placed.get(jid, run.placed_at) - run.spec.arrival
+                    )
+            # delivered: finished or still-live jobs (runs and requeued
+            # carries); a cancelled job's progress is not delivered
+            delivered = sum(r.samples_done for r in self._runs.values()) + sum(
+                c.samples_done for c in self._carry.values()
+            )
+        else:
+            # streamed: finished runs were dropped, their records are kept
+            jct = self._jct_at_finish
+            finish = self._finish_at
+            qdelay = self._qdelay_at_finish
+            delivered = (
+                sum(self._job_samples.values())
+                + sum(r.samples_done for r in self._runs.values())
+                + sum(c.samples_done for c in self._carry.values())
+            )
         makespan = max(finish.values()) if finish else now
         busy = {gid: g.busy_accum for gid, g in self.cluster.gpus.items()}
         util = sum(busy.values()) / (len(busy) * makespan) if makespan > 0 else 0.0
@@ -1027,7 +1575,15 @@ class EventEngine:
             comm_started_clean=self._comm_clean,
             peak_calendar=self._peak_heap,
             sched_name=self.sched.name,
-            censored=len(self.jobs) - len(finish),
+            # the jobs that entered (all of a list; the processed arrivals
+            # of a stream) less the finished and the cancelled ones
+            censored=self._n_seen - len(finish) - self._cancelled,
+            preemptions=self._preemptions,
+            resizes=self._resizes,
+            faults=self._faults,
+            cancelled=self._cancelled,
+            work_lost_samples=self._work_lost_samples,
             goodput=(delivered / makespan) if makespan > 0 else 0.0,
+            task_trace=self._trace if self.record_trace else None,
             job_samples=dict(self._job_samples),
         )

@@ -4,12 +4,12 @@
 The scalar helpers (:func:`rate`, :class:`PolicySpec`, :func:`parse_policy`,
 :func:`may_start`, :func:`canonical_placement`,
 :func:`server_bandwidth_array`, :func:`fusion_threshold`,
-:func:`fusion_plan`, :func:`plan_for_model`) are plain-Python copies; the
-event engine uses these only.  The array functions are written for torch tensors
-with any number of leading batch axes (the fluid simulator puts its lane
-axis first, so a ``(J, J)`` matrix of the reference is ``(L, J, J)`` here
-and ``olds @ m`` a batched product); constants are built on the tensor's
-device.  Each one rounds as the reference does: same operations, same
+:func:`fusion_plan`, :func:`plan_for_model`, :func:`preemption_cost`) are
+plain-Python copies; the event engine uses these only.  The array
+functions are written for torch tensors with any number of leading batch
+axes (the fluid simulator puts its lane axis first, so a ``(J, J)`` matrix
+of the reference is ``(L, J, J)`` here and ``olds @ m`` a batched
+product); constants are built on the tensor's device.  Each one rounds as the reference does: same operations, same
 order, Python-float coefficients taken as float32.  The ``random``
 placement's draws come from the caller (``repro_torch.prng``).
 """
@@ -139,6 +139,35 @@ def plan_for_model(model, fusion) -> Optional[Tuple[Tuple[float, ...], Tuple[flo
     if thr == float("inf") or not getattr(model, "layer_grad_bytes", ()):
         return None
     return fusion_plan(model.layer_grad_bytes, model.layer_t_b, thr)
+
+
+# ---------------------------------------------------------------------------
+# Preemption / checkpoint-restore cost (the preemptive and elastic policies)
+# ---------------------------------------------------------------------------
+
+#: Checkpoint storage bandwidths [B/s] (a shared filesystem over the same
+#: 10 GbE class network as the paper's all-reduce) and the fixed overhead
+#: of stopping and relaunching a gang [s]: the reference's constants.
+CHECKPOINT_SAVE_BPS = 1.2e9
+CHECKPOINT_RESTORE_BPS = 1.2e9
+CHECKPOINT_FIXED_S = 1.0
+
+
+def preemption_cost(
+    state_bytes: float,
+    save_bps: float = CHECKPOINT_SAVE_BPS,
+    restore_bps: float = CHECKPOINT_RESTORE_BPS,
+    fixed_s: float = CHECKPOINT_FIXED_S,
+) -> float:
+    """Wall-clock penalty of preempting (or resizing) a job: save its
+    ``state_bytes`` of model state, restore it at the next placement, plus
+    the fixed stop/relaunch overhead.  The event engine charges it as one
+    lump on each worker's first compute task after the restart."""
+    if state_bytes < 0:
+        raise ValueError(f"state_bytes must be >= 0, got {state_bytes}")
+    if save_bps <= 0 or restore_bps <= 0:
+        raise ValueError("checkpoint bandwidths must be positive")
+    return fixed_s + state_bytes / save_bps + state_bytes / restore_bps
 
 
 # ---------------------------------------------------------------------------

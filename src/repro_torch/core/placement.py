@@ -50,8 +50,10 @@ def _feasible_indexed(cluster: Cluster, job: JobSpec, index) -> List[GpuState]:
         if (mfe if excl else mf) < mem:
             continue
         for g in cluster.gpus_of_server(s):
-            if g.mem_capacity_mb - g.mem_used_mb >= mem and not (
-                excl and g.resident_jobs
+            if (
+                not g.down
+                and g.mem_capacity_mb - g.mem_used_mb >= mem
+                and not (excl and g.resident_jobs)
             ):
                 out.append(g)
     return out
@@ -136,7 +138,8 @@ def place_lwf_rack(
             gpus = [
                 g
                 for g in cluster.gpus_of_server(s)
-                if g.mem_free_mb() >= job.model.mem_mb
+                if not g.down
+                and g.mem_free_mb() >= job.model.mem_mb
                 and not (cluster.exclusive and g.resident_jobs)
             ]
             gpus.sort(key=lambda g: (g.workload, g.gpu_id))
@@ -172,7 +175,8 @@ def _place_lwf_rack_indexed(
             gpus = [
                 g
                 for g in cluster.gpus_of_server(s)
-                if g.mem_capacity_mb - g.mem_used_mb >= mem
+                if not g.down
+                and g.mem_capacity_mb - g.mem_used_mb >= mem
                 and not (excl and g.resident_jobs)
             ]
             if not gpus:

@@ -1,16 +1,20 @@
 """Scheduling strategy layer of the event engine (port of
-``repro/core/schedpolicy.py``, trimmed to static gang scheduling).
+``repro/core/schedpolicy.py``).
 
 ``core/engine.py`` owns the mechanism; every job-level decision goes to a
-:class:`SchedPolicy` through ``on_arrival`` (a job joined the wait queue)
-and ``on_job_finish`` (a job completed and freed its resources).  Hooks act
-through the engine's ``place_job`` and ``remove_queued`` and read its
+:class:`SchedPolicy` through its hooks: ``on_arrival`` (a job joined the
+wait queue), ``on_job_finish`` (a job completed or was cancelled and freed
+its resources), ``on_quantum`` (the policy's periodic tick), ``on_resize``
+(the engine applied a resize), ``on_fault`` / ``on_recovery`` (a server
+broke down or came back).  Hooks act through the engine's ``place_job``,
+``remove_queued``, ``preempt_job`` and ``request_resize`` and read its
 queue, runs, cluster and SRSF keys.
 
 :class:`StaticGangPolicy` is the paper's Algorithm 3 admission: the wait
 queue is scanned in SRSF order and each gang placement is held until the
-job completes.  The reference's preemptive and elastic policies are not
-ported (ROADMAP queue 1, item 7a).
+job completes.  :class:`PreemptiveSrsfPolicy` (Tiresias-style gang
+preemption) and :class:`ElasticPolicy` (min/max-GPU gangs resized at
+iteration boundaries) build on it.
 
 The communication gating policies (AdaDUAL Algorithm 2, SRSF(n), k-way
 AdaDUAL) are the comm-task half of the strategy layer, consulted by the
@@ -19,14 +23,16 @@ engine's gating loop through :meth:`CommPolicy.should_start`.
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from repro_torch.core.adadual import (
     adadual_should_start,
     kway_adadual_should_start,
     srsf_n_should_start,
 )
+from repro_torch.core.cluster import JobSpec
 from repro_torch.core.contention import ContentionParams
 
 # ---------------------------------------------------------------------------
@@ -147,6 +153,9 @@ class SchedPolicy:
     its hooks."""
 
     name = "base"
+    #: period of the engine's "quantum" events; None schedules none (the
+    #: static policy's event stream has no ticks)
+    quantum: Optional[float] = None
 
     def bind(self, engine) -> None:
         """Called once by the engine before the run starts."""
@@ -156,7 +165,22 @@ class SchedPolicy:
         """``job_id`` was just inserted into ``engine.queue``."""
 
     def on_job_finish(self, now: float, job_id: int) -> None:
-        """``job_id`` completed; its memory and GPUs are free again."""
+        """``job_id`` completed or was cancelled; its memory and GPUs are
+        free again."""
+
+    def on_quantum(self, now: float) -> None:
+        """Periodic tick (only fired when ``quantum`` is set)."""
+
+    def on_resize(self, now: float, job_id: int) -> None:
+        """The engine applied a pending resize of ``job_id`` at an
+        iteration boundary (capacity may have been freed)."""
+
+    def on_fault(self, now: float, server: int, victims: Sequence[int]) -> None:
+        """A server broke down: its gangs (``victims``) were preempted and
+        requeued, its GPUs are unplaceable until repair."""
+
+    def on_recovery(self, now: float, server: int) -> None:
+        """A broken server came back: its GPUs are placeable again."""
 
 
 class StaticGangPolicy(SchedPolicy):
@@ -192,6 +216,21 @@ class StaticGangPolicy(SchedPolicy):
         self._place_queue(now)
 
     def on_job_finish(self, now: float, job_id: int) -> None:
+        self._place_queue(now)
+
+    def on_quantum(self, now: float) -> None:
+        self._place_queue(now)
+
+    def on_resize(self, now: float, job_id: int) -> None:
+        self._place_queue(now)
+
+    def on_fault(self, now: float, server: int, victims: Sequence[int]) -> None:
+        # surviving servers may still fit the requeued victims
+        self._place_queue(now)
+
+    def on_recovery(self, now: float, server: int) -> None:
+        # everything queued behind the failure competes for the repaired
+        # capacity in one SRSF-ordered scan
         self._place_queue(now)
 
     def _place_queue(self, now: float) -> None:
@@ -251,20 +290,255 @@ class StaticGangPolicy(SchedPolicy):
         return placed
 
 
+class PreemptiveSrsfPolicy(StaticGangPolicy):
+    """Tiresias-style preemptive SRSF (beyond-paper).
+
+    On every arrival and quantum tick, after the normal queue scan, each
+    still-waiting job may evict running jobs whose SRSF remaining service
+    exceeds its own by more than ``margin`` (hysteresis against thrash).
+    Victims are checkpointed (``engine.preempt_job``: gang torn down
+    atomically, progress carried in completed iterations) and requeued;
+    they pay the checkpoint/restore penalty when they next run.  A victim
+    younger than ``min_run`` seconds is immune, bounding preemption
+    frequency the way Tiresias' promotion knob does.
+    """
+
+    name = "preemptive_srsf"
+
+    def __init__(
+        self,
+        quantum: float = 25.0,
+        margin: float = 1.25,
+        min_run: Optional[float] = None,
+    ) -> None:
+        if quantum <= 0:
+            raise ValueError(f"quantum must be positive, got {quantum}")
+        if margin < 1.0:
+            raise ValueError(f"margin must be >= 1, got {margin}")
+        self.quantum = quantum
+        self.margin = margin
+        self.min_run = quantum if min_run is None else min_run
+
+    def on_arrival(self, now: float, job_id: int) -> None:
+        self._place_queue(now)
+        self._preempt_for_queue(now)
+
+    def on_quantum(self, now: float) -> None:
+        self._place_queue(now)
+        self._preempt_for_queue(now)
+
+    def _preempt_for_queue(self, now: float) -> None:
+        eng = self.engine
+        if not eng.queue:
+            return
+        eng.refresh_workloads()
+        eng.queue.sort(key=eng.srsf_key_queued)
+        total_gpus = len(eng.cluster.gpus)
+        gpu_mem = next(iter(eng.cluster.gpus.values())).mem_capacity_mb
+        placed: List[int] = []
+        for jid in list(eng.queue):
+            spec = eng.jobs[jid]
+            need = spec.n_gpus
+            if need > total_gpus or spec.model.mem_mb > gpu_mem:
+                continue  # can never be placed: evicting for it is pure churn
+            # capacity freed by an earlier waiter's evictions may already
+            # fit this one — always retry plain placement before evicting
+            gpu_ids = eng.placement(eng.cluster, spec)
+            if gpu_ids is not None:
+                eng.place_job(jid, gpu_ids, now)
+                placed.append(jid)
+                continue
+            waiter_rem = eng.srsf_key_queued(jid)[0]
+            victims = sorted(
+                (
+                    (eng.srsf_key_running(rid)[0], rid)
+                    for rid, run in eng.runs.items()
+                    if run.finished_at is None
+                    and now - run.placed_at >= self.min_run
+                    and eng.srsf_key_running(rid)[0] > waiter_rem * self.margin
+                ),
+                reverse=True,
+            )
+            if not victims:
+                continue
+            gpu_ids = None
+            evicted = 0
+            for _, rid in victims:
+                evicted += eng.runs[rid].n_world
+                eng.preempt_job(rid, now)
+                # re-rank with the victim's workload actually gone, so the
+                # waiter lands on the just-freed GPUs instead of LWF still
+                # seeing them as loaded (cluster.release keeps L_g)
+                eng.refresh_workloads()
+                gpu_ids = eng.placement(eng.cluster, eng.jobs[jid])
+                if gpu_ids is not None:
+                    break
+                if evicted >= need:
+                    break  # enough GPUs torn down; memory still blocks us
+            if gpu_ids is not None:
+                eng.place_job(jid, gpu_ids, now)
+                placed.append(jid)
+        eng.remove_queued(placed)
+
+
+class ElasticPolicy(StaticGangPolicy):
+    """Elastic gang scheduling (beyond-paper).
+
+    Jobs that declare ``JobSpec.min_gpus``/``max_gpus`` are *elastic*:
+    their total work is fixed in samples (``iterations x nominal GPUs``)
+    and their world size may change at iteration boundaries.  The policy
+
+    * admits an elastic job at the largest feasible size within its
+      bounds (preferring max, then the nominal request, then min);
+    * **shrinks** running elastic gangs toward ``min_gpus`` when queued
+      work cannot be placed (resize requests applied by the engine at the
+      next iteration boundary, freeing GPUs for the queue);
+    * **grows** the running elastic job with the most remaining service
+      into capacity freed by a finishing job.
+
+    Every resize tears the gang down at a boundary and re-places it, so
+    the WFBP fusion plan and the topology domain sets are rebuilt for the
+    new world size by the same code path as a fresh admission.
+    """
+
+    name = "elastic"
+
+    def __init__(self, quantum: Optional[float] = None) -> None:
+        # a quantum is optional: arrivals/finishes/resizes already trigger
+        # re-evaluation; a tick adds periodic growth on long-idle clusters
+        self.quantum = quantum
+
+    # -- admission ---------------------------------------------------------
+    def _candidate_sizes(self, spec: JobSpec) -> List[int]:
+        if not spec.is_elastic:
+            return [spec.n_gpus]
+        lo, hi = spec.gpu_bounds
+        return sorted({hi, spec.n_gpus, lo}, reverse=True)
+
+    def _place_queue(self, now: float) -> None:
+        eng = self.engine
+        if not eng.queue:
+            return
+        eng.refresh_workloads()
+        eng.queue.sort(key=eng.srsf_key_queued)
+        placed: List[int] = []
+        for jid in eng.queue:
+            spec = eng.jobs[jid]
+            for n in self._candidate_sizes(spec):
+                trial = (
+                    spec if n == spec.n_gpus else dataclasses.replace(spec, n_gpus=n)
+                )
+                gpu_ids = eng.placement(eng.cluster, trial)
+                if gpu_ids is not None:
+                    eng.place_job(jid, gpu_ids, now)
+                    placed.append(jid)
+                    break
+        eng.remove_queued(placed)
+
+    # -- elasticity --------------------------------------------------------
+    def on_arrival(self, now: float, job_id: int) -> None:
+        self._place_queue(now)
+        self._shrink_for_queue(now)
+
+    def on_job_finish(self, now: float, job_id: int) -> None:
+        self._place_queue(now)
+        self._grow_into_free(now)
+
+    def on_quantum(self, now: float) -> None:
+        self._place_queue(now)
+        self._shrink_for_queue(now)
+        self._grow_into_free(now)
+
+    def on_resize(self, now: float, job_id: int) -> None:
+        self._place_queue(now)
+
+    def on_fault(self, now: float, server: int, victims: Sequence[int]) -> None:
+        # capacity just shrank: re-place what fits, then shrink elastic
+        # gangs so the breakdown's victims get back in sooner
+        self._place_queue(now)
+        self._shrink_for_queue(now)
+
+    def on_recovery(self, now: float, server: int) -> None:
+        # repaired capacity: queue first, then grow elastic gangs into
+        # whatever the re-admitted jobs left free
+        self._place_queue(now)
+        self._grow_into_free(now)
+
+    def _shrink_for_queue(self, now: float) -> None:
+        """Request boundary shrinks of elastic gangs until the freed GPU
+        count covers the smallest waiting job's requirement."""
+        eng = self.engine
+        if not eng.queue:
+            return
+        needed = min(eng.jobs[jid].gpu_bounds[0] for jid in eng.queue)
+        freeable = 0
+        shrinkable = sorted(
+            (
+                (run.n_world, rid)
+                for rid, run in eng.runs.items()
+                if run.finished_at is None
+                and eng.jobs[rid].is_elastic
+                and run.pending_resize is None
+                and run.n_world > eng.jobs[rid].gpu_bounds[0]
+            ),
+            reverse=True,
+        )
+        for n_world, rid in shrinkable:
+            lo = eng.jobs[rid].gpu_bounds[0]
+            eng.request_resize(rid, lo)
+            freeable += n_world - lo
+            if freeable >= needed:
+                break
+
+    def _grow_into_free(self, now: float) -> None:
+        """Grow the running elastic job with the most remaining service
+        into currently-free feasible GPUs (one job per event; the resize
+        hook re-evaluates, so growth cascades without overcommitting)."""
+        eng = self.engine
+        if eng.queue:
+            return  # queued work has first claim on free capacity
+        candidates = sorted(
+            (
+                (eng.srsf_key_running(rid)[0], rid)
+                for rid, run in eng.runs.items()
+                if run.finished_at is None
+                and eng.jobs[rid].is_elastic
+                and run.pending_resize is None
+                and run.n_world < eng.jobs[rid].gpu_bounds[1]
+            ),
+            reverse=True,
+        )
+        for _, rid in candidates:
+            run = eng.runs[rid]
+            free = len(eng.cluster.available_gpus(eng.jobs[rid].model.mem_mb))
+            if free <= 0:
+                return
+            hi = eng.jobs[rid].gpu_bounds[1]
+            eng.request_resize(rid, min(hi, run.n_world + free))
+            return
+
+
 SCHED_POLICIES = ("static", "preemptive_srsf", "elastic")
 
 
-def sched_policy_from_name(sched: str) -> SchedPolicy:
-    """'static' -> :class:`StaticGangPolicy`; the reference's
-    'preemptive_srsf' and 'elastic' raise ``NotImplementedError``."""
+def sched_policy_from_name(
+    sched: str,
+    quantum: Optional[float] = None,
+    **kw,
+) -> SchedPolicy:
+    """'static' | 'preemptive_srsf' | 'elastic' -> a :class:`SchedPolicy`.
+
+    ``quantum`` overrides the policy's default tick period (ignored by
+    ``static``, which never ticks)."""
     s = sched.lower()
     if s == "static":
         return StaticGangPolicy()
-    if s in ("preemptive_srsf", "preemptive", "elastic"):
-        raise NotImplementedError(
-            f"sched={sched!r}: the preemptive and elastic policies (preempt_job, "
-            "request_resize) are not ported; ROADMAP queue 1, item 7a"
-        )
+    if s in ("preemptive_srsf", "preemptive"):
+        if quantum is not None:
+            kw["quantum"] = quantum
+        return PreemptiveSrsfPolicy(**kw)
+    if s == "elastic":
+        return ElasticPolicy(quantum=quantum, **kw)
     raise ValueError(
         f"unknown scheduling policy {sched!r}; expected one of {SCHED_POLICIES}"
     )

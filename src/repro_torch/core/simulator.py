@@ -15,17 +15,20 @@ Semantics (the paper's Algorithm 3 and Section V, exact continuous time):
   integration;
 * ``fusion=`` runs the WFBP bucket stream: per-bucket gated transfers
   overlap the remaining backward; ``fusion="all"`` is the paper's
-  monolithic model.
-
-Only static gang scheduling is ported: see :mod:`repro_torch.core.engine`
-for the keywords that raise.
+  monolithic model;
+* ``sched=`` picks static gang scheduling (the paper's, the default),
+  preemptive SRSF or elastic resizing, ``chaos=`` injects faults, and a
+  :class:`~repro_torch.core.trace.TraceSource` in place of the job list
+  streams the arrivals (see :mod:`repro_torch.core.engine`, also for the
+  keywords that raise).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
+from repro_torch.core.chaos import ChaosSpec  # noqa: F401  (re-export)
 from repro_torch.core.cluster import Cluster, JobSpec
 from repro_torch.core.contention import ContentionParams
 from repro_torch.core.engine import (  # noqa: F401  (re-exports)
@@ -48,13 +51,14 @@ from repro_torch.core.schedpolicy import (  # noqa: F401  (re-exports)
     sched_policy_from_name,
 )
 from repro_torch.core.topology import Topology
+from repro_torch.core.trace import TraceSource
 
 #: The reference's name of the engine.
 ClusterSimulator = EventEngine
 
 
 def simulate(
-    jobs: Sequence[JobSpec],
+    jobs: Union[Sequence[JobSpec], TraceSource],
     placement: str = "lwf",
     kappa: int = 1,
     comm: str = "ada",
@@ -76,10 +80,9 @@ def simulate(
     comm: 'ada' (AdaDUAL), 'srsfN' or 'kwayK'; placement: 'rand' | 'ff' |
     'ls' | 'lwf' | 'lwf_rack' (``topology`` supplies the racks); fusion:
     'all' | 'none' | a byte threshold.  ``max_time`` cuts the run at a
-    horizon (jobs still running are ``SimResult.censored``).  The
-    reference's other keywords (``sched``, ``chaos``, ``record_trace``,
-    ``comm_chunks``, ...) pass through to :class:`EventEngine`, which
-    accepts their static defaults and raises for the rest.
+    horizon (jobs still running are ``SimResult.censored``).  The other
+    keywords (``sched``, ``chaos``, ``record_trace``, ``checkpoint_cost``,
+    ...) pass through to :class:`EventEngine`.
     """
     sim = EventEngine(
         jobs,

@@ -4,14 +4,54 @@
 8 x 16, 2 x 32; iterations ~ U{1000..6000}; models uniform over Table III.
 The draws are the reference's ``random.Random(seed)`` sequence, so a seed
 gives the same job list bit for bit.
+
+:class:`TraceSource` is the streaming-arrival protocol the event engine
+accepts in place of a job list: arrivals are yielded lazily in
+nondecreasing order, so a long replay holds O(live jobs) memory.  The
+synthetic and CSV sources are in :mod:`repro_torch.scenarios.tracesource`;
+:class:`ListTraceSource` adapts an in-memory job list.
 """
 
 from __future__ import annotations
 
 import random
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 from repro_torch.core.cluster import TABLE_III, JobSpec, ModelProfile
+
+
+class TraceSource:
+    """Streaming arrival feed: the engine pulls arrivals one at a time.
+
+    Subclasses implement :meth:`arrivals` to yield :class:`JobSpec`s in
+    nondecreasing arrival order with unique job ids (the engine checks
+    both and raises).  ``arrivals`` is restartable: each call returns a
+    fresh iterator over the same trace.  ``n_jobs_hint`` is the job count
+    where it is known up front, else None."""
+
+    def arrivals(self) -> Iterator[JobSpec]:
+        raise NotImplementedError
+
+    def n_jobs_hint(self) -> Optional[int]:
+        return None
+
+    def materialize(self) -> List[JobSpec]:
+        """The whole trace as an in-memory list."""
+        return list(self.arrivals())
+
+
+class ListTraceSource(TraceSource):
+    """An in-memory job list behind the streaming protocol."""
+
+    def __init__(self, jobs: Sequence[JobSpec]) -> None:
+        self._jobs = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
+
+    def arrivals(self) -> Iterator[JobSpec]:
+        return iter(self._jobs)
+
+    def n_jobs_hint(self) -> Optional[int]:
+        return len(self._jobs)
+
 
 PAPER_GPU_DISTRIBUTION = ((1, 80), (2, 14), (4, 26), (8, 30), (16, 8), (2 * 16, 2))
 

@@ -45,7 +45,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_train
-from repro_torch.models.common import ParamSpec, apply_rope
+from repro_torch.models.common import ParamSpec, apply_rope, no_batch_einsum
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -2.0**30  # large-but-finite; avoids NaN from all-masked rows
@@ -105,9 +105,9 @@ def attention_forward(
     kv_x = x if kv_input is None else kv_input
     h, kvh, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim_
 
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("btd,dgk->btgk", kv_x, params["wk"])
-    v = torch.einsum("btd,dgk->btgk", kv_x, params["wv"])
+    q = no_batch_einsum("bsd,dhk->bshk", x, params["wq"])
+    k = no_batch_einsum("btd,dgk->btgk", kv_x, params["wk"])
+    v = no_batch_einsum("btd,dgk->btgk", kv_x, params["wv"])
     if use_rope and kv_input is None:
         pos = torch.arange(s, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
@@ -116,7 +116,7 @@ def attention_forward(
     v = _repeat_kv(v, h // kvh)
     if mask_kind == "sliding":
         out = _sliding_attention(q, k, v, cfg.sliding_window, _pick_chunk(s, q_chunk))
-        return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+        return no_batch_einsum("bshk,hkd->bsd", out, params["wo"])
 
     def fold(t):  # (B, S, H, hd) -> (B*H, S, hd), contiguous for the kernel
         return t.transpose(1, 2).reshape(b * h, t.shape[1], hd).contiguous()
@@ -126,7 +126,7 @@ def attention_forward(
     attend = flash_attention_train if torch.is_grad_enabled() else flash_attention
     out = attend(fold(q), fold(k), fold(v), causal=mask_kind == "causal", impl=impl)
     out = out.reshape(b, h, s, hd).transpose(1, 2)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return no_batch_einsum("bshk,hkd->bsd", out, params["wo"])
 
 
 def _sliding_attention(q, k, v, window: int, qc: int) -> torch.Tensor:

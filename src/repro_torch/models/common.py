@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
@@ -94,6 +95,28 @@ def tree_unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 def param_count(schema: Schema) -> int:
     return int(sum(math.prod(s.shape) for _, s in tree_leaves(schema)))
+
+
+_marks = threading.local()
+
+
+def no_batch_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of a product with no batch dimension (the
+    reference's ``dot_general`` with empty batch dimensions), marked for
+    ``RunFlags(remat="dots")``.  torch lowers every einsum to ``aten.bmm``,
+    this kind with a batch of 1, which by shape is not told apart from a
+    batched product whose batch happens to be 1; the dots policy saves the
+    ``aten.bmm`` dispatched inside this call (:func:`in_no_batch_einsum`)."""
+    _marks.depth = getattr(_marks, "depth", 0) + 1
+    try:
+        return torch.einsum(eq, a, b)
+    finally:
+        _marks.depth -= 1
+
+
+def in_no_batch_einsum() -> bool:
+    """True while :func:`no_batch_einsum` runs on this thread."""
+    return getattr(_marks, "depth", 0) > 0
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -10,7 +10,8 @@ need, as plain functions of nested dicts of tensors:
   so the same seed gives the reference's weights;
 * ``loss_fn`` — the causal-LM training loss (enc-dec for ``audio``),
   dense or chunked over the sequence, with per-block rematerialisation
-  (``torch.utils.checkpoint`` in place of ``jax.checkpoint``);
+  (``torch.utils.checkpoint`` in place of ``jax.checkpoint``, selective
+  under ``remat="dots"``);
 * ``prefill_fn`` — prompt pass producing last-token logits + the cache;
 * ``decode_fn`` — one-token serve step, updating the cache in place;
 * ``init_cache`` — ``{"pos", "layers": ...}``, each leaf stacked over
@@ -42,18 +43,21 @@ that axis.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
-    ParamSpec, Schema, apply_rope, cross_entropy_loss, init_params, rms_norm, tree_map,
+    ParamSpec, Schema, apply_rope, cross_entropy_loss, in_no_batch_einsum, init_params, rms_norm,
+    tree_map,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -80,9 +84,16 @@ class RunFlags:
     """The reference's run flags that training and serving read, plus the
     port's choice of kernel implementations.
 
-    ``remat``: "none", or "block" to recompute each block's forward in the
+    ``remat``: "none"; "block" to recompute each block's forward in the
     backward pass (``torch.utils.checkpoint`` per block, as the reference
-    wraps its scan body in ``jax.checkpoint``); "dots" raises.
+    wraps its scan body in ``jax.checkpoint``); or "dots", the reference's
+    ``jax.checkpoint(policy=dots_with_no_batch_dims_saveable)``: each block
+    is checkpointed selectively (:func:`_dots_policy`), saving the output
+    of every product with no batch dimension and recomputing the rest, and
+    the audio encoder's blocks are recomputed whole, as the reference's.
+    The flash kernel is bound through ``ctypes`` and its forward is not an
+    aten op, so under "block" and "dots" it launches again in the
+    recompute.
     ``loss_impl``: "dense" materialises the (B, S, V) logits, "chunked"
     computes the loss over sequence chunks of ``loss_chunk`` (each chunk
     recomputed in the backward pass), as the reference does.  ``q_chunk``
@@ -102,15 +113,25 @@ class RunFlags:
     attn_impl: str = ""
 
     def __post_init__(self) -> None:
-        if self.remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (save the matmul outputs, recompute the rest) waits; the "
-                "port has 'none' and 'block' (ROADMAP queue 1, item 5)")
-        if self.remat not in ("none", "block"):
-            raise ValueError(f"unknown remat {self.remat!r}; expected 'none' or 'block'")
+        if self.remat not in ("none", "block", "dots"):
+            raise ValueError(f"unknown remat {self.remat!r}; expected 'none', 'block' or "
+                             "'dots'")
         if self.loss_impl not in ("dense", "chunked"):
             raise ValueError(f"unknown loss_impl {self.loss_impl!r}; expected 'dense' "
                              "or 'chunked'")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"``: save the output
+    of every product with no batch dimension, recompute everything else.
+    torch lowers ``x @ W`` to ``aten.mm`` and every einsum to ``aten.bmm``;
+    a product with no batch dimension reaches ``aten.bmm`` with a batch of
+    1, so those einsums are marked (:func:`common.no_batch_einsum`) and a
+    marked ``aten.bmm`` is saved, never one by its shape alone."""
+    if op is torch.ops.aten.mm.default or (op is torch.ops.aten.bmm.default
+                                           and in_no_batch_einsum()):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class LM:
@@ -327,14 +348,18 @@ class LM:
                     cross_src=None):
         """(x, the blocks' aux losses summed in block order, the stacked
         caches or None)."""
-        remat = flags.remat == "block" and not collect_kv and torch.is_grad_enabled()
+        remat = flags.remat != "none" and not collect_kv and torch.is_grad_enabled()
+        kw = {}
+        if flags.remat == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _dots_policy)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for i in range(self.n_blocks):
             bp = _layer(blocks, i)
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(
-                    self._block_out, x, bp, flags, cross_src, use_reentrant=False)
+                    self._block_out, x, bp, flags, cross_src, use_reentrant=False, **kw)
             else:
                 x, a, cache = self._apply_block(x, bp, flags=flags, collect_kv=collect_kv,
                                                 cross_src=cross_src)
@@ -348,8 +373,10 @@ class LM:
     def _encode(self, params, audio_embeds, flags: RunFlags):
         """The audio encoder: ``enc_layers`` full-mask self-attention layers
         (RoPE at positions 0..F-1) with their MLPs over the frame
-        embeddings (B, F, D), then ``enc_norm``."""
-        remat = flags.remat == "block" and torch.is_grad_enabled()
+        embeddings (B, F, D), then ``enc_norm``.  Under "block" and "dots"
+        each encoder block is recomputed whole (the reference checkpoints
+        its encoder without a policy for both)."""
+        remat = flags.remat != "none" and torch.is_grad_enabled()
         x = audio_embeds
         for i in range(self.cfg.enc_layers):
             bp = _layer(params["enc_blocks"], i)

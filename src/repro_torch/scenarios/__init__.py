@@ -10,6 +10,11 @@ from repro_torch.scenarios.metrics import (
     from_jcts,
 )
 from repro_torch.scenarios.registry import Scenario, get_scenario, register, scenario_names
+from repro_torch.scenarios.tracesource import (  # registers the trace_replay_* scenarios
+    CsvTraceSource,
+    SyntheticTraceSource,
+    trace_source_from_spec,
+)
 from repro_torch.scenarios.sweep import (
     FLUID_POLICIES,
     canonical_comm,
@@ -22,6 +27,9 @@ from repro_torch.scenarios.sweep import (
 
 __all__ = [
     "QUICK_OVERRIDES",
+    "CsvTraceSource",
+    "SyntheticTraceSource",
+    "trace_source_from_spec",
     "CellCI",
     "RunMetrics",
     "ci_from_runs",

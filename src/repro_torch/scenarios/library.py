@@ -22,9 +22,13 @@ this module registers every scenario the reference's fluid path accepts):
                             elastic workloads; the fluid path runs their
                             static mode.
 * ``smoke``               — tiny, deterministic.
+* ``chaos_steady``, ``chaos_recovery_storm``, ``chaos_stragglers`` — fault
+                            injection (breakdowns, a rack-wide recovery
+                            storm, stragglers and NIC windows); event
+                            engine only.
 
-The reference's ``chaos_*`` and trace-replay scenarios are event-only (its
-``fluid_config`` rejects them) and are not registered here.
+The ``trace_replay_*`` scenarios are registered by
+:mod:`repro_torch.scenarios.tracesource`.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import math
 import random
 from typing import List, Optional, Sequence, Tuple
 
+from repro_torch.core.chaos import ChaosSpec
 from repro_torch.core.cluster import TABLE_III, JobSpec, ModelProfile
 from repro_torch.core.contention import ContentionParams
 from repro_torch.core.topology import two_tier
@@ -56,6 +61,12 @@ QUICK_OVERRIDES = {
     "preemption_gain": {},
     "elastic_surge": {},
     "smoke": {},
+    "chaos_steady": {},
+    "chaos_recovery_storm": {},
+    "chaos_stragglers": {},
+    "trace_replay_synth": dict(n_jobs=64),
+    "trace_replay_philly": {},
+    "trace_replay_alibaba": {},
 }
 
 
@@ -677,4 +688,157 @@ def elastic_surge(
         jobs=_finalize(jobs),
         params=ContentionParams(),
         exclusive_gpus=True,
+    )
+
+
+# ---------------------------------------------------------------------------
+
+
+def _chaos_mixed_jobs(
+    rng: random.Random,
+    n_jobs: int,
+    horizon_s: float,
+    iters: Tuple[int, int],
+    big_frac: float,
+    gpus_per_server: int,
+) -> List[JobSpec]:
+    """Seed-random mix of single-GPU mice and multi-server gangs (the jobs
+    whose all-reduce a breakdown actually aborts)."""
+    jobs = []
+    for jid in range(n_jobs):
+        if rng.random() < big_frac:
+            n_gpus = gpus_per_server * rng.choice((1, 2))
+            model = _sample_models(rng)
+        else:
+            n_gpus = rng.choice((1, 2))
+            model = TABLE_III["resnet50"]
+        jobs.append(
+            JobSpec(
+                job_id=jid,
+                arrival=float(int(rng.uniform(0.0, horizon_s))),
+                n_gpus=n_gpus,
+                iterations=rng.randint(*iters),
+                model=model,
+            )
+        )
+    return jobs
+
+
+@register("chaos_steady")
+def chaos_steady(
+    seed: int = 0,
+    n_jobs: int = 24,
+    horizon_s: float = 120.0,
+    min_iters: int = 60,
+    max_iters: int = 300,
+    server_mtbf_s: float = 900.0,
+    server_mttr_s: float = 25.0,
+    straggler_prob: float = 0.02,
+    straggler_slowdown: float = 0.5,
+    n_servers: int = 8,
+    gpus_per_server: int = 4,
+) -> Scenario:
+    """Steady-state faults: stochastic per-server exponential MTBF/MTTR
+    breakdowns plus mild straggler jitter over a mixed mouse/gang workload —
+    the SLO cell (goodput under faults, work lost to restarts, p99 JCT) of
+    the nightly chaos grid."""
+    rng = random.Random(seed)
+    jobs = _chaos_mixed_jobs(
+        rng, n_jobs, horizon_s, (min_iters, max_iters), 0.4, gpus_per_server
+    )
+    return Scenario(
+        name="chaos_steady",
+        seed=seed,
+        n_servers=n_servers,
+        gpus_per_server=gpus_per_server,
+        jobs=_finalize(jobs),
+        params=ContentionParams(),
+        chaos=ChaosSpec(
+            seed=seed,
+            server_mtbf_s=server_mtbf_s,
+            server_mttr_s=server_mttr_s,
+            straggler_prob=straggler_prob,
+            straggler_slowdown=straggler_slowdown,
+        ),
+    )
+
+
+@register("chaos_recovery_storm")
+def chaos_recovery_storm(
+    seed: int = 0,
+    n_jobs: int = 20,
+    horizon_s: float = 60.0,
+    min_iters: int = 80,
+    max_iters: int = 260,
+    fail_at: float = 70.0,
+    repair_at: float = 100.0,
+    n_servers: int = 8,
+    gpus_per_server: int = 4,
+) -> Scenario:
+    """Rack-repair recovery storm: half the servers fail at one scripted
+    instant and all repair together, so every preempted gang re-admits
+    simultaneously and their catch-up all-reduces collide — the cell behind
+    the regression-locked finding on whether contention-aware gating helps
+    or hurts synchronized re-admission
+    (tests/test_chaos.py::TestRecoveryStormFinding)."""
+    rng = random.Random(seed)
+    # gang-heavy mix: the storm is about colliding catch-up all-reduces
+    jobs = _chaos_mixed_jobs(
+        rng, n_jobs, horizon_s, (min_iters, max_iters), 0.7, gpus_per_server
+    )
+    dead_rack = tuple(range(n_servers // 2))
+    return Scenario(
+        name="chaos_recovery_storm",
+        seed=seed,
+        n_servers=n_servers,
+        gpus_per_server=gpus_per_server,
+        jobs=_finalize(jobs),
+        params=ContentionParams(),
+        chaos=ChaosSpec(
+            seed=seed,
+            scripted_failures=tuple(
+                (s, fail_at, repair_at) for s in dead_rack
+            ),
+        ),
+    )
+
+
+@register("chaos_stragglers")
+def chaos_stragglers(
+    seed: int = 0,
+    n_jobs: int = 24,
+    horizon_s: float = 120.0,
+    min_iters: int = 60,
+    max_iters: int = 300,
+    straggler_prob: float = 0.15,
+    straggler_slowdown: float = 2.0,
+    nic_mtbf_s: float = 600.0,
+    nic_mttr_s: float = 40.0,
+    nic_degraded_scale: float = 0.3,
+    n_servers: int = 8,
+    gpus_per_server: int = 4,
+) -> Scenario:
+    """Straggler-heavy cell: frequent large compute jitter plus transient
+    NIC degradation windows, no breakdowns — isolates the slow-worker /
+    slow-link tail (every gang iterates at its slowest member) from the
+    fault-restart dynamics of chaos_steady."""
+    rng = random.Random(seed)
+    jobs = _chaos_mixed_jobs(
+        rng, n_jobs, horizon_s, (min_iters, max_iters), 0.5, gpus_per_server
+    )
+    return Scenario(
+        name="chaos_stragglers",
+        seed=seed,
+        n_servers=n_servers,
+        gpus_per_server=gpus_per_server,
+        jobs=_finalize(jobs),
+        params=ContentionParams(),
+        chaos=ChaosSpec(
+            seed=seed,
+            straggler_prob=straggler_prob,
+            straggler_slowdown=straggler_slowdown,
+            nic_mtbf_s=nic_mtbf_s,
+            nic_mttr_s=nic_mttr_s,
+            nic_degraded_scale=nic_degraded_scale,
+        ),
     )

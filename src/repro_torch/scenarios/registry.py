@@ -1,9 +1,9 @@
-"""Scenario registry (port of ``repro/scenarios/registry.py``, without the
-chaos and streaming-source fields: fault injection and trace replays wait,
-ROADMAP queue 1, items 7b and 7c).
+"""Scenario registry (port of ``repro/scenarios/registry.py``).
 
-A scenario bundles a cluster shape, a job list and the contention model;
-builders are registered by name and instantiated with :func:`get_scenario`.
+A scenario bundles a cluster shape, a job list (or a streamed trace
+source), the contention model and the event engine's scheduling and
+fault-injection settings; builders are registered by name and
+instantiated with :func:`get_scenario`.
 """
 
 from __future__ import annotations
@@ -11,9 +11,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
+from repro_torch.core.chaos import ChaosSpec
 from repro_torch.core.cluster import Cluster, JobSpec
 from repro_torch.core.contention import ContentionParams
 from repro_torch.core.topology import Topology
+from repro_torch.core.trace import TraceSource
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,15 +37,22 @@ class Scenario:
     #: job's gradient exchange is bucketed (netmodel.fusion_plan) for models
     #: with layer data; 'all' is the paper's monolithic all-reduce
     fusion: object = "all"
-    #: the event engine's job scheduling policy and its tick period, and
-    #: its one-job-per-GPU mode; the fluid path runs every scenario as
-    #: static gang scheduling and ignores them, as the reference's does.
-    #: The port's engine is static only, and the reference's
-    #: ``checkpoint_cost`` field waits with the preemptive policy that
-    #: reads it (ROADMAP queue 1, item 7a)
+    #: the event engine's job scheduling policy ('static' |
+    #: 'preemptive_srsf' | 'elastic'), its tick period (None = the policy's
+    #: default), the checkpoint/restore penalty of a preemption or resize
+    #: (None = ``netmodel.preemption_cost`` of the model state) and its
+    #: one-job-per-GPU mode; the fluid path runs every scenario as static
+    #: gang scheduling and ignores them, as the reference's does
     sched: str = "static"
     preemption_quantum: Optional[float] = None
+    checkpoint_cost: Optional[float] = None
     exclusive_gpus: bool = False
+    #: fault injection (core/chaos.py); event engine only, the fluid
+    #: path's ``fluid_config`` raises for an active spec
+    chaos: Optional[ChaosSpec] = None
+    #: streamed arrivals: the event engine consumes this source in place of
+    #: ``jobs`` (which a replay of a large trace leaves empty)
+    source: Optional[TraceSource] = None
 
     def make_cluster(self) -> Cluster:
         """A fresh (mutable) cluster — one per event-engine run."""
@@ -54,10 +63,15 @@ class Scenario:
         )
 
     def job_list(self) -> List[JobSpec]:
+        if self.source is not None and not self.jobs:
+            return self.source.materialize()
         return list(self.jobs)
 
     @property
     def n_jobs(self) -> int:
+        if self.source is not None and not self.jobs:
+            hint = self.source.n_jobs_hint()
+            return hint if hint is not None else len(self.job_list())
         return len(self.jobs)
 
     @property

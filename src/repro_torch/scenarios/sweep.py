@@ -55,18 +55,22 @@ def run_scenario_event(
     **sim_kw,
 ) -> SimResult:
     """Exact event-engine simulation of one scenario instance.  The
-    scenario's scheduling fields (``sched``, ``exclusive_gpus``) are
-    defaults that ``sim_kw`` overrides; ``max_time`` goes to ``run``.  Its
-    ``preemption_quantum`` is the preemptive policies' tick, which the
-    static engine does not read (ROADMAP queue 1, item 7a).  The
-    reference's scenarios with fault injection or a streaming trace source
-    are not registered here (items 7b and 7c)."""
+    scenario's scheduling and fault fields (``sched``,
+    ``preemption_quantum``, ``checkpoint_cost``, ``exclusive_gpus``,
+    ``chaos``) are defaults that ``sim_kw`` overrides; ``max_time`` goes to
+    ``run``.  A scenario with a ``source`` feeds the engine the streamed
+    arrivals in place of the job list (the same results, O(live jobs)
+    calendar)."""
+    jobs = scenario.source if scenario.source is not None else scenario.job_list()
     sim_kw.setdefault("fusion", scenario.fusion)
     sim_kw.setdefault("sched", scenario.sched)
+    sim_kw.setdefault("preemption_quantum", scenario.preemption_quantum)
+    sim_kw.setdefault("checkpoint_cost", scenario.checkpoint_cost)
     sim_kw.setdefault("exclusive_gpus", scenario.exclusive_gpus)
+    sim_kw.setdefault("chaos", scenario.chaos)
     max_time = sim_kw.pop("max_time", math.inf)
     sim = ClusterSimulator(
-        scenario.job_list(),
+        jobs,
         cluster=scenario.make_cluster(),
         placement=PlacementPolicy(
             placement, kappa=kappa, seed=scenario.seed, topology=scenario.topology
@@ -92,11 +96,25 @@ def fluid_config(
     event placement names map to their gang analogues, ``fast_kw``
     forwards ``skip``/``gating``/``compact``/``chunk_steps``/``kernel``.
     The scenario's event-engine scheduling fields (``sched``,
-    ``preemption_quantum``, ``exclusive_gpus``) do not reach the fluid
-    path: it runs static gang scheduling, as the reference's does."""
+    ``preemption_quantum``, ``checkpoint_cost``, ``exclusive_gpus``) do not
+    reach the fluid path: it runs static gang scheduling, as the
+    reference's does.  Fault injection and an unmaterialized streamed
+    source are event-engine only and raise, as in the reference."""
     comm = canonical_comm(comm)
     if comm not in FLUID_POLICIES:
         raise ValueError(f"fluid backend supports {FLUID_POLICIES}, got {comm!r}")
+    if scenario.chaos is not None and scenario.chaos.active:
+        raise ValueError(
+            f"scenario {scenario.name!r} arms fault injection (chaos=), which is "
+            "event-engine only: the fluid path's static traces cannot express a "
+            "gang's teardown and repair"
+        )
+    if scenario.source is not None and not scenario.jobs:
+        raise ValueError(
+            f"scenario {scenario.name!r} is an unmaterialized streaming trace replay "
+            "(source= without jobs), which is event-engine only: the fluid path needs "
+            "the whole trace as one tensor"
+        )
     p = scenario.params
     gang_mode = netmodel.canonical_placement(placement)
     return FluidSimConfig(

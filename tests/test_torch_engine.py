@@ -1,10 +1,12 @@
 """The port's event engine (``repro_torch.core.engine``) against the JAX
 package's (``repro.core.engine``), on the same interpreter, cell by cell.
 
-Every scenario the port registers, at ``QUICK_OVERRIDES`` and the
-regression seed of ``tests/test_scenarios.py``, runs under ada, srsf1 and
-srsf2 with LWF-1 placement (``sched="static"``); the k-way cells are in
-``tests/test_torch_engine_kway.py``.  The engine is plain
+Every scenario the port registers (all of the reference's, the chaos
+ones with their fault specs and the trace replays streamed), at
+``QUICK_OVERRIDES`` and the regression seed of ``tests/test_scenarios.py``,
+runs under ada, srsf1 and srsf2 with LWF-1 placement (``sched="static"``);
+the k-way cells are in ``tests/test_torch_engine_kway.py``, the preemptive
+and elastic policies in ``tests/test_torch_engine_dynamic.py``.  The engine is plain
 Python floats in the reference's order of operations, so the bar is exact
 equality of every ``SimResult`` field — a ulp moves an event.  The
 reference's paper-ordering lock runs on the port's results of the same
@@ -51,11 +53,9 @@ def assert_same_result(got, ref):
 
 
 def test_registers_every_fluid_scenario():
-    """The port registers the reference's scenarios but for the chaos and
-    trace-replay ones (ROADMAP queue 1, items 7b and 7c)."""
-    ref = {n for n in R.scenario_names()
-           if not n.startswith("chaos_") and not n.startswith("trace_replay_")}
-    assert set(NAMES) == ref
+    """The port registers every scenario of the reference, the fluid path's
+    and the event-only chaos and trace-replay ones alike."""
+    assert set(NAMES) == set(R.scenario_names())
     assert set(NAMES) <= set(REGRESSION_SEEDS)
 
 
@@ -138,15 +138,9 @@ class TestPaperOrderings:
 
 
 class TestNotPorted:
-    """What the trimmed engine leaves out raises, naming its ROADMAP item."""
+    """What the engine leaves out raises, naming its ROADMAP item."""
 
     @pytest.mark.parametrize("kw, item", [
-        (dict(sched="preemptive_srsf"), "7a"),
-        (dict(sched="elastic"), "7a"),
-        (dict(preemption_quantum=10.0), "7a"),
-        (dict(checkpoint_cost=3.0), "7a"),
-        (dict(chaos=object()), "7b"),
-        (dict(record_trace=True), "7d"),
         (dict(comm_chunks=4), "7e"),
         (dict(contention_domain="link"), "7e"),
         (dict(observe=object()), "7f"),
@@ -160,12 +154,14 @@ class TestNotPorted:
             pengine.EventEngine(jobs, **kw)
 
     def test_trace_source_raises(self):
-        class Source:
-            def arrivals(self):
-                return iter(())
+        """A ``TraceSource`` is accepted in place of the job list (since the
+        streamed feed was ported) and runs to the list's result."""
+        from repro_torch.core.trace import ListTraceSource
 
-        with pytest.raises(NotImplementedError, match=r"item 7c\b"):
-            pengine.EventEngine(Source())
+        jobs = scenario("port", "smoke").job_list()
+        streamed = pengine.EventEngine(ListTraceSource(jobs)).run()
+        listed = pengine.EventEngine(jobs).run()
+        assert len(streamed.jct) == len(jobs) and streamed.jct == listed.jct
 
     def test_bad_names_raise(self):
         jobs = scenario("port", "smoke").job_list()

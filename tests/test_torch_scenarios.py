@@ -44,8 +44,11 @@ def _job_tuple(j):
 
 class TestScenarioCopies:
     def test_registered_names(self):
-        assert set(P.scenario_names()) == set(NAMES)
-        for name in NAMES:
+        """Every scenario of the reference is registered (``NAMES``, the ones
+        the fluid path takes, among them) with its quick overrides."""
+        assert set(P.scenario_names()) == set(R.scenario_names())
+        assert set(NAMES) <= set(P.scenario_names())
+        for name in R.scenario_names():
             assert P.QUICK_OVERRIDES[name] == R.QUICK_OVERRIDES[name]
 
     @pytest.mark.parametrize("name", NAMES)
@@ -74,7 +77,7 @@ class TestScenarioCopies:
 
     def test_unknown_scenario_raises(self):
         with pytest.raises(KeyError, match="unknown scenario"):
-            P.get_scenario("chaos_steady")
+            P.get_scenario("chaos_monkey")
 
 
 class TestFluidConfig:

@@ -160,8 +160,11 @@ class TestLoss:
                     _close_scaled(g.numpy(), base[k].numpy(), 1e-5, k)
 
     def test_remat_dots_raises(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-            plm.RunFlags(remat="dots")
+        """An unknown remat or loss_impl raises; "dots" is accepted (its
+        grads are held in ``tests/test_torch_remat.py``)."""
+        assert plm.RunFlags(remat="dots").remat == "dots"
+        with pytest.raises(ValueError, match="remat"):
+            plm.RunFlags(remat="full")
         with pytest.raises(ValueError, match="loss_impl"):
             plm.RunFlags(loss_impl="sparse")
 
