@@ -306,12 +306,39 @@ Phases (any failed check raises, so the exit code is non-zero):
     avg JCT and its preemption, resize, fault, cancellation and censored
     counts ``==`` the JAX reference's on the CPU
     (``scripts/event_dynamic_reference.py``), in phase 31-32's worker
-    processes.
+    processes;
+50. the rest of the event engine and the sweep runner: (a) ``sweep
+    (["fusion_sweep", "model_zoo"], comms=("ada", "srsf2"), seeds=(0, 1),
+    backend="fluid")`` at phase 11's overrides, 8 cells through
+    ``run_cell`` on the card (the fluid path's new entry point; the
+    launch count set to 0 just before, one launch per executed tick), in
+    this process while phases 31-32's workers run: every record, wall
+    aside, ``==`` the port's own CPU run of the same cells (worker
+    processes of phases 10-11) and within 1e-6 relative of the JAX
+    reference's ``run_cell`` on the CPU, finished counts exact; (b) on the
+    host, registered size, seed 0, ada, in phase 31-32's workers:
+    ``paper`` with ``comm_chunks=4`` and with ``contention_domain="link"``,
+    ``paper`` and ``preemption_gain`` (preemptive_srsf) under
+    ``gating="rescan"`` and ``workloads="rescan"`` (each also ``==`` its
+    incremental run of phase 31 or 49: avg JCT, events, every finish
+    time), ``paper`` and ``chaos_recovery_storm`` under
+    ``observe=ObsConfig.full()`` (``==`` the unobserved run, mean JCT parts
+    the reference's, the Chrome trace written to a temporary file, loaded
+    back, the reference's event count; observed and unobserved wall times
+    printed beside the host CPU), and ``trace_replay_philly`` under
+    ``profile_phases=True`` (``replay_summary``'s keys and values the
+    reference's); (c) after the card phases, the event ``sweep(["paper",
+    "oversub_fabric"], comms=("ada", "srsf1", "srsf2"))`` at QUICK size in
+    EVENT_WORKERS spawned processes and in this process: every record,
+    wall aside, ``==`` and the reference's.  The constants come from
+    ``scripts/event_rest_reference.py``.
 
-Phases run in the order of their numbers, but for 31, 32 and 49, which run
-after 29, and 48, which runs after phase 25's main path.  Worker processes
-run only during phases 10-11 and 31-32 (49 with them), so the phases that
-time host-bound work (7, 12-30, 33) have the host to themselves.  The
+Phases run in the order of their numbers, but for 31, 32, 49 and 50 (a, b),
+which run after 29, 48, which runs after phase 25's main path, and 50 (c),
+which runs last.  Worker processes run only during phases 10-11 (with
+phase 50 (a)'s CPU side) and 31-32 (49 and 50 (b) with them, beside phase
+50 (a)'s card side), so the phases that time host-bound work (7, 12-30,
+33) have the host to themselves.  The
 served models' prefill windows (phases 35-36, 40-41, 45-46), whose flash
 records are counted, run the prefill once as a
 discarded warm-up step before the one they report (in a whole run a
@@ -322,7 +349,8 @@ again, up to 3 windows, before the check that needs it fails.
 
 Then the kernels line (JSON; the flash kernel's launches are the serving,
 training (phase 48's too) and multi_job main paths' of every family, the
-SSD step's those of mamba and jamba, the fluid step's include phase 29's;
+SSD step's those of mamba and jamba, the fluid step's include phase 29's
+and phase 50 (a)'s;
 phases 34's, 39's and 44's shapes under "shapes") and, last, ``{"ok":
 true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -332,6 +360,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -1420,7 +1449,10 @@ def _spy_batches() -> list:
     """Record each result of ``simulate_traces_batched`` that
     ``monte_carlo_fluid`` gets (finish ticks, chunks, captures, bucket-axis
     widths: more than its ``RunMetrics`` carry); returns the list."""
-    from repro_torch.scenarios import sweep as sweep_mod
+    import importlib
+
+    # the module: the package's ``sweep`` attribute is the sweep function
+    sweep_mod = importlib.import_module("repro_torch.scenarios.sweep")
 
     seen = []
     real = sweep_mod.simulate_traces_batched
@@ -1549,16 +1581,17 @@ def _first_divergence(torch, name, seeds, over, comm, fast_kw, dev, max_ticks=40
     _log(f"card vs CPU, {name} {comm} {fast_kw}: no tick differs from the same state")
 
 
-def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> dict:
+def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> tuple:
     """Phases 10 and 11, and phase 5's eager run.  The host-bound runs
     (the eager runs of the paper ada, model_zoo ada and paper kway2
-    batches, the CPU side of phase 11, and phase 29's CPU side of
-    ``monte_carlo_jct``) go to worker processes, started together, while
-    this process replays the plain step core's graphs and phase 11's card
-    side, so the card is shared meanwhile (their walls are printed, not
-    kept; phase 7 times an eager tick alone).  Returns phase 29's CPU
-    side, so that no worker runs beside the phases that time host-bound
-    work after phase 12."""
+    batches, the CPU side of phase 11, phase 29's CPU side of
+    ``monte_carlo_jct`` and phase 50's CPU side of the sweep's fluid cells)
+    go to worker processes, started together, while this process replays
+    the plain step core's graphs and phase 11's card side, so the card is
+    shared meanwhile (their walls are printed, not kept; phase 7 times an
+    eager tick alone).  Returns phase 29's and phase 50's CPU sides, so
+    that no worker runs beside the phases that time host-bound work after
+    phase 12."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1575,6 +1608,7 @@ def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> dict:
         eager = [pool.submit(_batch_worker, (name, seeds, over, comm, {}, "cuda", False))
                  for _, name, seeds, over, comm in eager_runs]
         mc_cpu = pool.submit(_mc_worker, "cpu")
+        rest_cpu = pool.submit(_rest_fluid_sweep, "cpu")
         on_cpu = [pool.submit(_batch_worker, job) for job in cpu_jobs]
         # ---- 10. the plain step core in the graph ---------------------------
         for tag, name, seeds, over, comm in reruns:
@@ -1610,9 +1644,11 @@ def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> dict:
                  f"chunk count identical to the graph's; wall {res['wall']:.3f} s, "
                  f"{res['wall'] / ticks * 1e3:.4f} ms per tick, {res['launches']} launches")
         mc = mc_cpu.result()
+        rest = rest_cpu.result()
     _log(f"phases 10-11: {time.perf_counter() - t0:.3f} s wall (phase 29's CPU side "
-         f"{mc['wall']:.3f} s of it)")
-    return mc
+         f"{mc['wall']:.3f} s of it; phase 50's CPU side {sum(r['wall_s'] for r in rest):.3f} "
+         f"s in {len(rest)} cells)")
+    return mc, rest
 
 
 # ---------------------------------------------------------------------------
@@ -2119,7 +2155,10 @@ MULTI_JOB = dict(jobs=("llama3.2-1b:4:300", "mamba2-130m:2:500", "olmoe-1b-7b:8:
 #: phase 33: jobs scheduled with the measured profiles beside MULTI_JOB's,
 #: spanning servers of the 4 x 4 cluster so that their all-reduces contend
 SPAN_JOBS = ("llama3.2-1b:8:300", "mamba2-130m:12:500")
-EVENT_WORKERS = 4
+#: worker processes of phases 31-32, 49 and 50's host runs (the main
+#: process runs phase 50's fluid cells on the card meanwhile), and of
+#: phase 50's event sweep
+EVENT_WORKERS = 7
 #: phase 49: (scenario, sched or None for the scenario's own), seed 0, ada
 DYNAMIC_CELLS = (("preemption_gain", "static"), ("preemption_gain", "preemptive_srsf"),
                  ("elastic_surge", "static"), ("elastic_surge", "elastic"),
@@ -2140,6 +2179,199 @@ REFERENCE_DYNAMIC = {
     "trace_replay_synth/static": (106.15214601361744, 0, 0, 0, 0, 0),
     "trace_replay_philly/static": (17.77224062499993, 0, 0, 0, 0, 0),
     "trace_replay_alibaba/static": (11.508681014999738, 0, 0, 0, 0, 0),
+}
+#: phase 50 (a): the sweep's fluid cells, phase 11's CARD_CPU_CELLS at their
+#: overrides, seeds 0 and 1, under ada and srsf2
+REST_FLUID = dict(scenarios=("fusion_sweep", "model_zoo"), comms=("ada", "srsf2"), seeds=(0, 1),
+                  per_scenario_overrides={name: over for name, _, over in CARD_CPU_CELLS})
+REST_FLUID_FIELDS = ("n_jobs", "n_finished", "avg_jct", "median_jct", "p95_jct", "p99_jct",
+                     "makespan")
+#: phase 50 (b): (tag, scenario, engine keywords, the incremental run it
+#: equals: a phase-31 or phase-49 cell), seed 0, comm ada, registered size;
+#: the longest first
+REST_HOST_CELLS = (
+    ("paper/gating=rescan", "paper", {"gating": "rescan"}, "paper/ada"),
+    ("paper/comm_chunks=4", "paper", {"comm_chunks": 4}, None),
+    ("paper/observed", "paper", {"observe": "full"}, "paper/ada"),
+    ("paper/workloads=rescan", "paper", {"workloads": "rescan"}, "paper/ada"),
+    ("paper/link", "paper", {"contention_domain": "link"}, None),
+    ("preemption_gain/preemptive_srsf/gating=rescan", "preemption_gain",
+     {"sched": "preemptive_srsf", "gating": "rescan"}, "preemption_gain/preemptive_srsf"),
+    ("preemption_gain/preemptive_srsf/workloads=rescan", "preemption_gain",
+     {"sched": "preemptive_srsf", "workloads": "rescan"}, "preemption_gain/preemptive_srsf"),
+    ("chaos_recovery_storm/observed", "chaos_recovery_storm", {"observe": "full"},
+     "chaos_recovery_storm/static"),
+    ("trace_replay_philly/profile_phases", "trace_replay_philly", {"profile_phases": True},
+     "trace_replay_philly/static"),
+)
+REPLAY_WINDOW_S = 60.0
+#: phase 50 (c): the event sweep at QUICK size
+REST_EVENT = dict(scenarios=("paper", "oversub_fabric"), comms=("ada", "srsf1", "srsf2"))
+#: the JAX reference's phase-50 results on the CPU
+#: (``scripts/event_rest_reference.py``): (a) per fluid cell (scenario,
+#: comm, seed) its n_jobs, n_finished, avg, median, p95 and p99 JCT and
+#: makespan; (b) per host cell its avg JCT, events, preemptions, comm
+#: starts, censored jobs and finish-time digest, the observed runs' mean
+#: JCT parts and Chrome trace event count, the profiled replay's
+#: ``replay_summary`` keys and values; (c) per event sweep record (scenario,
+#: policy name) its avg JCT and the digest of its CSV_FIELDS but wall_s
+REFERENCE_SWEEP_FLUID = {
+    ('fusion_sweep', 'ada', 0):
+        (6, 6, 117.88333702087402, 92.39999961853027, 312.3000183105469, 312.3000183105469, 312.3000183105469),
+    ('fusion_sweep', 'ada', 1): (6, 6, 117.82499996821086, 91.05000114440918, 315.5, 315.5, 315.5),
+    ('fusion_sweep', 'srsf2', 0):
+        (6, 6, 117.88333702087402, 92.39999961853027, 312.3000183105469, 312.3000183105469, 312.3000183105469),
+    ('fusion_sweep', 'srsf2', 1):
+        (6, 6, 117.82499996821086, 91.05000114440918, 315.5, 315.5, 315.5),
+    ('model_zoo', 'ada', 0):
+        (12, 12, 234.68750762939453, 159.20001220703125, 863.4000244140625, 863.4000244140625, 1183.4000244140625),
+    ('model_zoo', 'ada', 1):
+        (12, 12, 153.4083366394043, 31.900009155273438, 1010.0, 1010.0, 1260.0),
+    ('model_zoo', 'srsf2', 0):
+        (12, 12, 234.68750762939453, 159.20001220703125, 863.4000244140625, 863.4000244140625, 1183.4000244140625),
+    ('model_zoo', 'srsf2', 1):
+        (12, 12, 153.4083366394043, 31.900009155273438, 1010.0, 1010.0, 1260.0),
+}
+REFERENCE_REST = {
+    'paper/gating=rescan': {
+        'avg_jct': 2777.5749093755935,
+        'events': 2389581,
+        'preemptions': 0,
+        'comm_contended': 42255,
+        'comm_clean': 161288,
+        'censored': 0,
+        'finish_sha256': '63f458f1eb3ea69d2b2e2b6bf38e0de49fb73b0b881253999b12b71caf62bf10',
+    },
+    'paper/comm_chunks=4': {
+        'avg_jct': 2376.0394285773973,
+        'events': 2885062,
+        'preemptions': 0,
+        'comm_contended': 0,
+        'comm_clean': 765796,
+        'censored': 0,
+        'finish_sha256': 'd1d9e9a18abf04f8b2b115ad58d6773a35a975b874af5139e31b556c3f7696f4',
+    },
+    'paper/observed': {
+        'avg_jct': 2777.5749093755935,
+        'events': 2389581,
+        'preemptions': 0,
+        'comm_contended': 42255,
+        'comm_clean': 161288,
+        'censored': 0,
+        'finish_sha256': '63f458f1eb3ea69d2b2e2b6bf38e0de49fb73b0b881253999b12b71caf62bf10',
+        'mean_parts': {
+            'jct': 2777.574909375593,
+            'queue_wait': 444.32180165457487,
+            'compute': 490.7551866468951,
+            'comm_serial': 310.5035202438162,
+            'comm_stretch': 60.49026078520436,
+            'gating_wait': 1471.504140045103,
+            'overhead_pf': 0.0,
+        },
+        'trace_events': 1000413,
+    },
+    'paper/workloads=rescan': {
+        'avg_jct': 2777.5749093755935,
+        'events': 2389581,
+        'preemptions': 0,
+        'comm_contended': 42255,
+        'comm_clean': 161288,
+        'censored': 0,
+        'finish_sha256': '63f458f1eb3ea69d2b2e2b6bf38e0de49fb73b0b881253999b12b71caf62bf10',
+    },
+    'paper/link': {
+        'avg_jct': 1351.273596907189,
+        'events': 2378317,
+        'preemptions': 0,
+        'comm_contended': 10555,
+        'comm_clean': 196542,
+        'censored': 0,
+        'finish_sha256': '638eb64f22d0e8dde4132b0ebc162a8dc83122f0c70222c2978e5d180daf81b3',
+    },
+    'preemption_gain/preemptive_srsf/gating=rescan': {
+        'avg_jct': 50.832682980952505,
+        'events': 25697,
+        'preemptions': 14,
+        'comm_contended': 0,
+        'comm_clean': 1899,
+        'censored': 0,
+        'finish_sha256': 'b0673e4f2c67f9c5da4a56ce0bbd6f5f542551afb5686b53211aec64759632e8',
+    },
+    'preemption_gain/preemptive_srsf/workloads=rescan': {
+        'avg_jct': 50.832682980952505,
+        'events': 25697,
+        'preemptions': 14,
+        'comm_contended': 0,
+        'comm_clean': 1899,
+        'censored': 0,
+        'finish_sha256': 'b0673e4f2c67f9c5da4a56ce0bbd6f5f542551afb5686b53211aec64759632e8',
+    },
+    'chaos_recovery_storm/observed': {
+        'avg_jct': 55.97712124472672,
+        'events': 18515,
+        'preemptions': 11,
+        'comm_contended': 194,
+        'comm_clean': 1260,
+        'censored': 0,
+        'finish_sha256': '29fcca1827b797476baa62aee44ccb01782f6172ff71e0a87bcc5109b5fd3e6a',
+        'mean_parts': {
+            'jct': 55.97712124472671,
+            'queue_wait': 0.0,
+            'compute': 21.206305086423306,
+            'comm_serial': 17.979227169999824,
+            'comm_stretch': 2.012703630545419,
+            'gating_wait': 14.021847667758115,
+            'overhead_pf': 0.757037690000057,
+        },
+        'trace_events': 25926,
+    },
+    'trace_replay_philly/profile_phases': {
+        'avg_jct': 17.77224062499993,
+        'events': 19162,
+        'preemptions': 0,
+        'comm_contended': 0,
+        'comm_clean': 1118,
+        'censored': 0,
+        'finish_sha256': '92899703888c9bcb37aba77308860144ef82e307b08fb29ab957919af96c1fdd',
+        'replay_keys': [
+            'window_s', 't_lo', 't_hi', 'n_windows', 'n_jobs', 'sustained_goodput',
+            'sustained_jobs_per_sec', 'p99_jct', 'queueing_delay_mean', 'queueing_delay_p99',
+            'makespan', 'n_finished', 'censored', 'goodput', 'events', 'peak_calendar',
+            'phase_comm_advance_s', 'phase_dispatch_s', 'phase_gating_s', 'phase_gpu_schedule_s',
+        ],
+        'replay_values': {
+            'window_s': 60.0,
+            't_lo': 60.0,
+            't_hi': 300.0,
+            'n_windows': 4.0,
+            'n_jobs': 34.0,
+            'sustained_goodput': 54.858333333333334,
+            'sustained_jobs_per_sec': 0.14166666666666666,
+            'p99_jct': 69.15287679999986,
+            'queueing_delay_mean': 0.0,
+            'queueing_delay_p99': 0.0,
+            'makespan': 329.2281934000008,
+            'n_finished': 40.0,
+            'censored': 0.0,
+            'goodput': 54.68547457637009,
+            'events': 19162.0,
+            'peak_calendar': 30.0,
+        },
+    },
+}
+REFERENCE_SWEEP_EVENT = {
+    ('paper', 'Ada-SRSF'):
+        (51.374264205006114, '215879f87e12dd8a92d41d2c54abacd07739a17cae56ecd92e6e58f427dd2e6d'),
+    ('paper', 'SRSF(1)'):
+        (51.374264205006114, '720e50aa4c16833706f5d95c23e097511a572c76ffd2fedf5d7f8244ddbcc3ce'),
+    ('paper', 'SRSF(2)'):
+        (51.374264205006114, '734b29656a1d1059df2942c04392f55f9c5dad4ad3c79b8823dc9afade29b0db'),
+    ('oversub_fabric', 'Ada-SRSF'):
+        (58.07630516982587, '5d65e1526ae77a9e9d28085aee6e489b145be7be32ab2ec1f22e0c530a143539'),
+    ('oversub_fabric', 'SRSF(1)'):
+        (64.01274269875454, 'f1ddba07252f65f83b985268eab6d3d207040827b2e21cc17200140e641f6feb'),
+    ('oversub_fabric', 'SRSF(2)'):
+        (57.274407861863075, 'f02fd821d21c23991bd2654e304a0052c929f9558df8257722ce3f0258b7a8e0'),
 }
 
 
@@ -2166,6 +2398,12 @@ def _host_cpu() -> str:
     return f"{name or 'model name not reported'}, {platform.machine()}, {os.cpu_count()} CPUs"
 
 
+def _finish_digest(res) -> str:
+    """sha256 of a run's finish times in the result's order (as
+    ``scripts/event_rest_reference.py`` digests the reference's)."""
+    return hashlib.sha256(repr(list(res.finish.items())).encode()).hexdigest()
+
+
 def _event_worker(name, seed, comm, placement, overrides) -> dict:
     """One event-engine run of a registered scenario (phases 31-32), on the
     host, in a worker process or this one."""
@@ -2180,7 +2418,8 @@ def _event_worker(name, seed, comm, placement, overrides) -> dict:
     return {"name": name, "seed": seed, "comm": comm, "placement": placement,
             "n_jobs": scn.n_jobs, "gpus": scn.total_gpus, "n_finished": len(res.jct),
             "censored": res.censored, "avg_jct": res.avg_jct() if res.jct else math.nan,
-            "makespan": res.makespan, "events": res.events_processed, "wall": wall}
+            "makespan": res.makespan, "events": res.events_processed, "wall": wall,
+            "finish_sha256": _finish_digest(res)}
 
 
 def _dynamic_worker(name, sched) -> dict:
@@ -2199,18 +2438,89 @@ def _dynamic_worker(name, sched) -> dict:
             "values": (res.avg_jct() if res.jct else math.nan, res.preemptions, res.resizes,
                        res.faults, res.cancelled, res.censored),
             "work_lost": res.work_lost_samples, "events": res.events_processed,
-            "peak_calendar": res.peak_calendar, "wall": wall}
+            "peak_calendar": res.peak_calendar, "wall": wall,
+            "finish_sha256": _finish_digest(res)}
+
+
+def _rest_worker(tag, name, kw) -> dict:
+    """One phase-50 (b) run on the host: a registered scenario at seed 0
+    under ada with the engine keywords ``kw`` (``observe="full"`` arms
+    ``ObsConfig.full()``).  An observed run's Chrome trace is written to a
+    temporary file and loaded back; a profiled run's ``replay_summary`` is
+    taken at ``REPLAY_WINDOW_S``."""
+    import os
+
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.obs import ObsConfig
+    from repro_torch.scenarios import get_scenario, run_scenario_event
+    from repro_torch.scenarios.metrics import replay_summary
+
+    kw = dict(kw)
+    if kw.get("observe") == "full":
+        kw["observe"] = ObsConfig.full()
+    scn = get_scenario(name, seed=0)
+    t0 = time.perf_counter()
+    res = run_scenario_event(scn, comm="ada", **kw)
+    wall = time.perf_counter() - t0
+    row = {"tag": tag, "n_jobs": scn.n_jobs, "n_finished": len(res.jct), "wall": wall,
+           "avg_jct": res.avg_jct(), "events": res.events_processed,
+           "preemptions": res.preemptions, "comm_contended": res.comm_started_contended,
+           "comm_clean": res.comm_started_clean, "censored": res.censored,
+           "finish_sha256": _finish_digest(res)}
+    if res.obs is not None:
+        t0 = time.perf_counter()
+        row["mean_parts"] = res.obs.mean_parts()
+        row["closure"] = max(abs(p.parts_sum - p.jct) for p in res.obs.decomp.values())
+        fd, path = tempfile.mkstemp(suffix=".perfetto.json")
+        os.close(fd)
+        try:
+            res.obs.to_chrome_trace(path)
+            row["trace_bytes"] = os.path.getsize(path)
+            with open(path) as fh:
+                trace = json.load(fh)
+        finally:
+            os.unlink(path)
+        row["trace_events"] = len(trace["traceEvents"])
+        row["trace_phases"] = sorted({e["ph"] for e in trace["traceEvents"]})
+        row["report_wall"] = time.perf_counter() - t0
+    if res.phase_seconds is not None:
+        row["phase_seconds"] = res.phase_seconds
+        summary = replay_summary(res, window_s=REPLAY_WINDOW_S)
+        row["replay_keys"] = list(summary)
+        row["replay_values"] = {k: v for k, v in summary.items() if not k.startswith("phase_")}
+    return row
+
+
+def _rest_fluid_sweep(device=None) -> list:
+    """Phase 50 (a): the sweep's fluid cells on ``device`` (None: the
+    card), one record dict per cell; on the CPU in a worker process of
+    phases 10-11."""
+    import torch
+
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    if device == "cpu":
+        torch.set_num_threads(1)
+    from repro_torch.scenarios import sweep
+
+    recs = sweep(list(REST_FLUID["scenarios"]), comms=REST_FLUID["comms"],
+                 seeds=REST_FLUID["seeds"], backend="fluid",
+                 per_scenario_overrides=REST_FLUID["per_scenario_overrides"], device=device)
+    return [dataclasses.asdict(r) for r in recs]
 
 
 def _submit_event_runs(pool) -> dict:
-    """Phases 31-32's and 49's host runs, queued on ``pool`` (worker
-    processes started when phase 29 ends, so they run beside no card
-    phase)."""
-    dyn = [pool.submit(_dynamic_worker, name, sched) for name, sched in DYNAMIC_CELLS]
+    """Phases 31-32's, 49's and 50's host runs, queued on ``pool`` (worker
+    processes started when phase 29 ends, beside no card phase but phase
+    50's fluid cells), the registered-size paper runs first."""
+    rest = [pool.submit(_rest_worker, tag, name, kw) for tag, name, kw, _ in REST_HOST_CELLS[:5]]
     reg = [pool.submit(_event_worker, name, 0, comm, pl, {}) for name, comm, pl in EVENT_CELLS]
     cut = {(comm, s): pool.submit(_event_worker, "paper", s, comm, "lwf", PAPER_CUT)
            for comm in EVENT_FLUID_COMMS for s in SEEDS}
-    return {"registered": reg, "cut": cut, "dynamic": dyn}
+    dyn = [pool.submit(_dynamic_worker, name, sched) for name, sched in DYNAMIC_CELLS]
+    rest += [pool.submit(_rest_worker, tag, name, kw) for tag, name, kw, _ in REST_HOST_CELLS[5:]]
+    return {"registered": reg, "cut": cut, "dynamic": dyn, "rest": rest}
 
 
 def _dynamic_phase(futures) -> None:
@@ -2235,6 +2545,143 @@ def _dynamic_phase(futures) -> None:
         if r["streamed"]:
             _require(r["peak_calendar"] < r["n_jobs"] + r["gpus"],
                      f"{r['cell']}: the streamed calendar stays O(cluster)")
+
+
+def _same_value(a, b) -> bool:
+    return a == b or (isinstance(a, float) and isinstance(b, float)
+                      and math.isnan(a) and math.isnan(b))
+
+
+def _rest_fluid_card(torch, chunk_steps) -> dict:
+    """Phase 50 (a), the card side: ``sweep(backend="fluid")`` through
+    ``run_cell`` on CUDA, the launch count set to 0 just before and read
+    just after (in this process, while phases 31-32's workers run)."""
+    from repro_torch.kernels.fluidstep import kernel as fs_kernel
+
+    fs_kernel.fluid_step_core_cuda.launches = 0
+    t0 = time.perf_counter()
+    recs = _rest_fluid_sweep()
+    torch.cuda.synchronize()
+    return {"recs": recs, "wall": time.perf_counter() - t0,
+            "launches": fs_kernel.fluid_step_core_cuda.launches,
+            "ticks": sum(r["chunks"] for r in recs) * chunk_steps}
+
+
+def _rest_fluid_phase(card, cpu_recs) -> int:
+    """Phase 50 (a): each card record ``==`` the port's CPU record of the
+    same cell (``wall_s`` aside) and within 1e-6 relative of the
+    reference's, finished counts exact; one launch per executed tick.
+    Returns the launches."""
+    _require(len(card["recs"]) == len(cpu_recs) == len(REFERENCE_SWEEP_FLUID),
+             "phase 50 (a): 8 fluid cells on each side")
+    for rec, cpu in zip(card["recs"], cpu_recs):
+        key = (rec["scenario"], rec["comm"], rec["seed"])
+        want = REFERENCE_SWEEP_FLUID[key]
+        got = tuple(rec[f] for f in REST_FLUID_FIELDS)
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got[2:], want[2:]))
+        _log(f"sweep fluid {key} (run_cell on the card): {dict(zip(REST_FLUID_FIELDS, got))}, "
+             f"chunks {rec['chunks']}, wall {rec['wall_s']:.3f} s; the port on the CPU "
+             f"{cpu['wall_s']:.3f} s; the reference's {want} (max rel diff {rel:.3e})")
+        _require(all(_same_value(rec[k], cpu[k]) for k in rec if k != "wall_s"),
+                 f"sweep fluid {key}: card record == CPU record")
+        _require(got[:2] == want[:2] and rec["n_finished"] == rec["n_jobs"],
+                 f"sweep fluid {key}: finished counts equal the reference's")
+        _require(rel <= 1e-6, f"sweep fluid {key}: within 1e-6 of the reference")
+    _log(f"sweep fluid (phase 50 a): {len(card['recs'])} cells on the card in "
+         f"{card['wall']:.3f} s wall, fluid_step_core launches {card['launches']} (counted over "
+         f"graph replays), executed ticks {card['ticks']}")
+    _require(card["launches"] == card["ticks"] > 0, "phase 50 (a): one launch per executed tick")
+    return card["launches"]
+
+
+def _rest_phase(futures) -> None:
+    """Phase 50 (b): chunked all-reduces, the ring-edge reading, the rescan
+    oracles, observed runs with their Perfetto export, and per-phase
+    profiling on the host, against the reference's constants and the
+    incremental, unobserved runs of phases 31 and 49."""
+    cpu = _host_cpu()
+    base = {}
+    for fut in futures["registered"]:
+        r = fut.result()
+        base[f"{r['name']}/{r['comm']}"] = dict(r, values=(r["avg_jct"],))
+    for fut in futures["dynamic"]:
+        r = fut.result()
+        base[r["cell"]] = r
+    against = {tag: inc for tag, _, _, inc in REST_HOST_CELLS}
+    for fut in futures["rest"]:
+        r = fut.result()
+        tag = r["tag"]
+        want = REFERENCE_REST[tag]
+        _log(f"event engine {tag} ({r['n_jobs']} jobs, seed 0, ada): avg JCT {r['avg_jct']}, "
+             f"{r['events']} events, preemptions {r['preemptions']}, comm starts contended "
+             f"{r['comm_contended']} clean {r['comm_clean']}, censored {r['censored']}; "
+             f"the reference's avg JCT {want['avg_jct']}, {want['events']} events; "
+             f"{r['wall']:.3f} s wall on the host ({cpu}, one of {EVENT_WORKERS} worker "
+             f"processes)")
+        for k in ("avg_jct", "events", "preemptions", "comm_contended", "comm_clean",
+                  "censored", "finish_sha256"):
+            _require(r[k] == want[k], f"{tag}: {k} equals the reference's")
+        _require(r["n_finished"] + r["censored"] == r["n_jobs"], f"{tag}: every job counted")
+        inc = base.get(against[tag])
+        if against[tag] is not None:
+            _require(r["avg_jct"] == inc["values"][0] and r["events"] == inc["events"]
+                     and r["finish_sha256"] == inc["finish_sha256"],
+                     f"{tag}: == the {against[tag]} run of phase 31 or 49")
+            _log(f"  == the incremental, unobserved {against[tag]} run (avg JCT, events, every "
+                 f"finish time): {inc['wall']:.3f} s wall there, {r['wall']:.3f} s here")
+        if "mean_parts" in want:
+            _log(f"  observed ({cpu}): {r['wall']:.3f} s wall against {inc['wall']:.3f} s "
+                 f"unobserved (another worker of the same pool); report and Perfetto export "
+                 f"{r['report_wall']:.3f} s; mean JCT parts {r['mean_parts']}; closure "
+                 f"max |parts - jct| {r['closure']:.3e} s; Chrome trace {r['trace_events']} "
+                 f"events ({r['trace_bytes']} bytes, phases {r['trace_phases']}), the "
+                 f"reference's {want['trace_events']}")
+            _require(r["mean_parts"] == want["mean_parts"], f"{tag}: mean parts")
+            _require(r["trace_events"] == want["trace_events"], f"{tag}: trace event count")
+            _require({"X", "M", "C"} <= set(r["trace_phases"]), f"{tag}: trace event kinds")
+        if "replay_keys" in want:
+            _log(f"  profile_phases: {r['phase_seconds']} (wall seconds, {cpu}); "
+                 f"replay_summary keys {r['replay_keys']}")
+            _require(r["replay_keys"] == want["replay_keys"], f"{tag}: replay_summary keys")
+            _require(all(_same_value(r["replay_values"][k], v)
+                         for k, v in want["replay_values"].items())
+                     and list(r["replay_values"]) == list(want["replay_values"]),
+                     f"{tag}: replay_summary values")
+            _require(list(r["phase_seconds"]) == ["comm_advance", "dispatch", "gating",
+                                                  "gpu_schedule"]
+                     and all(v >= 0.0 for v in r["phase_seconds"].values()),
+                     f"{tag}: phase_seconds")
+
+
+def _event_sweep_phase() -> None:
+    """Phase 50 (c): the event sweep in a ``spawn`` pool of EVENT_WORKERS
+    processes and in this process, after the card phases: every record
+    ``==`` (``wall_s`` aside) and equal to the reference's."""
+    from repro_torch.scenarios import QUICK_OVERRIDES, sweep
+    from repro_torch.scenarios.metrics import CSV_FIELDS
+
+    walls, runs = [], []
+    for processes in (EVENT_WORKERS, None):
+        t0 = time.perf_counter()
+        runs.append(sweep(list(REST_EVENT["scenarios"]), comms=REST_EVENT["comms"],
+                          per_scenario_overrides=QUICK_OVERRIDES, processes=processes))
+        walls.append(time.perf_counter() - t0)
+    pooled, serial = runs
+    _require(len(pooled) == len(serial) == len(REFERENCE_SWEEP_EVENT), "phase 50 (c): 6 cells")
+    for p, q in zip(pooled, serial):
+        key = (p.scenario, p.comm)
+        digest = hashlib.sha256(repr(tuple(getattr(p, f) for f in CSV_FIELDS
+                                           if f != "wall_s")).encode()).hexdigest()
+        want = REFERENCE_SWEEP_EVENT[key]
+        _log(f"sweep event {key} (QUICK, {p.n_jobs} jobs): avg JCT {p.avg_jct}, finished "
+             f"{p.n_finished}, the reference's {want[0]}")
+        _require(all(_same_value(getattr(p, f.name), getattr(q, f.name))
+                     for f in dataclasses.fields(p) if f.name != "wall_s"),
+                 f"sweep event {key}: the pool's record == this process's")
+        _require((p.avg_jct, digest) == want, f"sweep event {key}: equals the reference's")
+    _log(f"sweep event (phase 50 c): {len(pooled)} cells, {walls[0]:.3f} s wall in "
+         f"{EVENT_WORKERS} spawned processes (their start included), {walls[1]:.3f} s in this "
+         f"process")
 
 
 def _event_phases(futures, fluid_results) -> None:
@@ -3140,7 +3587,8 @@ def main() -> int:
 
     # ---- 10./11. plain core and eager; card against CPU ----------------------
     _mark("10-11")
-    mc_cpu = _wfbp_checks_phase(torch, dev, {**wfbp_main, "paper ada": ada}, chunk_steps)
+    mc_cpu, rest_cpu = _wfbp_checks_phase(torch, dev, {**wfbp_main, "paper ada": ada},
+                                          chunk_steps)
 
     # ---- 12. per tick: one model_zoo chunk through the graph -----------------
     _mark("12")
@@ -3180,7 +3628,7 @@ def main() -> int:
     main_launches += random_launches
 
     # ---- 31./32. the event engine on the host, against the fluid path -------
-    # in worker processes, beside no card phase
+    # in worker processes, beside no card phase but phase 50 (a)'s fluid cells
     _mark("31-32")
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -3188,10 +3636,19 @@ def main() -> int:
     with ProcessPoolExecutor(max_workers=EVENT_WORKERS,
                              mp_context=multiprocessing.get_context("spawn")) as pool:
         event_runs = _submit_event_runs(pool)
+        # ---- 50 (a). the sweep's fluid cells on the card, meanwhile ----------
+        _mark("50 (a), card side, beside the workers")
+        rest_card = _rest_fluid_card(torch, chunk_steps)
+        _mark("31-32, the workers' results")
         _event_phases(event_runs, results[:3])
         # ---- 49. the dynamic event engine, in the same worker processes ------
         _mark("49")
         _dynamic_phase(event_runs)
+        # ---- 50 (b). chunks, ring edges, rescan, observed and profiled runs --
+        _mark("50 (b)")
+        _rest_phase(event_runs)
+    _mark("50 (a)")
+    rest_launches = _rest_fluid_phase(rest_card, rest_cpu)
 
     # ---- 30. sampled serving ------------------------------------------------
     _mark("30")
@@ -3265,12 +3722,16 @@ def main() -> int:
     _reduced_family_phase(torch, dev, [get_config(a, reduced=True) for a in (
         "llama-3.2-vision-11b", "seamless-m4t-large-v2")], params_of=_cross_params)
 
+    # ---- 50 (c). the event sweep in spawned processes and in this one ------
+    _mark("50 (c)")
+    _event_sweep_phase()
+
     line = {"kernels": [{
         "name": "fluid_step_core",
         "route": "cuda",
         "source": "src/repro_torch/kernels/fluidstep/csrc/fluid_step.cu",
         "replaces": "src/repro/kernels/fluidstep/kernel.py:35",
-        "launches": main_launches + wfbp_launches,
+        "launches": main_launches + wfbp_launches + rest_launches,
         "max_abs_err": max_abs,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -14,12 +14,13 @@ paths for the slices that have been ported so far:
   for the prefill attention, ``models.ffn`` for the MLP);
 * training both families (``launch.train`` -> ``launch.steps`` ->
   ``optim.adamw``), with weights from the threefry (``prng``);
-* the exact event engine, static gang scheduling, on the host
-  (``scenarios.sweep.run_scenario_event`` -> ``core.simulator`` ->
-  ``core.engine`` -> ``core.schedpolicy``, ``core.placement``,
-  ``core.adadual``, ``core.clusterindex``), and ``launch.multi_job``,
-  which profiles real training jobs on the device and schedules them
-  with it.
+* the exact event engine on the host, with every option of the
+  reference's (``scenarios.sweep.run_scenario_event`` -> ``core.simulator``
+  -> ``core.engine`` -> ``core.schedpolicy``, ``core.placement``,
+  ``core.adadual``, ``core.clusterindex``, ``core.chaos``), its
+  observability recorder (``obs``) and the sweep runner
+  (``scenarios.sweep.sweep``), and ``launch.multi_job``, which profiles
+  real training jobs on the device and schedules them with it.
 
 It imports nothing of ``repro`` or JAX: the plain-Python pieces it needs
 are trimmed copies, held against the originals by the

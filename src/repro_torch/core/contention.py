@@ -1,5 +1,6 @@
 """Contention-model constants and parameters (port of
-``repro/core/contention.py``, without the offline numpy fits).
+``repro/core/contention.py``), with the offline float64 numpy fits of the
+paper's Fig. 2 calibration.
 
 Eq. (2): contention-free all-reduce time ``T_ar = a + b*M``.  Eq. (5): under
 k-way contention each byte costs ``k*b + (k-1)*eta`` seconds.
@@ -10,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Tuple
+
+import numpy as np
 
 #: Latency component fitted on real hardware [s] (paper Section III-A2).
 PAPER_A = 6.69e-4
@@ -54,6 +57,17 @@ class ContentionParams:
             return 1.0
         n = len(self.server_bandwidth)
         return min((self.server_bandwidth[s] if s < n else 1.0) for s in servers)
+
+    def mean_bandwidth_scale(self, n_servers: int) -> float:
+        """Cluster-mean multiplier, the homogeneous-network equivalent (a
+        summary statistic: both simulators model per-server rates).
+        ``n_servers <= 0`` gives the nominal 1.0."""
+        if not self.server_bandwidth or n_servers <= 0:
+            return 1.0
+        n = len(self.server_bandwidth)
+        return sum(
+            (self.server_bandwidth[s] if s < n else 1.0) for s in range(n_servers)
+        ) / n_servers
 
     def allreduce_time(self, message_bytes: float, k: int = 1) -> float:
         """One all-reduce of ``message_bytes`` under k-way contention
@@ -112,4 +126,41 @@ def allreduce_cost_terms(
     raise ValueError(
         f"unknown all-reduce algorithm {algorithm!r}; "
         f"expected one of {ALLREDUCE_ALGORITHMS}"
+    )
+
+
+# Model fitting (the Fig. 2 calibration): offline, float64 numpy
+
+
+def fit_linear_cost(message_bytes, times) -> Tuple[float, float]:
+    """Least-squares fit of ``T = a + b*M`` (Fig. 2(a)).  Returns (a, b).
+    float64: the design matrix's columns span ~12 orders of magnitude."""
+    m = np.asarray(message_bytes, dtype=np.float64)
+    t = np.asarray(times, dtype=np.float64)
+    b, a = np.polyfit(m, t, 1)
+    return float(a), float(b)
+
+
+def fit_contention_penalty(ks, times, message_bytes: float, a: float, b: float) -> float:
+    """Fit eta from a k-sweep at fixed message size (Fig. 2(b)): with
+    ``T(k) = a + k*b*M + (k-1)*eta*M``, eta by least squares over k > 1."""
+    ks = np.asarray(ks, dtype=np.float64)
+    times = np.asarray(times, dtype=np.float64)
+    resid = times - (a + ks * b * message_bytes)
+    x = (ks - 1.0) * message_bytes
+    mask = ks > 1
+    if not mask.any():
+        return 0.0
+    eta = float(np.dot(x[mask], resid[mask]) / np.dot(x[mask], x[mask]))
+    return max(eta, 0.0)
+
+
+def simulate_contention_sweep(
+    params: ContentionParams, message_bytes: float, max_k: int
+) -> np.ndarray:
+    """Per-task completion time of k identical concurrent tasks for k in
+    1..max_k (the Fig. 2(b) experiment: each sees k-way contention for its
+    whole transfer)."""
+    return np.asarray(
+        [params.allreduce_time(message_bytes, k) for k in range(1, max_k + 1)]
     )

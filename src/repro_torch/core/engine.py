@@ -29,15 +29,24 @@ place of the job list streams the arrivals, one ahead in the calendar.
 worker, t0, t1)`` (with the preempt, resize and cancel markers), the
 schedule :mod:`repro_torch.core.dag` validates.
 
+``comm_chunks > 1`` splits each monolithic all-reduce into chunks gated
+one by one (each pays the latency ``a``; a chunk boundary is a preemption
+point of the link).  ``contention_domain="link"`` reads contention per
+directed ring edge (:class:`~repro_torch.core.topology.RingEdgeTopology`)
+instead of per NIC.  ``observe=ObsConfig(...)`` arms the observability
+recorder (:mod:`repro_torch.obs`): the exact per-job JCT decomposition,
+per-domain timelines, the gating audit and the Perfetto spans in
+``SimResult.obs``; it only watches, so an observed run is bit-exact with
+an unobserved one.  ``profile_phases=True`` sums wall seconds per engine
+phase into ``SimResult.phase_seconds``.  ``gating`` and ``workloads``
+pick the incremental modes (the default, or ``REPRO_GATING`` /
+``REPRO_WORKLOADS``) or the ``"rescan"`` oracles they are held to: every
+waiter evaluated on every event, and the zero-and-rebuild workload walk
+with the whole-queue admission scan.
+
 It is plain Python on Python floats, in the reference's order of
 operations, so a run gives the reference's event stream and results bit
-for bit.  It holds no tensors.  Its one mode is the reference's default:
-incremental gating and the maintained workload index
-(:mod:`repro_torch.core.clusterindex`).  What the reference engine has
-beyond that raises ``NotImplementedError`` naming its ROADMAP item (queue
-1, items 7e-7g): chunked all-reduces and the ring-edge ``"link"`` reading,
-the observability recorder and per-phase profiling, and the ``rescan``
-oracle modes.
+for bit.  It holds no tensors.
 
 Progress is counted in samples (per-GPU batches): a job's work is
 ``iterations x n_gpus`` and each completed iteration contributes its world
@@ -51,6 +60,8 @@ import dataclasses
 import heapq
 import itertools
 import math
+import os
+import time
 from bisect import insort
 from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple, Union
 
@@ -73,16 +84,11 @@ from repro_torch.core.schedpolicy import (
     StaticGangPolicy,
     sched_policy_from_name,
 )
-from repro_torch.core.topology import Topology, nic_topology
+from repro_torch.core.topology import RingEdgeTopology, Topology, nic_topology
 from repro_torch.core.trace import TraceSource
+from repro_torch.obs.recorder import ObsRecorder
 
 _EPS = 1e-9
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch's event engine; ROADMAP queue 1, item {item}"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -96,8 +102,9 @@ class CommTask:
     servers: Set[int]
     remaining_bytes: float
     latency_left: float  # the fixed 'a' consumed in wall time before draining
-    #: topology domain indices this task loads (the fabric cuts its ring
-    #: crosses)
+    #: contention domains this task loads: topology domain indices (the
+    #: fabric cuts its ring crosses) or, under the "link" reading, the
+    #: directed ring edges themselves
     domains: frozenset = frozenset()
     #: WFBP bucket index this transfer carries (-1 = the monolithic
     #: iteration-level all-reduce)
@@ -121,6 +128,8 @@ class JobRun:
     b_done: Set[int] = dataclasses.field(default_factory=set)
     comm_ready_at: Optional[float] = None  # all-reduce ready, not yet started
     comm_active: bool = False
+    #: chunks of the current iteration's all-reduce still to send
+    comm_chunks_left: int = 0
     #: WFBP fusion plan ``(bucket_bytes, bucket_t_b)`` from
     #: ``netmodel.fusion_plan``; None = the monolithic all-reduce
     plan: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
@@ -230,8 +239,7 @@ def percentile(xs: Sequence[float], q: float) -> float:
 
 @dataclasses.dataclass
 class SimResult:
-    """The reference's result record, field for field.  The fields of the
-    parts not ported (phase profiles, observability) stay None."""
+    """The reference's result record, field for field."""
 
     policy_name: str
     placement_name: str
@@ -264,7 +272,11 @@ class SimResult:
     task_trace: Optional[List[Tuple]] = None
     #: per-job delivered samples at finish time
     job_samples: Dict[int, int] = dataclasses.field(default_factory=dict)
+    #: ``profile_phases=True``: wall seconds per engine phase over the run
+    #: (comm_advance, dispatch, gating, gpu_schedule); None otherwise
     phase_seconds: Optional[Dict[str, float]] = None
+    #: ``observe=ObsConfig(...)``: the :class:`repro_torch.obs.ObsReport`;
+    #: None otherwise
     obs: Optional[object] = None
 
     def avg_jct(self) -> float:
@@ -366,8 +378,7 @@ class SimResult:
 
 class EventEngine:
     """Exact event-driven simulation of Algorithm 3's dynamics, with every
-    job-level decision delegated to a :class:`SchedPolicy`.  The keywords
-    are the reference's; the ones the port does not support raise."""
+    job-level decision delegated to a :class:`SchedPolicy`."""
 
     def __init__(
         self,
@@ -393,23 +404,6 @@ class EventEngine:
         profile_phases: bool = False,
         observe: Optional[object] = None,
     ) -> None:
-        if comm_chunks != 1:
-            raise _not_ported(f"comm_chunks={comm_chunks} (chunked all-reduce)", "7e")
-        if contention_domain == "link":
-            raise _not_ported('contention_domain="link" (RingEdgeTopology)', "7e")
-        if contention_domain != "server":
-            raise ValueError(f"unknown contention domain {contention_domain!r}")
-        if observe is not None:
-            raise _not_ported("the observability recorder (observe=)", "7f")
-        if profile_phases:
-            raise _not_ported("profile_phases=True", "7f")
-        for mode_name, mode in (("gating", gating), ("workloads", workloads)):
-            if mode == "rescan":
-                raise _not_ported(f'{mode_name}="rescan" (the oracle mode)', "7g")
-            if mode not in (None, "incremental"):
-                raise ValueError(
-                    f"unknown {mode_name} mode {mode!r} (expected 'incremental' or 'rescan')"
-                )
         # A streamed feed keeps one future arrival in the calendar; a job
         # list pushes every arrival up front
         if isinstance(jobs, TraceSource):
@@ -427,6 +421,10 @@ class EventEngine:
         # boundaries.  A recorded trace keeps f and b apart.
         self.fuse_fb = fuse_fb and not record_trace
         self.record_trace = record_trace
+        # chunked all-reduce: each chunk is gated on its own, so a long
+        # transfer can lose the link at every chunk boundary; each chunk
+        # pays the latency a
+        self.comm_chunks = max(1, comm_chunks)
         # WFBP tensor fusion: 'all' = one monolithic all-reduce per
         # iteration (the paper's model); 'none' / a byte threshold =
         # per-bucket transfers that overlap the remaining backward pass,
@@ -434,14 +432,32 @@ class EventEngine:
         self._fusion_threshold = netmodel.fusion_threshold(fusion)
         self.fusion = fusion
         self._plan_cache: Dict[int, Optional[tuple]] = {}
+        if self._fusion_threshold != math.inf and self.comm_chunks > 1:
+            raise ValueError(
+                "comm_chunks and WFBP fusion are mutually exclusive — the "
+                "fusion plan already chunks the all-reduce"
+            )
+        # "server": a server's NIC is the shared resource; "link": only
+        # tasks sharing a directed ring edge contend (RingEdgeTopology).
+        # An explicit topology supersedes the string.
+        if contention_domain not in ("server", "link"):
+            raise ValueError(f"unknown contention domain {contention_domain!r}")
+        self.contention_domain = contention_domain
         if topology is not None and topology.n_servers != self.cluster.n_servers:
             raise ValueError(
                 f"topology covers {topology.n_servers} servers, cluster has "
                 f"{self.cluster.n_servers}"
             )
-        self.topology = topology if topology is not None else nic_topology(self.cluster.n_servers)
+        if topology is None:
+            topology = (
+                nic_topology(self.cluster.n_servers)
+                if contention_domain == "server"
+                else RingEdgeTopology(self.cluster.n_servers)
+            )
+        self.topology = topology
         #: every domain at unit oversubscription => k_eff is the integer load
-        self._uniform_oversub = all(d.oversub == 1.0 for d in self.topology.domains)
+        #: (ring edges are all 1.0 and their static domain tuple is empty)
+        self._uniform_oversub = all(d.oversub == 1.0 for d in topology.domains)
         self.cluster.exclusive = exclusive_gpus
         # SRSF estimate: the paper's nominal comm time, or scaled by the
         # slowest member NIC (JobRun.per_iter_service)
@@ -452,8 +468,40 @@ class EventEngine:
             sched = sched_policy_from_name(sched, quantum=preemption_quantum)
         self.sched = sched
         self.checkpoint_cost = checkpoint_cost
-        self._windex = ClusterIndex(self.cluster)
+        # "incremental" gating evaluates only the waiters whose domains a
+        # comm start or end touched; "rescan" (the oracle) every waiter on
+        # every event.  REPRO_GATING sets the default.
+        if gating is None:
+            gating = os.environ.get("REPRO_GATING", "incremental")
+        if gating not in ("incremental", "rescan"):
+            raise ValueError(
+                f"unknown gating mode {gating!r} (expected 'incremental' or "
+                "'rescan')"
+            )
+        self.gating = gating
+        # "incremental" workloads keep the ClusterIndex aggregates; "rescan"
+        # (the oracle) rebuilds every GPU's workload from the live runs and
+        # scans the whole queue.  REPRO_WORKLOADS sets the default.
+        if workloads is None:
+            workloads = os.environ.get("REPRO_WORKLOADS", "incremental")
+        if workloads not in ("incremental", "rescan"):
+            raise ValueError(
+                f"unknown workloads mode {workloads!r} (expected "
+                "'incremental' or 'rescan')"
+            )
+        self.workloads = workloads
+        self._windex: Optional[ClusterIndex] = (
+            ClusterIndex(self.cluster) if workloads == "incremental" else None
+        )
+        # rebinding keeps a reused placement policy on this engine's mode
         self.placement.index = self._windex
+        self.profile_phases = profile_phases
+        self._phase_seconds: Optional[Dict[str, float]] = (
+            {"comm_advance": 0.0, "dispatch": 0.0, "gating": 0.0,
+             "gpu_schedule": 0.0}
+            if profile_phases
+            else None
+        )
 
         self._heap: List[Tuple[float, int, str, tuple]] = []
         self._peak_heap = 0
@@ -523,6 +571,31 @@ class EventEngine:
         self._nic_streams: Dict[int, Iterator[Tuple[float, float]]] = {}
         self._nic_degraded: Set[int] = set()
         self._base_server_bw: Tuple[float, ...] = ()
+        # Observability: an absent or inactive config keeps every hook cold
+        # (one ``is None`` test each).  The recorder never changes engine
+        # state, so the event stream is the unobserved one, bit for bit.
+        self._obs = (
+            ObsRecorder(observe)
+            if (observe is not None and observe.active)
+            else None
+        )
+        if self._obs is not None:
+            # the deferred replay needs the Eq. 5 constants and the gating
+            # policy (for the audit's explain terms), fixed for the run
+            self._obs.bind(self.params, self.comm_policy)
+        # The densest hooks (comm windows, compute spans, audit records,
+        # gating-queue enter/leave, transfer ends) are flat list extends at
+        # their call sites; a None reference means that family is off.
+        # The recorder's flush clears its log in place, so these stay valid.
+        o = self._obs
+        self._obs_win = o.log if (o is not None and o.decompose_on) else None
+        self._obs_comm = o.log if (o is not None and o.log_comm) else None
+        self._obs_gate = o.log if (o is not None and o.log_gate) else None
+        self._obs_rc = o.raw_compute if (o is not None and o.spans_on) else None
+        # raw_compute is flat at stride 6, so the element cap is 6x
+        self._obs_rc_cap = o.config.span_cap * 6 if o is not None else 0
+        self._obs_audit = o.audit_raw if (o is not None and o.audit_on) else None
+        self._obs_audit_left = o.config.audit_cap if o is not None else 0
         self.sched.bind(self)
 
     # -- policy-facing state views -------------------------------------------
@@ -642,7 +715,9 @@ class EventEngine:
 
     # -- communication bookkeeping --------------------------------------------
     def _domains_of(self, servers: Set[int]) -> frozenset:
-        """Topology domains a transfer over ``servers`` loads."""
+        """Contention domains a transfer over ``servers`` loads: the
+        topology cuts its ring crosses, or, under the "link" reading, the
+        directed ring edges themselves."""
         return self.topology.loaded_domains(servers)
 
     def _comm_started(self, task: CommTask) -> None:
@@ -672,6 +747,9 @@ class EventEngine:
         for d in run.domains:
             self._domain_waiters.setdefault(d, set()).add(jid)
         self._gate_candidates.add(jid)
+        lg = self._obs_gate
+        if lg is not None:
+            lg.extend((4, self._last_comm_update, jid))
 
     def _waiter_drop(self, jid: int, domains: frozenset) -> None:
         """Remove a waiter from every gating index (started, preempted or
@@ -686,6 +764,9 @@ class EventEngine:
                 if not ws:
                     del self._domain_waiters[d]
         self._gate_candidates.discard(jid)
+        lg = self._obs_gate
+        if lg is not None:
+            lg.extend((5, self._last_comm_update, jid))
 
     def _mark_domains_dirty(self, domains: frozenset) -> None:
         """A comm start/end/abort touched these domains: every waiter
@@ -726,6 +807,18 @@ class EventEngine:
         finished: List[int] = []
         if dt <= 0 or not self._active_comm:
             return finished
+        lg = self._obs_win
+        ks: Optional[Dict[int, float]] = None
+        if lg is not None:
+            # the window's per-task contention, logged before the drain
+            # consumes latency_left (the replay consumes it the same way);
+            # flat: 0, dt, n, the n job ids, the n k values
+            ks = {jid: self._comm_k_eff(t) for jid, t in self._active_comm.items()}
+            lg.extend((0, dt, len(ks)))
+            lg.extend(ks)
+            lg.extend(ks.values())
+            if len(lg) >= self._obs.flush_at:
+                self._obs._flush()
         params = self.params
         bw_uniform = not params.server_bandwidth
         rcache = self._rate_cache
@@ -733,7 +826,8 @@ class EventEngine:
             ll = task.latency_left
             if ll < dt:
                 task.latency_left = 0.0
-                k = self._comm_k_eff(task)
+                # loads are constant in this loop: the same k as the dict's
+                k = ks[jid] if ks is not None else self._comm_k_eff(task)
                 rate = rcache.get(k)
                 if rate is None:
                     rate = params.rate(k)
@@ -749,9 +843,12 @@ class EventEngine:
                 task.latency_left = ll - dt
                 if task.latency_left <= _EPS and task.remaining_bytes <= 1.0:
                     finished.append(jid)
+        lg = self._obs_comm
         for jid in finished:
             self._comm_ended(self._active_comm[jid])
             del self._active_comm[jid]
+            if lg is not None:
+                lg.extend((2, now, jid))
         return finished
 
     def _next_comm_finish(self) -> Optional[float]:
@@ -790,6 +887,10 @@ class EventEngine:
         task = self._active_comm.pop(job_id)
         self._comm_ended(task)
         self._comm_dirty = True
+        if self._obs is not None:
+            # the aborted transfer's comm time delivered nothing: the
+            # replay moves it to the preemption/fault overhead
+            self._obs.comm_abort(job_id, self._last_comm_update)
 
     # -- WFBP fusion plans -------------------------------------------------------
     def _assign_plan(self, run: JobRun) -> None:
@@ -823,9 +924,19 @@ class EventEngine:
 
     # -- the decision API (called by SchedPolicy hooks) ------------------------
     def refresh_workloads(self) -> None:
-        """Alg. 3 line 3: every GPU's remaining workload L_g, re-folded for
-        the GPUs a release or an iteration boundary touched."""
-        self._windex.refresh(self._runs, self.params, self.bandwidth_aware_srsf)
+        """Alg. 3 line 3: every GPU's remaining workload L_g.  Incremental
+        mode re-folds the GPUs a release or an iteration boundary touched
+        (the same values in the same order); the rescan rebuilds all."""
+        if self._windex is not None:
+            self._windex.refresh(self._runs, self.params, self.bandwidth_aware_srsf)
+            return
+        for g in self.cluster.gpus.values():
+            g.workload = 0.0
+        for jid in self._live:
+            run = self._runs[jid]
+            share = run.remaining_service(self.params, self.bandwidth_aware_srsf)
+            for gid in run.gpus:
+                self.cluster.gpus[gid].workload += share
 
     def place_job(self, job_id: int, gpu_ids: Sequence[GpuId], now: float) -> JobRun:
         """Commit a gang placement: member servers, topology domains, the
@@ -854,9 +965,12 @@ class EventEngine:
         self.cluster.place(spec, gpu_ids, workload)
         self._runs[job_id] = run
         self._live[job_id] = None
-        self._windex.on_place(job_id, run.gpus, workload)
+        if self._windex is not None:
+            self._windex.on_place(job_id, run.gpus, workload)
         self._dirty_gpus.update(gpu_ids)
         self._first_placed.setdefault(job_id, now)
+        if self._obs is not None:
+            self._obs.placed(job_id, run, now)
         return run
 
     def _checkpoint_cost_of(self, run: JobRun) -> float:
@@ -878,7 +992,8 @@ class EventEngine:
                 g.busy_job = None
             self._dirty_gpus.add(gid)
         self.cluster.release(run.spec, run.gpus)
-        self._windex.on_release(job_id, run.gpus)
+        if self._windex is not None:
+            self._windex.on_release(job_id, run.gpus)
         if job_id in self._waiting_set:
             self._waiter_drop(job_id, run.domains)
         if job_id in self._active_comm:
@@ -893,7 +1008,8 @@ class EventEngine:
         self._live.pop(job_id, None)
         if run.finished_at is not None:
             raise ValueError(f"cannot preempt finished job {job_id}")
-        self._work_lost_samples += self._lost_in_progress(run)
+        lost = self._lost_in_progress(run)
+        self._work_lost_samples += lost
         self._tear_down(job_id, run, now)
         self._carry[job_id] = _Carry(
             iter_done=run.iter_done,
@@ -904,6 +1020,10 @@ class EventEngine:
         # the queue key reads the carry: set it before the enqueue
         self._enqueue(job_id)
         self._preemptions += 1
+        if self._obs is not None:
+            # after the teardown, so an aborted transfer's reattribution is
+            # already in the log
+            self._obs.preempted(job_id, now, lost)
         if self.record_trace:
             # drop the aborted iteration's records (it runs again after the
             # resume) and mark the preemption
@@ -935,7 +1055,8 @@ class EventEngine:
         run.pending_resize = None
         self._epoch_of[job_id] = self._epoch_of.get(job_id, 0) + 1
         self.cluster.release(run.spec, run.gpus)
-        self._windex.on_release(job_id, run.gpus)
+        if self._windex is not None:
+            self._windex.on_release(job_id, run.gpus)
         self._dirty_gpus.update(run.gpus)
         del self._runs[job_id]
         self._live.pop(job_id, None)
@@ -956,6 +1077,8 @@ class EventEngine:
         self.place_job(job_id, gpu_ids, now)
         if applied:
             self._resizes += 1
+            if self._obs is not None:
+                self._obs.resized(job_id, now)
             if self.record_trace:
                 self._trace.append((job_id, run.iter_done, "resize", -1, now, now))
         self.sched.on_resize(now, job_id)
@@ -1018,7 +1141,8 @@ class EventEngine:
         self._faults += 1
         for g in self.cluster.gpus_of_server(server):
             g.down = True
-        self._windex.on_server_capacity(server)
+        if self._windex is not None:
+            self._windex.on_server_capacity(server)
         victims = sorted(
             jid
             for jid, run in self._runs.items()
@@ -1027,14 +1151,19 @@ class EventEngine:
         for jid in victims:
             self.preempt_job(jid, now)
         self._push(repair_t, "repair", (server,))
+        if self._obs is not None:
+            self._obs.fault("breakdown", server, now)
         self.sched.on_fault(now, server, victims)
 
     def _on_repair(self, server: int, now: float) -> None:
         for g in self.cluster.gpus_of_server(server):
             g.down = False
-        self._windex.on_server_capacity(server)
+        if self._windex is not None:
+            self._windex.on_server_capacity(server)
         self.cluster.capacity_epoch += 1  # placeable capacity grew
         self._advance_failure(server)
+        if self._obs is not None:
+            self._obs.fault("repair", server, now)
         self.sched.on_recovery(now, server)
 
     def _apply_nic_bandwidth(self) -> None:
@@ -1061,11 +1190,15 @@ class EventEngine:
         self._nic_degraded.add(server)
         self._apply_nic_bandwidth()
         self._push(end_t, "nic_up", (server,))
+        if self._obs is not None:
+            self._obs.fault("nic_down", server, now)
 
     def _on_nic_up(self, server: int, now: float) -> None:
         self._nic_degraded.discard(server)
         self._apply_nic_bandwidth()
         self._advance_nic(server)
+        if self._obs is not None:
+            self._obs.fault("nic_up", server, now)
 
     def _on_cancel(self, job_id: int, now: float) -> None:
         """A job is cancelled: a running gang is torn down as in a
@@ -1075,8 +1208,10 @@ class EventEngine:
         if job_id not in self._unfinished:
             return  # finished before the cancellation
         run = self._runs.get(job_id)
+        lost = 0.0
         if run is not None:
-            self._work_lost_samples += self._lost_in_progress(run)
+            lost = self._lost_in_progress(run)
+            self._work_lost_samples += lost
             del self._runs[job_id]
             self._live.pop(job_id, None)
             self._tear_down(job_id, run, now)
@@ -1087,13 +1222,18 @@ class EventEngine:
             self._carry.pop(job_id, None)
         self._cancelled += 1
         self._unfinished.discard(job_id)
+        if self._obs is not None:
+            self._obs.cancelled(job_id, now, lost)
         # freed memory or a shorter queue may admit other jobs
         self.sched.on_job_finish(now, job_id)
 
     # -- communication gating -----------------------------------------------------
-    def _gate_try_one(self, jid: int, run: JobRun, now: float) -> bool:
+    def _gate_try_one(self, jid: int, run: JobRun, now: float, qpos: int = -1) -> bool:
         """Evaluate the gating policy for one waiter and start its transfer
-        when the policy accepts.  Returns True iff a transfer started."""
+        when the policy accepts.  Returns True iff a transfer started.  The
+        rescan and the incremental pass share this body, so they differ
+        only in which waiters they evaluate.  ``qpos`` is the waiter's rank
+        in the pass's SRSF order, for the audit only."""
         domains = run.domains
         # WFBP: the decision and the transfer carry the current bucket's bytes
         if run.plan is not None:
@@ -1109,10 +1249,12 @@ class EventEngine:
             if v > max_conc:
                 max_conc = v
         policy = self.comm_policy
+        obs = self._obs
+        lg = self._obs_audit
         dtasks = self._domain_tasks
-        if policy.scalar_gate:
+        if lg is None and policy.scalar_gate:
             # the decision reads the overlapping set only through its
-            # minimum (the count is max_conc)
+            # minimum (the count is max_conc); the audit needs the list
             min_old = math.inf
             for d in domains:
                 lst = dtasks.get(d)
@@ -1121,13 +1263,14 @@ class EventEngine:
                         if t.remaining_bytes < min_old:
                             min_old = t.remaining_bytes
             ok = policy.should_start_min(new_bytes, min_old, max_conc, self.params)
+            old_rem: List[float] = []  # read by the audit only, which is off
         else:
             # the overlapping transfers in start order: one domain's list is
             # already in order, several dedupe through the seq-keyed dict.
             # The k-way lookahead sums over this list, so order matters.
             lists = [dtasks[d] for d in domains if d in dtasks]
             if not lists:
-                old_rem: List[float] = []
+                old_rem = []
             elif len(lists) == 1:
                 old_rem = [t.remaining_bytes for t in lists[0]]
             else:
@@ -1137,13 +1280,27 @@ class EventEngine:
                         seen[t.seq] = t.remaining_bytes
                 old_rem = [seen[s] for s in sorted(seen)]
             ok = policy.should_start(new_bytes, old_rem, max_conc, self.params)
+        if lg is not None:
+            # one flat audit record per evaluation, within the audit cap
+            n = self._obs_audit_left
+            if n > 0:
+                self._obs_audit_left = n - 1
+                lg.extend((now, jid, bucket, new_bytes, max_conc, ok, qpos,
+                           len(self._waiting_comm), len(old_rem)))
+                lg.extend(old_rem)
+            else:
+                obs.audit_dropped += 1
         if not ok:
             return False
         self._waiter_drop(jid, domains)
         task = CommTask(
             job_id=jid,
             servers=set(run.servers),
-            remaining_bytes=new_bytes,
+            remaining_bytes=(
+                new_bytes
+                if run.plan is not None
+                else run.spec.model.size_bytes / self.comm_chunks
+            ),
             latency_left=self.params.a,
             domains=domains,
             bucket=bucket,
@@ -1154,28 +1311,56 @@ class EventEngine:
         self._comm_started(task)
         if run.plan is not None:
             run.next_bucket += 1
+        else:
+            run.comm_chunks_left -= 1
         run.comm_active = True
         if max_conc > 0:
             self._comm_contended += 1
         else:
             self._comm_clean += 1
+        if obs is not None:
+            obs.comm_start(jid, bucket, now, task)
         if self.record_trace:
             kind = "c" if bucket < 0 else f"c{bucket}"
             self._trace.append((jid, run.iter_done, kind, -1, now, None))
         return True
 
     def _try_start_comms(self, now: float) -> bool:
-        """Dirty-domain gating (``_try_start_comms_incremental`` of the
-        reference): evaluate, in SRSF order, the waiters whose inputs may
-        have changed — fresh waiters and waiters sharing a domain with a
-        comm start or end since their last evaluation — and merge the
-        waiters a start wakes.  Between events the in-flight transfers only
-        drain, which cannot flip a False decision of a drain-monotone
-        policy; the k-way lookahead is not one, so all its waiters are
-        evaluated every event, as are all waiters after an abort or a
-        bandwidth change (``_comm_dirty``)."""
         if not self._waiting_comm:
             return False
+        if self.gating == "rescan":
+            return self._try_start_comms_rescan(now)
+        return self._try_start_comms_incremental(now)
+
+    def _try_start_comms_rescan(self, now: float) -> bool:
+        """The oracle: evaluate every waiter in SRSF order on every call,
+        from the top again after each start."""
+        any_started = False
+        self._waiting_comm.sort(key=self.srsf_key_running)
+        started_any = True
+        while started_any:
+            started_any = False
+            for qpos, jid in enumerate(list(self._waiting_comm)):
+                run = self._runs[jid]
+                if run.comm_active or jid in self._active_comm:
+                    self._waiter_drop(jid, run.domains)
+                    continue
+                if self._gate_try_one(jid, run, now, qpos):
+                    started_any = True
+                    any_started = True
+                    break  # the contention state changed: start over
+        return any_started
+
+    def _try_start_comms_incremental(self, now: float) -> bool:
+        """Dirty-domain gating: evaluate, in SRSF order, the waiters whose
+        inputs may have changed — fresh waiters and waiters sharing a
+        domain with a comm start or end since their last evaluation — and
+        merge the waiters a start wakes.  Between events the in-flight
+        transfers only drain, which cannot flip a False decision of a
+        drain-monotone policy; the k-way lookahead is not one, so all its
+        waiters are evaluated every event, as are all waiters after an
+        abort or a bandwidth change (``_comm_dirty``).  The rescan gives
+        the same event stream."""
         if self._comm_dirty or not self.comm_policy.drain_monotone:
             cand = set(self._waiting_comm)
             self._gate_candidates.clear()
@@ -1185,29 +1370,53 @@ class EventEngine:
             cand = self._gate_candidates
             self._gate_candidates = set()
         any_started = False
-        # SRSF keys are stable within a pass (no iteration completes during
-        # gating), so a lazily-deduped heap pops the sorted(cand) order
-        key = self.srsf_key_running
-        heap = [(key(jid), jid) for jid in cand]
-        heapq.heapify(heap)
-        while heap:
-            _, jid = heapq.heappop(heap)
-            if jid not in cand:
-                continue  # re-pushed duplicate already handled
-            cand.discard(jid)
-            run = self._runs[jid]
-            if run.comm_active or jid in self._active_comm:
-                self._waiter_drop(jid, run.domains)
-                continue
-            if self._gate_try_one(jid, run, now):
-                any_started = True
-                woken = self._gate_candidates
-                if woken:
-                    for w in woken:
-                        if w not in cand:
-                            cand.add(w)
-                            heapq.heappush(heap, (key(w), w))
-                    woken.clear()
+        if self._obs_audit is None:
+            # SRSF keys are stable within a pass (no iteration completes
+            # during gating), so a lazily-deduped heap pops the sorted(cand)
+            # order that the loop below re-sorts after every start
+            key = self.srsf_key_running
+            heap = [(key(jid), jid) for jid in cand]
+            heapq.heapify(heap)
+            while heap:
+                _, jid = heapq.heappop(heap)
+                if jid not in cand:
+                    continue  # re-pushed duplicate already handled
+                cand.discard(jid)
+                run = self._runs[jid]
+                if run.comm_active or jid in self._active_comm:
+                    self._waiter_drop(jid, run.domains)
+                    continue
+                if self._gate_try_one(jid, run, now, -1):
+                    any_started = True
+                    woken = self._gate_candidates
+                    if woken:
+                        for w in woken:
+                            if w not in cand:
+                                cand.add(w)
+                                heapq.heappush(heap, (key(w), w))
+                        woken.clear()
+            return any_started
+        # with the audit on: the same order, re-sorted after each start so
+        # that every record carries its rank in the pass (qpos)
+        while cand:
+            restart = False
+            for qpos, jid in enumerate(sorted(cand, key=self.srsf_key_running)):
+                run = self._runs[jid]
+                if run.comm_active or jid in self._active_comm:
+                    self._waiter_drop(jid, run.domains)
+                    cand.discard(jid)
+                    restart = True
+                    break
+                if self._gate_try_one(jid, run, now, qpos):
+                    any_started = True
+                    cand.discard(jid)
+                    cand |= self._gate_candidates
+                    self._gate_candidates.clear()
+                    restart = True
+                    break
+                cand.discard(jid)
+            if not restart:
+                break  # every candidate evaluated False: the pass is done
         return any_started
 
     # -- iteration/worker state machine ---------------------------------------------
@@ -1225,8 +1434,9 @@ class EventEngine:
     def _complete_iteration(self, run: JobRun, now: float) -> None:
         run.iter_done += 1
         run.samples_done += run.n_world
-        # the share is stale until the next refresh
-        self._windex.on_decay(run.spec.job_id)
+        if self._windex is not None:
+            # the share is stale until the next refresh
+            self._windex.on_decay(run.spec.job_id)
         if run.samples_done >= run.samples_total:
             self._finish_job(run, now)
         elif run.pending_resize is not None:
@@ -1238,7 +1448,8 @@ class EventEngine:
         run.finished_at = now
         jid = run.spec.job_id
         self.cluster.release(run.spec, run.gpus)
-        self._windex.on_release(jid, run.gpus)
+        if self._windex is not None:
+            self._windex.on_release(jid, run.gpus)
         self._dirty_gpus.update(run.gpus)
         self._unfinished.discard(jid)
         self._live.pop(jid, None)
@@ -1249,6 +1460,8 @@ class EventEngine:
             self._first_placed.get(jid, run.placed_at) - run.spec.arrival
         )
         self._job_samples[jid] = run.samples_done
+        if self._obs is not None:
+            self._obs.finished(jid, run, now)
         if self._source is not None:
             self._retire_buf.append(jid)
 
@@ -1262,6 +1475,7 @@ class EventEngine:
                 f"duplicate barrier for job {jid}"
             )
             run.comm_ready_at = now
+            run.comm_chunks_left = self.comm_chunks
             self._waiter_add(jid, run)
         else:
             self._complete_iteration(run, now)
@@ -1344,6 +1558,12 @@ class EventEngine:
                 "gpu_done",
                 (gid, jid, w, kind, seg, self._epoch_of.get(jid, 0)),
             )
+            rc = self._obs_rc
+            if rc is not None:
+                if len(rc) < self._obs_rc_cap:
+                    rc.extend((jid, w, kind, seg, now, now + dur))
+                else:
+                    self._obs.span_dropped += 1
             if self.record_trace:
                 if kind == "fb":
                     self._trace.append((jid, run.iter_done, "f", w, now, now + run.spec.model.t_f))
@@ -1417,6 +1637,8 @@ class EventEngine:
                 self._push(first + self.sched.quantum, "quantum", ())
         if self._chaos is not None:
             self._seed_chaos_events()
+        prof = self._phase_seconds
+        perf = time.perf_counter
         streaming = self._source is not None
         now = 0.0
         while self._heap and (self._unfinished or self._arrivals_pending):
@@ -1428,6 +1650,8 @@ class EventEngine:
             now = t
             self._events += 1
             self._comm_dirty = False
+            if prof is not None:
+                t0 = perf()
 
             finished_comms = self._advance_comm(now)
             for jid in finished_comms:
@@ -1448,8 +1672,15 @@ class EventEngine:
                         self._complete_iteration(run, now)
                     else:
                         self._maybe_enqueue_bucket(run)
+                elif run.comm_chunks_left > 0:
+                    # chunked comm: the next chunk competes for the link as
+                    # a fresh transfer (a preemption point)
+                    self._waiter_add(jid, run)
                 else:
                     self._complete_iteration(run, now)
+            if prof is not None:
+                t1 = perf()
+                prof["comm_advance"] += t1 - t0
 
             if kind == "arrival":
                 if streaming:
@@ -1517,14 +1748,30 @@ class EventEngine:
                     if run is not None and run.finished_at is not None:
                         self.sched.on_job_finish(now, j)
                         break
+            if prof is not None:
+                t2 = perf()
+                prof["dispatch"] += t2 - t1
 
             started = self._try_start_comms(now)
+            if prof is not None:
+                t3 = perf()
+                prof["gating"] += t3 - t2
             self._schedule_gpus(now)
+            if prof is not None:
+                prof["gpu_schedule"] += perf() - t3
             # rates change only when the active set does (or an abort or a
             # bandwidth change marks it dirty); a comm_check that finished
             # nothing (float drift) must still reschedule
             if started or finished_comms or kind == "comm_check" or self._comm_dirty:
-                self._reschedule_comm_check()
+                if prof is not None:
+                    # the re-prediction is gating's when a start or an
+                    # abort forced it, comm integration's otherwise
+                    t4 = perf()
+                    self._reschedule_comm_check()
+                    phase = "gating" if (self._comm_dirty or started) else "comm_advance"
+                    prof[phase] += perf() - t4
+                else:
+                    self._reschedule_comm_check()
             if self._retire_buf:
                 self._retire_finished()
 
@@ -1561,6 +1808,14 @@ class EventEngine:
         makespan = max(finish.values()) if finish else now
         busy = {gid: g.busy_accum for gid, g in self.cluster.gpus.items()}
         util = sum(busy.values()) / (len(busy) * makespan) if makespan > 0 else 0.0
+        obs_report = None
+        if self._obs is not None:
+            obs_report = self._obs.build_report(
+                topology=self.topology,
+                params=self.params,
+                makespan=makespan,
+                horizon=now,
+            )
         return SimResult(
             policy_name=self.comm_policy.name,
             placement_name=repr(self.placement),
@@ -1586,4 +1841,6 @@ class EventEngine:
             goodput=(delivered / makespan) if makespan > 0 else 0.0,
             task_trace=self._trace if self.record_trace else None,
             job_samples=dict(self._job_samples),
+            phase_seconds=dict(self._phase_seconds) if self._phase_seconds else None,
+            obs=obs_report,
         )

@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence
 from repro_torch.core.adadual import (
     adadual_should_start,
     kway_adadual_should_start,
+    kway_lookahead_costs,
     srsf_n_should_start,
 )
 from repro_torch.core.cluster import JobSpec
@@ -79,6 +80,18 @@ class CommPolicy:
         an empty overlap set); only meaningful when ``scalar_gate``."""
         raise NotImplementedError
 
+    def explain(
+        self,
+        new_bytes: float,
+        old_remaining: Sequence[float],
+        max_concurrent: int,
+        params: ContentionParams,
+    ) -> Optional[dict]:
+        """The terms ``should_start`` evaluated, for the observability
+        audit (``ObsConfig(audit=True)``).  Never read by the gating loop;
+        a policy without an override audits its decisions only (None)."""
+        return None
+
 
 class SrsfN(CommPolicy):
     """SRSF(n): accept at most n-way contention, blindly (paper baselines)."""
@@ -96,6 +109,13 @@ class SrsfN(CommPolicy):
     def should_start_min(self, new_bytes, min_old, max_concurrent, params) -> bool:
         # srsf_n_should_start inlined: uncontended | k_would <= n
         return max_concurrent == 0 or max_concurrent + 1 <= self.n
+
+    def explain(self, new_bytes, old_remaining, max_concurrent, params):
+        return {
+            "rule": "max_concurrent + 1 <= n",
+            "max_concurrent": max_concurrent,
+            "n": self.n,
+        }
 
 
 class AdaDual(CommPolicy):
@@ -115,6 +135,17 @@ class AdaDual(CommPolicy):
             max_concurrent <= 1 and new_bytes < params.dual_threshold * min_old
         )
 
+    def explain(self, new_bytes, old_remaining, max_concurrent, params):
+        min_old = min(old_remaining) if old_remaining else float("inf")
+        ratio = (new_bytes / min_old) if min_old > 0 else float("inf")
+        return {
+            "rule": "new/min(old) < threshold and k+1 <= 2",
+            "min_old_bytes": min_old,
+            "ratio": ratio,
+            "threshold": params.dual_threshold,
+            "cap_ok": max_concurrent + 1 <= 2,
+        }
+
 
 class KWayAdaDual(CommPolicy):
     """Exact-lookahead k-way generalization (the paper's future work #2)."""
@@ -129,6 +160,24 @@ class KWayAdaDual(CommPolicy):
         return kway_adadual_should_start(
             new_bytes, old_remaining, params, max_ways=self.max_ways
         )
+
+    def explain(self, new_bytes, old_remaining, max_concurrent, params):
+        olds = [m for m in old_remaining if m > 0]
+        k = len(olds)
+        terms = {
+            "rule": "avg(start now) < avg(wait for first old)",
+            "k_in_flight": k,
+            "max_ways": self.max_ways,
+        }
+        if k == 0:
+            terms["clean_link"] = True
+        elif k + 1 > self.max_ways:
+            terms["ways_capped"] = True
+        else:
+            avg_a, avg_b = kway_lookahead_costs(new_bytes, olds, params)
+            terms["t_contend_avg"] = avg_a
+            terms["t_wait_avg"] = avg_b
+        return terms
 
 
 def comm_policy_from_name(comm: str) -> CommPolicy:
@@ -245,13 +294,45 @@ class StaticGangPolicy(SchedPolicy):
             self._queue_all_failed = False
         elif self._queue_all_failed:
             return
-        placed = self._scan_buckets(eng, failed, now)
-        # the merge drains until every profile is exhausted or failed, so
-        # every job still queued is skippable at this epoch
-        if placed:
-            eng.remove_queued(placed)
-        if eng.queue:
-            self._queue_all_failed = True
+        if eng._windex is not None:
+            placed = self._scan_buckets(eng, failed, now)
+            # the merge drains until every profile is exhausted or failed,
+            # so every job still queued is skippable at this epoch
+            if placed:
+                eng.remove_queued(placed)
+            if eng.queue:
+                self._queue_all_failed = True
+        else:
+            placed = self._scan_queue(eng, failed, now)
+            if placed:
+                eng.remove_queued(placed)
+            else:
+                self._queue_all_failed = True
+
+    def _scan_queue(self, eng, failed: set, now: float) -> List[int]:
+        """The whole-queue scan (the ``workloads="rescan"`` oracle of
+        :meth:`_scan_buckets`): every queued job in SRSF order, skipping
+        failed profiles."""
+        placed: List[int] = []
+        refreshed = False
+        jobs = eng.jobs
+        prof = eng.queue_profile_of
+        for jid in eng.queue:
+            profile = prof[jid]
+            if profile in failed:
+                continue  # no head-of-line blocking (Alg. 3 loops the queue)
+            if not refreshed:
+                # Alg. 3 line 3, deferred to the first real attempt
+                eng.refresh_workloads()
+                refreshed = True
+            gpu_ids = eng.placement(eng.cluster, jobs[jid])
+            if gpu_ids is None:
+                failed.add(profile)
+                continue
+            eng.place_job(jid, gpu_ids, now)
+            failed.clear()
+            placed.append(jid)
+        return placed
 
     def _scan_buckets(self, eng, failed: set, now: float) -> List[int]:
         """Bucket-merge admission scan: pops the SRSF-smallest head across

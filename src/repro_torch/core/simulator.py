@@ -19,8 +19,13 @@ Semantics (the paper's Algorithm 3 and Section V, exact continuous time):
 * ``sched=`` picks static gang scheduling (the paper's, the default),
   preemptive SRSF or elastic resizing, ``chaos=`` injects faults, and a
   :class:`~repro_torch.core.trace.TraceSource` in place of the job list
-  streams the arrivals (see :mod:`repro_torch.core.engine`, also for the
-  keywords that raise).
+  streams the arrivals;
+* ``comm_chunks=`` splits each all-reduce into chunks gated one by one,
+  ``contention_domain="link"`` reads contention per directed ring edge,
+  ``observe=`` arms the observability recorder (:mod:`repro_torch.obs`),
+  ``profile_phases=True`` times the engine's phases, and ``gating`` /
+  ``workloads`` ``="rescan"`` run the oracle modes (see
+  :mod:`repro_torch.core.engine`).
 """
 
 from __future__ import annotations
@@ -82,7 +87,9 @@ def simulate(
     'all' | 'none' | a byte threshold.  ``max_time`` cuts the run at a
     horizon (jobs still running are ``SimResult.censored``).  The other
     keywords (``sched``, ``chaos``, ``record_trace``, ``checkpoint_cost``,
-    ...) pass through to :class:`EventEngine`.
+    ``comm_chunks``, ``contention_domain``, ``gating``, ``workloads``,
+    ``profile_phases``, ``observe``, ...) pass through to
+    :class:`EventEngine`.
     """
     sim = EventEngine(
         jobs,

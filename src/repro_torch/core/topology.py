@@ -1,7 +1,7 @@
-"""Network fabric as contention domains (port of ``repro/core/topology.py``,
-trimmed to the static fabrics: the event engine reads each task's loaded
-domains, the fluid path the incidence matrix; the ring-edge reading,
-``RingEdgeTopology``, waits: ROADMAP queue 1, item 7e).
+"""Network fabric as contention domains (port of ``repro/core/topology.py``):
+the event engine reads each task's loaded domains, the fluid path the
+incidence matrix.  :class:`RingEdgeTopology` is the ``contention_domain=
+"link"`` reading, with domains that depend on each task's member set.
 
 A domain is a cut of the fabric: a server set whose boundary is a shared
 resource.  A communication task loads a domain iff its ring crosses the cut
@@ -107,6 +107,57 @@ class Topology:
         for r, rack in enumerate(self.rack_groups()):
             out[list(rack)] = r
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class RingEdgeTopology(Topology):
+    """The ``contention_domain="link"`` reading (the paper's "each link
+    between two nodes") as dynamic domains: a task over member servers
+    ``S`` loads the directed edges of the ring over ``sorted(S)``, so two
+    tasks contend iff they share a ring edge.  The domains depend on the
+    member set, so there is no static incidence matrix: :meth:`incidence`
+    raises, and the fluid path refuses this reading.  Domains are
+    ``("edge", u, v)`` tuples at unit oversubscription.
+    """
+
+    def __init__(self, n_servers: int) -> None:
+        # the domains are dynamic: bypass the tuple-of-domains fields
+        object.__setattr__(self, "name", "ring_edges")
+        object.__setattr__(self, "n_servers", n_servers)
+        object.__setattr__(self, "domains", ())
+        object.__setattr__(self, "racks", ())
+        Topology.__post_init__(self)
+
+    @staticmethod
+    def ring_edges(servers: Iterable[int]) -> frozenset:
+        """The directed ring edges of a member-server set: consecutive
+        pairs of the sorted ring, wrap-around included (a 2-server ring
+        loads both directions)."""
+        ring = sorted(set(servers))
+        return frozenset(
+            ("edge", ring[i], ring[(i + 1) % len(ring)])
+            for i in range(len(ring))
+        )
+
+    def loaded_domains(self, servers: Iterable[int]) -> frozenset:
+        s = {x for x in servers if not 0 <= x < self.n_servers}
+        if s:
+            raise ValueError(f"servers {sorted(s)} outside [0, {self.n_servers})")
+        members = set(servers)
+        if len(members) < 2:
+            return frozenset()  # single-server task: no shared link loaded
+        return self.ring_edges(members)
+
+    def oversub_of(self, domain) -> float:
+        return 1.0  # every ring edge is a full-bandwidth link
+
+    def incidence(self) -> np.ndarray:
+        raise NotImplementedError(
+            "ring-edge domains depend on each task's member set; there is no "
+            "static [domains, servers] incidence matrix — the fluid backend "
+            "does not support the legacy 'link' reading (use uplink_only/"
+            "two_tier fabrics instead)"
+        )
 
 
 def nic_topology(n_servers: int) -> Topology:

@@ -96,3 +96,13 @@ def paper_trace(
         )
     jobs.sort(key=lambda j: (j.arrival, j.job_id))
     return jobs
+
+
+def is_large(job: JobSpec) -> bool:
+    """A multi-server-sized job (more than 4 GPUs)."""
+    return job.n_gpus > 4
+
+
+def is_long(job: JobSpec) -> bool:
+    """A job of more than 1,600 iterations."""
+    return job.iterations > 1600

@@ -78,7 +78,7 @@ def _sample_models(rng: random.Random) -> ModelProfile:
     return rng.choice(list(TABLE_III.values()))
 
 
-@register("paper")
+@register("paper", "Paper Section V-A Microsoft-like trace (160 jobs / 20 min)")
 def paper_scenario(
     seed: int = 0,
     n_jobs: int = 160,
@@ -104,7 +104,10 @@ def paper_scenario(
     )
 
 
-@register("hetero_bandwidth")
+@register(
+    "hetero_bandwidth",
+    "Paper workload on a cluster with heterogeneous per-server NIC bandwidth",
+)
 def hetero_bandwidth(
     seed: int = 0,
     n_jobs: int = 100,
@@ -135,7 +138,12 @@ def hetero_bandwidth(
     )
 
 
-@register("contended_residue")
+@register(
+    "contended_residue",
+    "Jobs one GPU wider than a server: every placement leaves a cross-server "
+    "residue, so resident jobs share servers and their all-reduces collide — "
+    "the cell where comm gating policies differentiate on both backends",
+)
 def contended_residue(
     seed: int = 0,
     n_jobs: int = 6,
@@ -173,7 +181,12 @@ def contended_residue(
     )
 
 
-@register("oversub_fabric")
+@register(
+    "oversub_fabric",
+    "Paper workload on a blocking two-tier fabric: per-server NICs plus "
+    "oversubscribed rack (ToR) uplinks — cross-rack all-reduces drain at the "
+    "oversub-weighted Eq. (5) rate, so topology-blind placement pays",
+)
 def oversub_fabric(
     seed: int = 0,
     n_jobs: int = 120,
@@ -202,7 +215,10 @@ def oversub_fabric(
     )
 
 
-@register("smoke")
+@register(
+    "smoke",
+    "Tiny deterministic 6-job / 8-GPU scenario for differential + CI tests",
+)
 def smoke(seed: int = 0, n_servers: int = 4, gpus_per_server: int = 2) -> Scenario:
     """Tiny deterministic 6-job / 8-GPU scenario."""
     t3 = TABLE_III
@@ -251,7 +267,11 @@ PHILLY_GPU_WEIGHTS = (
 )
 
 
-@register("philly_heavy_tail")
+@register(
+    "philly_heavy_tail",
+    "Philly-calibrated heavy tails: Pareto iterations matching the published "
+    "duration-quantile ratios, single-GPU-dominated request mix",
+)
 def philly_heavy_tail(
     seed: int = 0,
     n_jobs: int = 120,
@@ -321,7 +341,11 @@ def burst_fraction(
     return min(0.95, max(0.0, (peak_to_mean - 1.0) / (gain - 1.0)))
 
 
-@register("bursty_diurnal")
+@register(
+    "bursty_diurnal",
+    "Diurnal arrival baseline plus synchronized submission bursts; burst "
+    "mass set by the calibrated peak-to-mean arrival-intensity knob",
+)
 def bursty_diurnal(
     seed: int = 0,
     n_jobs: int = 120,
@@ -371,7 +395,10 @@ def bursty_diurnal(
     )
 
 
-@register("large_job_dominated")
+@register(
+    "large_job_dominated",
+    "Majority 8..32-GPU multi-server jobs — communication dominates",
+)
 def large_job_dominated(
     seed: int = 0,
     n_jobs: int = 48,
@@ -405,7 +432,11 @@ def large_job_dominated(
     )
 
 
-@register("adversarial_allbig")
+@register(
+    "adversarial_allbig",
+    "All identical big-message multi-server jobs arriving at once — every "
+    "all-reduce collides; worst case for blind comm acceptance",
+)
 def adversarial_allbig(
     seed: int = 0,
     n_jobs: int = 12,
@@ -442,7 +473,13 @@ def adversarial_allbig(
     )
 
 
-@register("rack_locality")
+@register(
+    "rack_locality",
+    "Small racks behind heavily oversubscribed uplinks, with a job mix of "
+    "rack-sized multi-server jobs plus fragmenting small jobs: rack-aware "
+    "placement (lwf_rack / rack_pack) keeps the big jobs off the uplinks, "
+    "topology-blind placement splits them across racks",
+)
 def rack_locality(
     seed: int = 0,
     n_jobs: int = 24,
@@ -488,7 +525,13 @@ def rack_locality(
     )
 
 
-@register("model_zoo")
+@register(
+    "model_zoo",
+    "Jobs sampled from the config-derived model zoo (repro.workloads): "
+    "layer-granular profiles of the real architectures under "
+    "src/repro/configs/ on an A100-80G-class data-parallel cluster, with "
+    "WFBP tensor fusion at a finite bucket threshold",
+)
 def model_zoo(
     seed: int = 0,
     n_jobs: int = 48,
@@ -534,7 +577,14 @@ def model_zoo(
     )
 
 
-@register("fusion_sweep")
+@register(
+    "fusion_sweep",
+    "Alternating many-layer zoo jobs (mamba2-130m / llama3.2-1b) forced to "
+    "span servers: the cell where the WFBP fusion threshold matters — a "
+    "finite threshold overlaps comm with backward while avoiding the "
+    "per-layer latency tax, beating both fusion='all' and fully unfused "
+    "under Ada-SRSF (regression-locked in tests/test_wfbp.py)",
+)
 def fusion_sweep(
     seed: int = 0,
     n_jobs: int = 6,
@@ -580,7 +630,14 @@ def fusion_sweep(
     )
 
 
-@register("preemption_gain")
+@register(
+    "preemption_gain",
+    "Heavy-tailed service mix on an exclusive-GPU cluster: early elephants "
+    "(multi-GPU, long) grab every GPU, then a stream of mice (small, short) "
+    "arrives — the cell where Tiresias-style gang preemption "
+    "(sched='preemptive_srsf') beats hold-until-completion static SRSF "
+    "(regression-locked in tests/test_engine.py)",
+)
 def preemption_gain(
     seed: int = 0,
     n_elephants: int = 4,
@@ -637,7 +694,14 @@ def preemption_gain(
     )
 
 
-@register("elastic_surge")
+@register(
+    "elastic_surge",
+    "Elastic trainings (min/max GPU bounds) on big exclusive servers, hit "
+    "by a mid-run burst of rigid small jobs: sched='elastic' grows the "
+    "gangs across idle capacity (2x iteration throughput inside a server), "
+    "shrinks them to min at the surge, and regrows afterwards — the "
+    "workload where boundary resizes pay for their checkpoint cost",
+)
 def elastic_surge(
     seed: int = 0,
     n_elastic: int = 4,
@@ -724,7 +788,13 @@ def _chaos_mixed_jobs(
     return jobs
 
 
-@register("chaos_steady")
+@register(
+    "chaos_steady",
+    "Steady-state faults: stochastic per-server exponential MTBF/MTTR "
+    "breakdowns plus mild straggler jitter over a mixed mouse/gang "
+    "workload — the SLO cell (goodput under faults, work lost to "
+    "restarts, p99 JCT) of the nightly chaos grid",
+)
 def chaos_steady(
     seed: int = 0,
     n_jobs: int = 24,
@@ -763,7 +833,15 @@ def chaos_steady(
     )
 
 
-@register("chaos_recovery_storm")
+@register(
+    "chaos_recovery_storm",
+    "Rack-repair recovery storm: half the servers fail at one scripted "
+    "instant and all repair together, so every preempted gang re-admits "
+    "simultaneously and their catch-up all-reduces collide — the cell "
+    "behind the regression-locked finding on whether contention-aware "
+    "gating helps or hurts synchronized re-admission "
+    "(tests/test_chaos.py::TestRecoveryStormFinding)",
+)
 def chaos_recovery_storm(
     seed: int = 0,
     n_jobs: int = 20,
@@ -803,7 +881,13 @@ def chaos_recovery_storm(
     )
 
 
-@register("chaos_stragglers")
+@register(
+    "chaos_stragglers",
+    "Straggler-heavy cell: frequent large compute jitter plus transient "
+    "NIC degradation windows, no breakdowns — isolates the slow-worker / "
+    "slow-link tail (every gang iterates at its slowest member) from the "
+    "fault-restart dynamics of chaos_steady",
+)
 def chaos_stragglers(
     seed: int = 0,
     n_jobs: int = 24,

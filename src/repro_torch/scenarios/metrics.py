@@ -1,9 +1,11 @@
 """Per-run scheduling metrics of both backends (port of
-``repro/scenarios/metrics.py``, without the CSV and replay summaries).
+``repro/scenarios/metrics.py``).
 
 One :class:`RunMetrics` per (scenario, seed, placement, comm policy,
-backend) run; :class:`CellCI` aggregates the seeds of one cell into
-mean +/- std.
+backend) run, printable as a CSV row; :class:`CellCI` aggregates the
+seeds of one cell into mean +/- std; :func:`summarize` averages a sweep's
+records per cell; :func:`replay_summary` flattens one replay's windowed
+steady-state view.
 """
 
 from __future__ import annotations
@@ -13,6 +15,37 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.engine import SimResult, median, percentile
+
+#: the reference's CSV columns, in its order
+CSV_FIELDS = (
+    "scenario",
+    "backend",
+    "placement",
+    "comm",
+    "sched",
+    "seed",
+    "n_jobs",
+    "n_finished",
+    "censored",
+    "avg_jct",
+    "median_jct",
+    "p95_jct",
+    "makespan",
+    "gpu_util",
+    "comm_contended",
+    "comm_clean",
+    "preemptions",
+    "resizes",
+    "faults",
+    "cancelled",
+    "work_lost",
+    "p99_jct",
+    "goodput",
+    "wall_s",
+    "peak_calendar",
+    "stretch_frac",
+    "gating_frac",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,10 +83,26 @@ class RunMetrics:
     work_lost: int = 0
     goodput: float = 0.0
     peak_calendar: int = 0
-    #: the reference's observability aggregates: NaN without an observed
-    #: run, which the port never has
+    #: mean fraction of a finished job's JCT lost to contention stretch /
+    #: gating wait (the observability decomposition); NaN when the run was
+    #: not observed — absent data, not zero
     stretch_frac: float = math.nan
     gating_frac: float = math.nan
+
+    def as_csv_row(self) -> str:
+        vals = []
+        for f in CSV_FIELDS:
+            v = getattr(self, f)
+            if isinstance(v, float):
+                # fractions are small: two decimals would round them to 0
+                vals.append(f"{v:.4f}" if f.endswith("_frac") else f"{v:.2f}")
+            else:
+                vals.append(str(v))
+        return ",".join(vals)
+
+    @staticmethod
+    def csv_header() -> str:
+        return ",".join(CSV_FIELDS)
 
 
 def from_jcts(
@@ -126,10 +175,9 @@ def from_event_result(
     n_jobs: int,
     wall_s: float = 0.0,
 ) -> RunMetrics:
-    """The record of one event-engine run.  ``stretch_frac`` and
-    ``gating_frac`` come from the reference's observability report, which
-    the port's engine does not make (``res.obs`` is None): NaN, as the
-    reference gives for an unobserved run."""
+    """The record of one event-engine run; ``stretch_frac`` and
+    ``gating_frac`` come from the observability report, NaN when the run
+    was not observed."""
     return from_jcts(
         list(res.jct.values()),
         scenario=scenario,
@@ -153,7 +201,51 @@ def from_event_result(
         p99_jct=res.p99_jct(),
         goodput=res.goodput,
         peak_calendar=res.peak_calendar,
+        stretch_frac=(
+            res.obs.mean_stretch_frac() if res.obs is not None else math.nan
+        ),
+        gating_frac=(
+            res.obs.mean_gating_frac() if res.obs is not None else math.nan
+        ),
     )
+
+
+def replay_summary(
+    res: SimResult, window_s: float, warmup_frac: float = 0.1
+) -> Dict[str, float]:
+    """Flat windowed steady-state summary of one (typically streamed)
+    replay: ``SimResult.steady_state``'s sustained goodput, finish rate,
+    p99 JCT and queueing delay, the run-level scale counters and, under
+    ``profile_phases=True``, the engine's wall seconds per phase, in one
+    JSON-ready dict."""
+    out = dict(res.steady_state(window_s, warmup_frac=warmup_frac))
+    out.update(
+        makespan=res.makespan,
+        n_finished=float(len(res.jct)),
+        censored=float(res.censored),
+        goodput=res.goodput,
+        events=float(res.events_processed),
+        peak_calendar=float(res.peak_calendar),
+    )
+    if res.phase_seconds:
+        out.update({f"phase_{k}_s": float(v) for k, v in res.phase_seconds.items()})
+    return out
+
+
+CI_CSV_FIELDS = (
+    "scenario",
+    "backend",
+    "placement",
+    "comm",
+    "n_seeds",
+    "avg_jct_mean",
+    "avg_jct_std",
+    "p95_jct_mean",
+    "makespan_mean",
+    "makespan_std",
+    "finished_frac",
+    "wall_s",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +265,17 @@ class CellCI:
     makespan_std: float
     finished_frac: float
     wall_s: float
+
+    def as_csv_row(self) -> str:
+        vals = []
+        for f in CI_CSV_FIELDS:
+            v = getattr(self, f)
+            vals.append(f"{v:.2f}" if isinstance(v, float) else str(v))
+        return ",".join(vals)
+
+    @staticmethod
+    def csv_header() -> str:
+        return ",".join(CI_CSV_FIELDS)
 
 
 def _mean_std(xs: Sequence[float]) -> Tuple[float, float]:
@@ -211,4 +314,26 @@ def ci_from_runs(records: Sequence[RunMetrics]) -> List[CellCI]:
                 wall_s=sum(r.wall_s for r in rs),
             )
         )
+    return out
+
+
+def summarize(records: Sequence[RunMetrics]) -> Dict[str, Dict[str, float]]:
+    """Aggregate per (scenario, backend, placement, comm): mean avg-JCT,
+    mean makespan, mean utilization and total finished over seeds."""
+    groups: Dict[str, List[RunMetrics]] = {}
+    for r in records:
+        groups.setdefault(
+            f"{r.scenario}/{r.backend}/{r.placement}/{r.comm}", []
+        ).append(r)
+    out: Dict[str, Dict[str, float]] = {}
+    for key, rs in sorted(groups.items()):
+        out[key] = {
+            "avg_jct": sum(r.avg_jct for r in rs) / len(rs),
+            "p95_jct": sum(r.p95_jct for r in rs) / len(rs),
+            "makespan": sum(r.makespan for r in rs) / len(rs),
+            "gpu_util": sum(r.gpu_util for r in rs) / len(rs),
+            "finished_frac": sum(r.n_finished for r in rs)
+            / max(1, sum(r.n_jobs for r in rs)),
+            "n_runs": float(len(rs)),
+        }
     return out

@@ -82,15 +82,18 @@ class Scenario:
 ScenarioBuilder = Callable[..., Scenario]
 
 _REGISTRY: Dict[str, ScenarioBuilder] = {}
+_DESCRIPTIONS: Dict[str, str] = {}
 
 
-def register(name: str):
-    """Decorator: register ``fn(seed=0, **kw) -> Scenario`` under ``name``."""
+def register(name: str, description: str = ""):
+    """Decorator: register ``fn(seed=0, **kw) -> Scenario`` under ``name``,
+    with a one-line description (else the builder's docstring)."""
 
     def deco(fn: ScenarioBuilder) -> ScenarioBuilder:
         if name in _REGISTRY:
             raise ValueError(f"scenario {name!r} already registered")
         _REGISTRY[name] = fn
+        _DESCRIPTIONS[name] = description or (fn.__doc__ or "").strip()
         return fn
 
     return deco
@@ -98,6 +101,10 @@ def register(name: str):
 
 def scenario_names() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def describe(name: str) -> str:
+    return _DESCRIPTIONS.get(name, "")
 
 
 def get_scenario(name: str, seed: int = 0, **overrides) -> Scenario:

@@ -1,9 +1,13 @@
-"""Runs of registered scenarios (port of ``repro/scenarios/sweep.py``
-without the multiprocessing ``sweep`` runner, ROADMAP queue 1, item 7h).
+"""Sweep runner: scenario x policy x seed matrices over both backends
+(port of ``repro/scenarios/sweep.py``).
 
 * :func:`run_scenario_event` — one exact event-engine simulation of a
   scenario, on the host.
 * :func:`run_scenario_fluid` — one fluid simulation of a scenario.
+* :func:`run_cell` / :func:`sweep` — the full matrix, one
+  :class:`~repro_torch.scenarios.metrics.RunMetrics` per cell; event cells
+  can fan out over a ``spawn`` process pool, fluid cells run in the
+  calling process.
 * :func:`monte_carlo_fluid` — all seeds of one cell in one batch.
 * :func:`sweep_ci` — mean +/- std per scenario x placement x comm cell.
 
@@ -14,6 +18,7 @@ strings accept the simulator's names plus the paper aliases
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -160,6 +165,127 @@ def _dedupe_fluid_placements(placements: Sequence[str]) -> Tuple[str, ...]:
     return tuple(seen.values())
 
 
+@dataclasses.dataclass(frozen=True)
+class SweepCell:
+    """One picklable cell of the sweep matrix (workers rebuild the scenario
+    from (name, seed, overrides), so nothing heavy crosses processes).
+
+    ``sim_kw`` carries event-engine keyword overrides (``sched=``,
+    ``comm_chunks=``, ...): event cells only, a fluid cell with ``sim_kw``
+    raises.  ``device`` is where a fluid cell runs (None: CUDA); an event
+    cell runs on the host."""
+
+    scenario: str
+    seed: int
+    placement: str
+    kappa: int
+    comm: str
+    backend: str  # "event" | "fluid"
+    overrides: Tuple[Tuple[str, object], ...] = ()
+    dt: float = 0.05
+    sim_kw: Tuple[Tuple[str, object], ...] = ()
+    device: Optional[str] = None
+
+
+def run_cell(cell: SweepCell) -> metrics_mod.RunMetrics:
+    scn = get_scenario(cell.scenario, seed=cell.seed, **dict(cell.overrides))
+    if cell.sim_kw and cell.backend != "event":
+        raise ValueError(
+            f"sim_kw {dict(cell.sim_kw)} is event-backend only "
+            f"(got backend {cell.backend!r})"
+        )
+    t0 = time.time()
+    if cell.backend == "event":
+        res = run_scenario_event(
+            scn,
+            placement=cell.placement,
+            kappa=cell.kappa,
+            comm=cell.comm,
+            **dict(cell.sim_kw),
+        )
+        return metrics_mod.from_event_result(
+            res,
+            scenario=cell.scenario,
+            seed=cell.seed,
+            n_jobs=scn.n_jobs,
+            wall_s=time.time() - t0,
+        )
+    if cell.backend == "fluid":
+        out = run_scenario_fluid(
+            scn, comm=cell.comm, placement=cell.placement, dt=cell.dt, device=cell.device
+        )
+        jcts = [float(j) for j, fin in zip(out["jct"], out["finished"]) if fin]
+        return metrics_mod.from_jcts(
+            jcts,
+            scenario=cell.scenario,
+            backend="fluid",
+            placement=f"gang-{netmodel.canonical_placement(cell.placement)}",
+            comm=canonical_comm(cell.comm),
+            seed=cell.seed,
+            n_jobs=scn.n_jobs,
+            makespan=out["makespan"],
+            wall_s=time.time() - t0,
+            chunks=out["chunks"],
+        )
+    raise ValueError(f"unknown backend {cell.backend!r}")
+
+
+def sweep(
+    scenarios: Sequence[str],
+    comms: Sequence[str] = ("ada", "srsf1", "srsf2"),
+    placements: Sequence[str] = ("lwf",),
+    kappa: int = 1,
+    seeds: Sequence[int] = (0,),
+    backend: str = "event",
+    overrides: Optional[Dict[str, object]] = None,
+    per_scenario_overrides: Optional[Dict[str, Dict[str, object]]] = None,
+    processes: Optional[int] = None,
+    dt: float = 0.05,
+    sim_kw: Optional[Dict[str, object]] = None,
+    device=None,
+) -> List[metrics_mod.RunMetrics]:
+    """Run the full scenario x placement x comm x seed matrix.
+
+    ``overrides`` applies to every scenario; ``per_scenario_overrides``
+    (keyed by scenario name, e.g. ``QUICK_OVERRIDES``) layers on top.
+    ``sim_kw`` forwards event-engine keywords to every cell.
+    ``processes > 1`` fans event cells out over a ``spawn`` process pool
+    (the start method CUDA needs too); fluid cells run in this process, on
+    ``device`` (None: CUDA)."""
+    if backend == "fluid":
+        placements = _dedupe_fluid_placements(placements)
+
+    def cell_overrides(name: str) -> Tuple[Tuple[str, object], ...]:
+        d = dict(overrides or {})
+        d.update((per_scenario_overrides or {}).get(name, {}))
+        return tuple(sorted(d.items()))
+
+    cells = [
+        SweepCell(
+            scenario=s,
+            seed=seed,
+            placement=pl,
+            kappa=kappa,
+            comm=c,
+            backend=backend,
+            overrides=cell_overrides(s),
+            dt=dt,
+            sim_kw=tuple(sorted((sim_kw or {}).items())),
+            device=None if device is None else str(device),
+        )
+        for s in scenarios
+        for pl in placements
+        for c in comms
+        for seed in seeds
+    ]
+    if processes and processes > 1 and backend == "event" and len(cells) > 1:
+        import multiprocessing as mp
+
+        with mp.get_context("spawn").Pool(processes) as pool:
+            return pool.map(run_cell, cells)
+    return [run_cell(c) for c in cells]
+
+
 def monte_carlo_fluid(
     scenario: str,
     seeds: Sequence[int],
@@ -213,10 +339,25 @@ def sweep_ci(
     per_scenario_overrides: Optional[Dict[str, Dict[str, object]]] = None,
     dt: float = 0.05,
     device=None,
+    kappa: int = 1,
+    backend: str = "fluid",
+    processes: Optional[int] = None,
+    sim_kw: Optional[Dict[str, object]] = None,
 ) -> List[metrics_mod.CellCI]:
     """Mean +/- std avg-JCT per scenario x placement x comm cell over
-    ``seeds``, one batch per cell (the fluid branch of the reference's
-    ``sweep_ci``)."""
+    ``seeds``.  Fluid: one batch per cell (:func:`monte_carlo_fluid`);
+    event: the exact per-seed :func:`sweep` (optionally in a process
+    pool), aggregated the same way.  ``sim_kw`` is event-only."""
+    if backend != "fluid":
+        records = sweep(
+            scenarios, comms=comms, placements=placements, kappa=kappa, seeds=seeds,
+            backend=backend, overrides=overrides,
+            per_scenario_overrides=per_scenario_overrides, processes=processes,
+            dt=dt, sim_kw=sim_kw,
+        )
+        return metrics_mod.ci_from_runs(records)
+    if sim_kw:
+        raise ValueError(f"sim_kw {sim_kw} is event-backend only")
     placements = _dedupe_fluid_placements(placements)
     records: List[metrics_mod.RunMetrics] = []
     for s in scenarios:

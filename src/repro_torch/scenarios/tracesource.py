@@ -254,7 +254,13 @@ def _replay_scenario(
     )
 
 
-@register("trace_replay_synth")
+@register(
+    "trace_replay_synth",
+    "Streaming synthetic replay: Poisson open arrivals of Philly-mix jobs "
+    "consumed lazily through the TraceSource protocol — the event calendar "
+    "holds O(live jobs + cluster) entries, so the same scenario scales from "
+    "the seconds-long regression cell to the nightly 100k-job replay",
+)
 def trace_replay_synth(
     seed: int = 0,
     n_jobs: int = 400,
@@ -285,7 +291,13 @@ def trace_replay_synth(
     )
 
 
-@register("trace_replay_philly")
+@register(
+    "trace_replay_philly",
+    "Philly-dialect CSV replay (bundled sample in the published "
+    "submit/ngpus/runtime column convention), streamed row by row through "
+    "the TraceSource protocol; point ``path=`` at a full cluster_job_log "
+    "export for production-scale replays",
+)
 def trace_replay_philly(
     seed: int = 0,
     path: Optional[str] = None,
@@ -316,7 +328,12 @@ def trace_replay_philly(
     )
 
 
-@register("trace_replay_alibaba")
+@register(
+    "trace_replay_alibaba",
+    "Alibaba-dialect CSV replay (bundled sample in the cluster-trace "
+    "submit/end/plan_gpu convention, plan_gpu in GPU-percent), streamed "
+    "through the TraceSource protocol",
+)
 def trace_replay_alibaba(
     seed: int = 0,
     path: Optional[str] = None,

@@ -138,20 +138,34 @@ class TestPaperOrderings:
 
 
 class TestNotPorted:
-    """What the engine leaves out raises, naming its ROADMAP item."""
+    """The keywords that raised before ROADMAP queue 1 items 7e-7g were
+    ported now run, each to the reference's result on the same jobs (the
+    observed and profiled runs' ``obs`` and ``phase_seconds`` aside; their
+    contents are held in ``tests/test_torch_obs.py``)."""
 
     @pytest.mark.parametrize("kw, item", [
         (dict(comm_chunks=4), "7e"),
         (dict(contention_domain="link"), "7e"),
-        (dict(observe=object()), "7f"),
+        (dict(observe="full"), "7f"),
         (dict(profile_phases=True), "7f"),
         (dict(gating="rescan"), "7g"),
         (dict(workloads="rescan"), "7g"),
     ])
     def test_raises(self, kw, item):
-        jobs = scenario("port", "smoke").job_list()
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1, item {item}\b"):
-            pengine.EventEngine(jobs, **kw)
+        import repro.core.engine as rengine
+        import repro.obs as robs
+        import repro_torch.obs as pobs
+
+        results = []
+        for side, eng, obs in (("port", pengine, pobs), ("ref", rengine, robs)):
+            side_kw = dict(kw, observe=obs.ObsConfig.full()) if "observe" in kw else kw
+            results.append(eng.EventEngine(scenario(side, "smoke").job_list(), **side_kw).run())
+        got, ref = results
+        assert (got.obs is None) == (ref.obs is None) == ("observe" not in kw), item
+        assert (got.phase_seconds is None) == (ref.phase_seconds is None), item
+        for f in dataclasses.fields(ref):
+            if f.name not in ("obs", "phase_seconds"):
+                assert getattr(got, f.name) == getattr(ref, f.name), f.name
 
     def test_trace_source_raises(self):
         """A ``TraceSource`` is accepted in place of the job list (since the
