@@ -331,14 +331,30 @@ Phases (any failed check raises, so the exit code is non-zero):
     "oversub_fabric"], comms=("ada", "srsf1", "srsf2"))`` at QUICK size in
     EVENT_WORKERS spawned processes and in this process: every record,
     wall aside, ``==`` and the reference's.  The constants come from
-    ``scripts/event_rest_reference.py``.
+    ``scripts/event_rest_reference.py``;
+51. sharded training through a one-rank mesh, in a spawned process (this
+    one keeps no process group; the machine has one card, and NCCL
+    refuses two ranks on one device) whose imports run beside phases
+    25-28: full-width llama3.2-1b (batch 8 x seq 512, 8 steps, bf16,
+    ``remat="none"``, deterministic algorithms in all three runs) trained
+    plain through ``make_train_step``, then, on an NCCL group of one rank
+    (``HashStore``, no TCP port), through ``train(mesh_shape=(1, 1))``
+    (``dp``: DTensor parameters, moments and batches, all replicated) and
+    under ``tp`` through ``make_train_step`` (every head, ffn and vocab
+    dim ``Shard`` over the size-1 "model" dim, so ``local_map`` and the
+    redistributions run): both runs' losses bit-identical to the plain
+    run's (every collective over one rank is the identity), exactly 16 x
+    8 flash launches in each; step ms (median of steps 3-8), peak memory,
+    and one profiled step's device ms, NCCL kernels and idle share of the
+    three.
 
 Phases run in the order of their numbers, but for 31, 32, 49 and 50 (a, b),
-which run after 29, 48, which runs after phase 25's main path, and 50 (c),
-which runs last.  Worker processes run only during phases 10-11 (with
-phase 50 (a)'s CPU side) and 31-32 (49 and 50 (b) with them, beside phase
-50 (a)'s card side), so the phases that time host-bound work (7, 12-30,
-33) have the host to themselves.  The
+which run after 29, 48 and 51, which run after phase 25's main path, and
+50 (c), which runs last.  Worker processes run only during phases 10-11
+(with phase 50 (a)'s CPU side) and 31-32 (49 and 50 (b) with them, beside
+phase 50 (a)'s card side), and phase 51's (its imports beside phases 25-28,
+its run alone), so the phases that time host-bound work (7, 12-30, 33)
+have the host to themselves.  The
 served models' prefill windows (phases 35-36, 40-41, 45-46), whose flash
 records are counted, run the prefill once as a
 discarded warm-up step before the one they report (in a whole run a
@@ -348,7 +364,7 @@ few flash records for a served model's prefill, is logged and taken
 again, up to 3 windows, before the check that needs it fails.
 
 Then the kernels line (JSON; the flash kernel's launches are the serving,
-training (phase 48's too) and multi_job main paths' of every family, the
+training (phases 48's and 51's too) and multi_job main paths' of every family, the
 SSD step's those of mamba and jamba, the fluid step's include phase 29's
 and phase 50 (a)'s;
 phases 34's, 39's and 44's shapes under "shapes") and, last, ``{"ok":
@@ -1731,11 +1747,12 @@ def _prng_phase(torch, dev) -> None:
          f"on the card in {t_big:.4f} s (slices of {prng.SLICE} counters)")
 
 
-def _train_main(torch, cfg, counter, remat="none") -> dict:
+def _train_main(torch, cfg, counter, remat="none", mesh_shape=(1, 1)) -> dict:
     """One run of ``repro_torch.launch.train.train`` on the card (the user's
     entry point), its printed log kept: losses, wall, per-step ms from the
     logged tok/s (each step synchronises on its loss), peak memory and,
-    with ``counter``, the kernel's launches from a count of 0 just before."""
+    with ``counter``, the kernel's launches from a count of 0 just before.
+    With a process group (phase 51) the run goes through ``mesh_shape``."""
     from repro_torch.launch.train import train
 
     torch.cuda.synchronize()
@@ -1746,7 +1763,7 @@ def _train_main(torch, cfg, counter, remat="none") -> dict:
         counter.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        losses = train(cfg, log_every=1, remat=remat, **TRAIN)
+        losses = train(cfg, log_every=1, remat=remat, mesh_shape=mesh_shape, **TRAIN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counter.launches if counter is not None else None
@@ -1757,9 +1774,10 @@ def _train_main(torch, cfg, counter, remat="none") -> dict:
     toks = TRAIN["batch"] * TRAIN["seq"]
     step_ms = [toks / v * 1e3 for v in tok_s]
     peak = torch.cuda.max_memory_allocated()
+    where = "" if tuple(mesh_shape) == (1, 1) and not _group_up() else f", mesh {mesh_shape}"
     _log(f"train {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}), batch "
          f"{TRAIN['batch']} x seq {TRAIN['seq']}, bf16 weights from PRNGKey({TRAIN['seed']}), "
-         f"float32 moments, lr {TRAIN['lr']}, remat {remat!r}: losses {losses}; wall "
+         f"float32 moments, lr {TRAIN['lr']}, remat {remat!r}{where}: losses {losses}; wall "
          f"{wall:.3f} s (init and the first step's warm-up included); step ms {step_ms}; "
          f"tok/s {tok_s}; steady state (steps 2-{TRAIN['steps']}) median "
          f"{float(np.median(step_ms[1:])):.3f} ms per step = "
@@ -1805,6 +1823,236 @@ def _remat_phase(torch, cfg, none_run, counter) -> int:
     _require(peaks["block"] < peaks["dots"] < peaks["none"],
              "peak memory ordered block < dots < none")
     return 2 * expected
+
+
+def _group_up() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _mesh_steps(torch, cfg, base, mesh, strategy, steps, counter) -> dict:
+    """Phase 51: ``steps`` training steps of full-width ``cfg`` through
+    ``make_train_step`` from ``base`` (TRAIN's seed's weights, kept in host
+    memory and copied to the card for each run), on TRAIN's batches, plain
+    (``mesh`` None) or with parameters, moments and batches placed on
+    ``mesh`` under ``strategy``; then one more step under the profiler.
+    Returns the losses, per-step wall ms (each step waits for its loss),
+    peak memory, the flash kernel's launches over the timed steps, and the
+    profiled step's device ms, NCCL kernels and their ms."""
+    from repro_torch.data import SyntheticLMDataset, make_train_iterator
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import LM, RunFlags
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.sharding.rules import (
+        ShardingStrategy, distribute, moment_shardings, param_shardings, token_sharding,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lm = LM(cfg)
+    opt_cfg = AdamWConfig(lr=TRAIN["lr"])
+    params = tree_map(lambda t: t.to(dev, non_blocking=True), base)
+    shardings, moments = None, None
+    if mesh is not None:
+        st = ShardingStrategy.from_name(strategy)
+        p_sh = param_shardings(lm.logical_axes(), params, mesh, st)
+        moments = moment_shardings(p_sh, params, mesh, st)
+        params = tree_map(distribute, params, p_sh)
+        tok = token_sharding(mesh, TRAIN["batch"])
+        shardings = {"tokens": tok, "labels": tok}
+    opt = adamw_init(params, opt_cfg, moments)
+    step = make_train_step(lm, opt_cfg, RunFlags(remat="none", q_chunk=min(512, TRAIN["seq"])))
+    it = make_train_iterator(SyntheticLMDataset(cfg, TRAIN["batch"], TRAIN["seq"],
+                                                seed=TRAIN["seed"]), device=dev,
+                             shardings=shardings)
+    state = {"p": params, "o": opt}
+    del params, opt
+    losses, walls = [], []
+    try:
+        counter.launches = 0
+        for _ in range(steps):
+            b = next(it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state["p"], state["o"], m = step(state["p"], state["o"], b)
+            losses.append(float(m["loss"]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = counter.launches
+        peak = torch.cuda.max_memory_allocated()
+        last = next(it)
+
+        def run():
+            state["p"], state["o"], m = step(state["p"], state["o"], last)
+            float(m["loss"])
+
+        t0 = time.perf_counter()
+        kernels = _device_only_profile(torch, run, f"the {strategy or 'plain'} training step")
+        prof_s = time.perf_counter() - t0
+    finally:
+        it.close()
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": walls, "peak": peak, "launches": launches,
+            "device_ms": device_ms, "n_kernels": sum(e.count for e in kernels),
+            "nccl": sum(e.count for e in nccl),
+            "nccl_ms": sum(e.self_device_time_total for e in nccl) / 1e3, "profile_s": prof_s}
+
+
+def _device_only_profile(torch, run, what: str) -> list:
+    """``run()`` under ``torch.profiler`` with CUDA activity only (a DTensor
+    step dispatches tens of thousands of host ops, whose records would
+    cost seconds a window), up to PROFILE_WINDOWS windows until one shows
+    device time; returns its averages, the named ranges' annotations left
+    out (not kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention.ops import BACKWARD_RANGE
+    from repro_torch.optim.adamw import UPDATE_RANGE
+
+    for window in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key not in (BACKWARD_RANGE, UPDATE_RANGE)]
+        if sum(e.self_device_time_total for e in kernels) > 0:
+            return kernels
+        _log(f"the profiler saw no device time in {what} (window {window} of "
+             f"{PROFILE_WINDOWS})")
+    _require(False, f"the profiler saw the device time of {what}")
+
+
+def _mesh_imports() -> float:
+    """Phase 51's worker, started while phases 25-28 run: the imports its
+    run needs (no CUDA call: the card is the main process's meanwhile).
+    Returns their seconds."""
+    import os
+
+    t0 = time.perf_counter()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch.distributed.tensor  # noqa: F401
+
+    import repro_torch.launch.train  # noqa: F401
+    from repro_torch.kernels.flash_attention import kernel  # noqa: F401
+
+    return time.perf_counter() - t0
+
+
+def _mesh_worker() -> dict:
+    """Phase 51, in a spawned process (so that this script's own process
+    keeps no process group): full-width llama3.2-1b trained plain, then
+    through a one-rank NCCL mesh (``init_process_group`` on a ``HashStore``,
+    no TCP port): ``train(mesh_shape=(1, 1))`` (``dp``, every leaf
+    replicated), a ``dp`` step beside it for the profile, and TRAIN's steps
+    under ``tp`` through ``make_train_step`` (every head, ffn and vocab dim
+    ``Shard`` over the size-1 "model" dim, so ``local_map`` and the
+    redistributions run).  Deterministic algorithms throughout (the
+    embedding's backward accumulates with atomics otherwise), so the
+    three runs can be held bit-identical."""
+    import os
+
+    t_start = time.perf_counter()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import LM
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.cuda.set_device(0)
+    marks = {"start": time.perf_counter() - t_start}
+    cfg = get_config("llama3.2-1b")
+    base = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t),
+                    LM(cfg).init(prng.PRNGKey(TRAIN["seed"]), device=torch.device("cuda", 0)))
+    marks["init"] = time.perf_counter() - t_start
+    out = {"plain": _mesh_steps(torch, cfg, base, None, None, TRAIN["steps"],
+                                flash_attention_cuda)}
+    marks["plain"] = time.perf_counter() - t_start
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        out["train_dp"] = _train_main(torch, cfg, flash_attention_cuda, mesh_shape=(1, 1))
+        marks["train_dp"] = time.perf_counter() - t_start
+        mesh = make_host_mesh(1, 1)
+        # the dp step's time is train()'s; this one warms up, then is profiled
+        out["dp"] = _mesh_steps(torch, cfg, base, mesh, "dp", 1, flash_attention_cuda)
+        marks["dp"] = time.perf_counter() - t_start
+        out["tp"] = _mesh_steps(torch, cfg, base, mesh, "tp", TRAIN["steps"],
+                                flash_attention_cuda)
+        marks["tp"] = time.perf_counter() - t_start
+    finally:
+        dist.destroy_process_group()
+    out["marks"] = marks
+    return out
+
+
+def _mesh_pool():
+    """Phase 51's spawned process, its imports begun (:func:`_mesh_imports`):
+    (the pool, the imports' future).  The caller shuts the pool down."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(_mesh_imports)
+
+
+def _mesh_phase(pool, imports) -> int:
+    """Phase 51: :func:`_mesh_worker` in ``pool``'s spawned process; the
+    losses of the ``dp`` and ``tp`` runs on the one-rank mesh bit-identical
+    to the plain run's, 16 x 8 flash launches in each, and the three paths'
+    step ms, peak memory, device ms and idle share printed.  Returns the
+    flash launches of the dp and tp runs."""
+    t0 = time.perf_counter()
+    import_s = imports.result()
+    res = pool.submit(_mesh_worker).result()
+    plain, train_dp, dp, tp = res["plain"], res["train_dp"], res["dp"], res["tp"]
+    n = 16 * TRAIN["steps"]
+    for tag, r in (("plain", plain), ("train() dp", train_dp), ("tp", tp)):
+        _require(r["launches"] == n, f"phase 51 {tag}: {n} flash launches")
+    _require(train_dp["losses"] == plain["losses"],
+             "phase 51: train() on the one-rank mesh (dp), losses bit-identical to the plain path")
+    _require(tp["losses"] == plain["losses"],
+             "phase 51: tp on the one-rank mesh, losses bit-identical to the plain path")
+    _require(dp["losses"] == plain["losses"][:1], "phase 51: the dp step's loss")
+    # steady state: the median of steps 3-8 (dp: train()'s, the same path)
+    rows = {"plain": float(np.median(plain["step_ms"][2:])),
+            "dp": float(np.median(train_dp["step_ms"][2:])),
+            "tp": float(np.median(tp["step_ms"][2:]))}
+    for tag, r in (("plain", plain), ("dp", dp), ("tp", tp)):
+        med = rows[tag]
+        _log(f"mesh train {tag} (llama3.2-1b, batch {TRAIN['batch']} x seq {TRAIN['seq']}, "
+             f"deterministic algorithms): step ms {(train_dp if tag == 'dp' else r)['step_ms']}; "
+             f"median (steps 3-{TRAIN['steps']}) {med:.3f} ms; torch.cuda.max_memory_allocated "
+             f"{(train_dp if tag == 'dp' else r)['peak']} B "
+             f"({(train_dp if tag == 'dp' else r)['peak'] / 2**30:.3f} GiB); one profiled step: "
+             f"device {r['device_ms']:.4f} ms in {r['n_kernels']} kernels and copies, NCCL "
+             f"kernels {r['nccl']} ({r['nccl_ms']:.4f} ms), idle share "
+             f"{1 - r['device_ms'] / med:.4f}; flash launches "
+             f"{(train_dp if tag == 'dp' else r)['launches']}")
+    _log(f"mesh train: losses plain {plain['losses']}; train() dp and tp identical to them; "
+         f"dp / plain step {rows['dp'] / rows['plain']:.4f}, "
+         f"tp / plain {rows['tp'] / rows['plain']:.4f}; phase 51 wall "
+         f"{time.perf_counter() - t0:.1f} s (a spawned process, started with its imports, "
+         f"{import_s:.1f} s, while phases 25-28 ran; seconds since its run began, at the end "
+         f"of each stage: {res['marks']}; profiled steps "
+         f"{[round(r['profile_s'], 3) for r in (plain, dp, tp)]} s)")
+    return train_dp["launches"] + tp["launches"]
 
 
 def _cast(params, dtype):
@@ -3620,7 +3868,15 @@ def main() -> int:
 
     # ---- 25.-28. training -------------------------------------------------
     _mark("25-28")
-    flash["launches"] += _train_phases(torch, dev)
+    mesh_pool, mesh_imports = _mesh_pool()  # phase 51's process imports meanwhile
+    try:
+        flash["launches"] += _train_phases(torch, dev)
+
+        # ---- 51. training through a one-rank NCCL mesh (that process) --------
+        _mark("51")
+        flash["launches"] += _mesh_phase(mesh_pool, mesh_imports)
+    finally:
+        mesh_pool.shutdown()
 
     # ---- 29. the random placement and monte_carlo_jct -----------------------
     _mark("29")

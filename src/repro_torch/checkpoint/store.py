@@ -6,7 +6,9 @@ packages: one npz per step (``step_%08d.npz``), one entry per leaf under
 its ``/``-joined key path (dict keys in sorted order), and a ``__meta__``
 entry holding ``{"step", "dtypes", "extra"}`` as JSON bytes.  bfloat16
 leaves are stored as uint16 views with ``"bfloat16"`` in the dtype
-sidecar, since npz has no native bf16.
+sidecar, since npz has no native bf16.  A sharded run writes and reads
+the same file: its leaves are gathered whole on save and cut to each
+rank's slice on restore, so a checkpoint crosses mesh shapes too.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.common import tree_leaves, tree_unflatten
+from repro_torch.sharding.rules import full, is_dtensor, place
 
 
 def leaf_to_numpy(leaf) -> Tuple[np.ndarray, Optional[str]]:
@@ -46,15 +50,29 @@ def leaf_from_numpy(arr: np.ndarray, sidecar: Optional[str] = None) -> torch.Ten
 
 
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write ``tree`` as ``step_%08d.npz``; returns its path.  Under a mesh
+    every rank calls it: each DTensor leaf is gathered whole
+    (``full_tensor()``, a collective), rank 0 writes, and all ranks wait
+    for the file at a barrier."""
+    sharded = any(is_dtensor(leaf) for _, leaf in tree_leaves(tree))
+    writer = not sharded or dist.get_rank() == 0
     arrays: Dict[str, np.ndarray] = {}
     dtypes: Dict[str, str] = {}
     for k, leaf in tree_leaves(tree):
-        arr, sidecar = leaf_to_numpy(leaf)
+        arr, sidecar = leaf_to_numpy(full(leaf))
         if sidecar:
             dtypes[k] = sidecar
         arrays[k] = arr
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    if writer:
+        _write(ckpt_dir, path, step, arrays, dtypes, extra)
+    if sharded:
+        dist.barrier()
+    return path
+
+
+def _write(ckpt_dir: str, path: str, step: int, arrays, dtypes, extra) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     meta = {"step": step, "dtypes": dtypes, "extra": extra or {}}
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     try:
@@ -64,7 +82,6 @@ def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None) -> str:
     except BaseException:
         os.unlink(tmp)
         raise
-    return path
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -80,8 +97,9 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore(ckpt_dir: str, target_tree, step: Optional[int] = None) -> Tuple[Any, int, dict]:
     """Restore into the structure of ``target_tree`` (shapes must match;
-    each leaf lands on its target's device with the stored dtype).
-    Returns (tree, step, extra)."""
+    each leaf lands on its target's device with the stored dtype, and
+    where the target is a DTensor, under its placements: every rank reads
+    the file and keeps its slice).  Returns (tree, step, extra)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -93,7 +111,9 @@ def restore(ckpt_dir: str, target_tree, step: Optional[int] = None) -> Tuple[Any
             t = leaf_from_numpy(data[k], meta["dtypes"].get(k))
             if tuple(t.shape) != tuple(ref.shape):
                 raise ValueError(f"shape mismatch for {k}: {tuple(t.shape)} vs {tuple(ref.shape)}")
-            if isinstance(ref, torch.Tensor):
+            if is_dtensor(ref):
+                t = place(t.to(ref.device), ref.device_mesh, ref.placements)
+            elif isinstance(ref, torch.Tensor):
                 t = t.to(ref.device)
             restored[k] = t
     return tree_unflatten(restored), meta["step"], meta["extra"]

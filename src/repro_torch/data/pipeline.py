@@ -6,7 +6,8 @@ step maps to the same batch in both packages (Zipf-like unigram tokens,
 the shifted labels and the stub frontend's embeddings of the audio and
 vlm families).  :func:`make_train_iterator` replaces the reference's
 ``jax.device_put`` with a host thread that builds each batch ahead, pins
-it and copies it to the device with ``non_blocking=True``.
+it and copies it to the device with ``non_blocking=True``; under a mesh
+each rank copies only its slice and receives DTensors.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -62,24 +63,43 @@ class SyntheticLMDataset:
 
 class _Prefetcher:
     """Iterator over device batches from ``start_step`` on, built by a
-    daemon thread up to ``prefetch`` ahead; :meth:`close` stops it."""
+    daemon thread up to ``prefetch`` ahead; :meth:`close` stops it.
+
+    With ``shardings`` ({key: ``NamedSharding``} on a ``DeviceMesh``) every
+    rank builds the same global batch from the seed, the thread cuts and
+    copies this rank's slice of each key named there (numpy slicing, no
+    communication: no collective is issued from the thread), and
+    :meth:`__next__`, in the consuming thread, wraps each slice as a DTensor
+    of the global shape (``DTensor.from_local``, unchecked)."""
 
     def __init__(self, ds: SyntheticLMDataset, start_step: int, device: torch.device,
-                 prefetch: int) -> None:
+                 prefetch: int, shardings: Optional[Dict[str, Any]] = None) -> None:
         self._ds, self._device = ds, device
+        self._shardings = {k: (sh.mesh, sh.placements) for k, sh in (shardings or {}).items()}
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._work, args=(start_step,), daemon=True)
         self._thread.start()
 
-    def _produce(self, step: int) -> Dict[str, torch.Tensor]:
+    def _produce(self, step: int) -> Dict[str, Any]:
+        from repro_torch.sharding.rules import local_shard
+
         out = {}
         for k, v in self._ds.batch_at(step).items():
+            full = v.shape
+            if k in self._shardings:
+                v = local_shard(v, self._shardings[k][1], self._shardings[k][0])
             t = torch.from_numpy(np.ascontiguousarray(v))
             if self._device.type == "cuda":
                 t = t.pin_memory().to(self._device, non_blocking=True)
-            out[k] = t
+            out[k] = (t, full)
         return out
+
+    def _wrap(self, item: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        from repro_torch.sharding.rules import wrap_local
+
+        return {k: wrap_local(t, *self._shardings[k], full) if k in self._shardings else t
+                for k, (t, full) in item.items()}
 
     def _work(self, step: int) -> None:
         while not self._stop.is_set():
@@ -96,7 +116,7 @@ class _Prefetcher:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
-        return self._q.get()
+        return self._wrap(self._q.get())
 
     def close(self) -> None:
         self._stop.set()
@@ -104,7 +124,10 @@ class _Prefetcher:
 
 
 def make_train_iterator(ds: SyntheticLMDataset, start_step: int = 0, device=None,
-                        prefetch: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                        prefetch: int = 2, shardings: Optional[Dict[str, Any]] = None
+                        ) -> Iterator[Dict[str, torch.Tensor]]:
     """Prefetching iterator of device batches, resumable via ``start_step``;
-    ``device`` None = CUDA."""
-    return _Prefetcher(ds, start_step, resolve_device(device), prefetch)
+    ``device`` None = CUDA.  ``shardings`` ({key: ``NamedSharding``}, as the
+    reference's): those keys come as DTensors of this rank's slices, the
+    others as plain tensors."""
+    return _Prefetcher(ds, start_step, resolve_device(device), prefetch, shardings)

@@ -6,6 +6,7 @@ from __future__ import annotations
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.lm import LM, RunFlags
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.sharding.rules import full, like, mesh_context
 
 
 def make_train_step(lm: LM, opt_cfg: AdamWConfig, flags: RunFlags = RunFlags()):
@@ -15,7 +16,13 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig, flags: RunFlags = RunFlags()):
     sets the flag where it is missing); each step clears their grads, runs
     ``loss_fn`` and its backward, and updates them in place under
     ``torch.no_grad()`` (:func:`adamw_update`), as the reference's jitted
-    step donates them."""
+    step donates them.
+
+    The parameters may be DTensors (``launch.train`` places them under the
+    sharding rules): the loss then runs through DTensor's propagation (the
+    flash kernel on each rank's local heads, ``models.attention``), each
+    grad is redistributed to its parameter's placements, and the metrics
+    come back as plain tensors, alike on every rank."""
 
     def train_step(params, opt_state, batch):
         leaves = [p for _, p in tree_leaves(params)]
@@ -23,14 +30,17 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig, flags: RunFlags = RunFlags()):
             if not p.requires_grad:
                 p.requires_grad_()
             p.grad = None
-        loss, metrics = lm.loss_fn(params, batch, flags)
-        loss.backward()
-        grads = tree_map(lambda p: p.grad, params)
+        with mesh_context(params):
+            loss, metrics = lm.loss_fn(params, batch, flags)
+            loss.backward()
+            # DTensor grads come back Partial where ranks hold parts of a
+            # sum: reduced to the parameter's own placements
+            grads = tree_map(lambda p: like(p.grad, p), params)
         params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg)
         for p in leaves:
             p.grad = None
         out = {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}, **om}
-        return params, opt_state, out
+        return params, opt_state, {k: full(v) for k, v in out.items()}
 
     return train_step
 

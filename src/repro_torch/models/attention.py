@@ -28,6 +28,10 @@ its window reaches, ``[q0 - w + 1, q0 + qc)``: the others' probabilities
 are exactly 0 in float32, so the result is the reference's, and a long
 prompt's logits stay (B, H, qc, qc + w - 1) a chunk.
 
+Under a mesh (DTensor q, k and v) the attention of both kinds runs on
+each rank's own heads through a ``local_map`` (:func:`_per_local_heads`),
+so the kernel reads plain local tensors.
+
 Decode (:func:`decode_attention`, :func:`decode_cross_attention`) is plain
 PyTorch, as in the reference, which has no kernel for it.  Self attention
 writes the new key and value into the cache slot in place: the reference
@@ -42,11 +46,13 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_train
 from repro_torch.models.common import ParamSpec, apply_rope, no_batch_einsum
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import act_placements
 
 NEG_INF = -2.0**30  # large-but-finite; avoids NaN from all-masked rows
 
@@ -112,11 +118,25 @@ def attention_forward(
         pos = torch.arange(s, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    k = _repeat_kv(k, h // kvh)
-    v = _repeat_kv(v, h // kvh)
+
+    def attend(q, k, v):
+        return _attend_heads(q, k, v, mask_kind, cfg.sliding_window, _pick_chunk(s, q_chunk),
+                             impl)
+
+    if isinstance(q, DTensor):
+        out = _per_local_heads(attend, q, k, v, h // kvh)
+    else:
+        out = attend(q, _repeat_kv(k, h // kvh), _repeat_kv(v, h // kvh))
+    return no_batch_einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def _attend_heads(q, k, v, mask_kind: str, window: int, qc: int, impl: str) -> torch.Tensor:
+    """q (B, S, H, hd), k and v (B, T, H, hd) -> (B, S, H, hd): the sliding
+    mask in plain PyTorch, the causal and full masks through the flash
+    kernel (its plain version on the CPU)."""
     if mask_kind == "sliding":
-        out = _sliding_attention(q, k, v, cfg.sliding_window, _pick_chunk(s, q_chunk))
-        return no_batch_einsum("bshk,hkd->bsd", out, params["wo"])
+        return _sliding_attention(q, k, v, window, qc)
+    b, s, h, hd = q.shape
 
     def fold(t):  # (B, S, H, hd) -> (B*H, S, hd), contiguous for the kernel
         return t.transpose(1, 2).reshape(b * h, t.shape[1], hd).contiguous()
@@ -125,8 +145,45 @@ def attention_forward(
     # kernel call; under torch.no_grad() (serving) the kernel call alone
     attend = flash_attention_train if torch.is_grad_enabled() else flash_attention
     out = attend(fold(q), fold(k), fold(v), causal=mask_kind == "causal", impl=impl)
-    out = out.reshape(b, h, s, hd).transpose(1, 2)
-    return no_batch_einsum("bshk,hkd->bsd", out, params["wo"])
+    return out.reshape(b, h, s, hd).transpose(1, 2)
+
+
+def _per_local_heads(attend, q, k, v, n_rep: int):
+    """``attend`` run by each rank on its own heads, through a
+    ``local_map``: q (B, S, H, hd) with its heads sharded over the "model"
+    mesh dim where that divides H, the batch as ``q`` has it over the other
+    mesh dims (:func:`act_placements`).  Attention is independent per head
+    and per sequence, so no rank needs another's, and the kernel reads
+    plain local tensors (a fold of a sharded DTensor would be a
+    ``_StridedShard``, which a raw pointer cannot read).  k and v (B, T,
+    KV, hd) enter sharded alike where "model" divides KV too, and each rank
+    repeats its own kv heads; where the guard left them replicated (2 kv
+    heads on a 4-way axis), each rank repeats them whole and keeps the
+    slice of its q heads, and their gradient is the sum of the ranks'
+    (``Partial``).  The repeat runs on local tensors: DTensor's backward
+    of a repeat of replicated heads into sharded ones fails."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    pq = act_placements(q, q.shape, 2)
+    split = Shard(2) in pq
+    whole = split and k.shape[2] % mesh.size(mesh.mesh_dim_names.index("model")) != 0
+    pkv = [Replicate() if p == Shard(2) else p for p in pq] if whole else pq
+    gkv = [Partial() if p == Shard(2) else p for p in pq] if whole else pq
+    rank = mesh.get_local_rank("model") if whole else 0
+
+    def local(q, k, v):
+        k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+        if whole:  # the kv heads of this rank's q heads
+            hl = q.shape[2]
+            k, v = k[:, :, rank * hl:(rank + 1) * hl], v[:, :, rank * hl:(rank + 1) * hl]
+        return attend(q, k, v)
+
+    # one output: its placements as a list (a tuple would be one per output)
+    return local_map(local, out_placements=pq, in_placements=(pq, pkv, pkv),
+                     in_grad_placements=(pq, gkv, gkv), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def _sliding_attention(q, k, v, window: int, qc: int) -> torch.Tensor:

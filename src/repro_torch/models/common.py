@@ -54,6 +54,12 @@ def tree_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
+def logical_axes(schema: Schema):
+    """The tree of logical-axis tuples matching the parameter tree (what
+    the sharding rules read)."""
+    return tree_map(lambda s: s.axes, schema)
+
+
 def init_params(schema: Schema, key, dtype: torch.dtype = torch.bfloat16,
                 device: Optional[Union[str, torch.device]] = None) -> Params:
     """Materialize parameters with the reference's rule and draws:
@@ -147,11 +153,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def gather_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` whole along ``dim``: a DTensor sharded there is all-gathered
+    over those mesh dims (its other placements kept); anything else is
+    returned as it is.  The loss reads the vocab whole (its ``logsumexp``
+    would gather it too, and DTensor's masked ``gather`` over a sharded
+    vocab fails on a (B, S, 1) index)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    dim %= t.dim()
+    pl = [Replicate() if p.is_shard(dim) else p for p in t.placements]
+    return t if pl == list(t.placements) else t.redistribute(t.device_mesh, pl)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        vocab_size: int) -> torch.Tensor:
     """Mean CE over valid labels in float32; labels >= vocab_size or < 0
     are masked (the padded-vocab convention), as in the reference."""
-    logits = logits.to(torch.float32)
+    logits = gather_dim(logits.to(torch.float32), -1)
     valid = (labels >= 0) & (labels < vocab_size)
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     lse = torch.logsumexp(logits, dim=-1)

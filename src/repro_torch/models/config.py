@@ -16,8 +16,10 @@ import math
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
-#: Pad vocab so the 16-way model axis of the reference's mesh divides it;
-#: the port keeps the padded embedding so weights carry across unchanged.
+#: Pad vocab so the 16-way model axis of the reference's mesh divides it:
+#: ``repro_torch.sharding.rules.spec_for_param`` shards the "vocab" axis of
+#: the embedding over "model" only where the axis size divides it.  The
+#: padded embedding also lets weights carry across unchanged.
 VOCAB_PAD_MULTIPLE = 2048
 
 

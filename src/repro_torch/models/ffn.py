@@ -10,6 +10,9 @@ and the results are gathered back weighted by the renormalised gates.  The
 reference computes all of it outside Pallas, so the port does it in plain
 PyTorch.  Nothing in it waits for the host (no ``.item()``, no boolean
 indexing), so a decode step around it can be captured in a CUDA graph.
+Under a mesh the dispatch runs through DTensor (its cumsum and scatter on
+whole operands, ROADMAP item 10) and the slots are cut to each rank's
+experts before the expert products.
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import act_placements
 
 
 def mlp_schema(cfg: ModelConfig, d_ff: int) -> Dict[str, ParamSpec]:
@@ -131,6 +136,11 @@ def moe(x: torch.Tensor, params: Dict[str, torch.Tensor],
     slot = dest[..., None].expand(b, s * k, d)
     disp = torch.zeros((b, e * c + 1, d), dtype=x.dtype, device=x.device)
     disp = disp.scatter_add(1, slot, x_rep)[:, : e * c].reshape(b, e, c, d)
+    if isinstance(disp, DTensor):
+        # DTensor gathers the cumsum's and the scatter's operands whole
+        # (replicated over "model"); the slots are cut to each rank's
+        # experts, a slice, so the expert products run on local experts
+        disp = disp.redistribute(disp.device_mesh, act_placements(x, disp.shape, 1))
 
     if "w_gate" in params:
         h = _act(torch.einsum("becd,edf->becf", disp, params["w_gate"]), cfg.act)

@@ -11,7 +11,9 @@ need, as plain functions of nested dicts of tensors:
 * ``loss_fn`` — the causal-LM training loss (enc-dec for ``audio``),
   dense or chunked over the sequence, with per-block rematerialisation
   (``torch.utils.checkpoint`` in place of ``jax.checkpoint``, selective
-  under ``remat="dots"``);
+  under ``remat="dots"``); on DTensor parameters (``launch.train`` under a
+  mesh) it gathers fsdp's weight shards per block, looks the embedding up
+  vocab-parallel and reads the loss's vocab whole;
 * ``prefill_fn`` — prompt pass producing last-token logits + the cache;
 * ``decode_fn`` — one-token serve step, updating the cache in place;
 * ``init_cache`` — ``{"pos", "layers": ...}``, each leaf stacked over
@@ -48,7 +50,9 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from repro_torch.device import resolve_device
@@ -56,10 +60,11 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
-    ParamSpec, Schema, apply_rope, cross_entropy_loss, in_no_batch_einsum, init_params, rms_norm,
-    tree_map,
+    ParamSpec, Schema, apply_rope, cross_entropy_loss, gather_dim, in_no_batch_einsum, init_params,
+    logical_axes, rms_norm, tree_map,
 )
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import gather_batch_dims
 
 def stack_schema(schema: Schema, n: int, axis: str = "layers") -> Schema:
     return tree_map(lambda s: ParamSpec((n,) + s.shape, (axis,) + s.axes, s.init, s.scale),
@@ -73,6 +78,56 @@ def _norm_spec(d: int) -> ParamSpec:
 def _layer(tree, i: int):
     """Layer ``i`` of a tree stacked over layers (views, no copy)."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _gathered(tree):
+    """A block's (or a top-level) weights for its compute: under a mesh,
+    each DTensor gathered whole over the batch's mesh dims (fsdp shards
+    "embed" over "data"), its "model" shard kept, as FSDP gathers a layer
+    before it runs and reduce-scatters its grads after (the gather's
+    backward).  Left to itself DTensor would shard the activations' embed
+    dim like the weights' and replicate the batch through the layers.
+    Anything else (every other strategy's weights, plain tensors) as it
+    is."""
+    return tree_map(lambda t: gather_batch_dims(t) if isinstance(t, DTensor) else t, tree)
+
+
+def _embed_tokens(tokens, embed):
+    """The embedding rows of ``tokens`` for training (``F.embedding``: its
+    backward sums the rows' grads deterministically on the card, where
+    indexing's ``index_put`` uses atomics unless deterministic algorithms
+    are on).  On DTensors a vocab-parallel lookup, per rank in a
+    ``local_map``: where "model" splits the vocab, each rank looks up the
+    tokens its rows hold, zeroes the others, and the output is the sum
+    over the ranks (``Partial``); the grad of each rank's rows stays with
+    it.  DTensor's own strategies fail here: indexing's backward
+    (``index_put``) in torch 2.11, the embedding's masked partial in 2.13."""
+    if not isinstance(embed, DTensor):
+        return F.embedding(tokens, embed)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = embed.device_mesh
+    names = mesh.mesh_dim_names
+    batch = [Shard(0) if p == Shard(0) and n != "model" else Replicate()
+             for n, p in zip(names, tokens.placements)]
+    pw = [p if n == "model" else Replicate() for n, p in zip(names, embed.placements)]
+    split = Shard(0) in pw
+    rows = embed.shape[0] // (mesh.size(names.index("model")) if split else 1)
+    lo = mesh.get_local_rank("model") * rows if split else 0
+    out = [Partial() if q == Shard(0) else p for p, q in zip(batch, pw)]
+    gw = [Partial() if p == Shard(0) else q for p, q in zip(batch, pw)]
+
+    def local(t, w):
+        if not split:
+            return F.embedding(t, w)
+        ids = t - lo
+        valid = (ids >= 0) & (ids < rows)
+        return F.embedding(torch.where(valid, ids, 0), w).masked_fill(~valid[..., None], 0)
+
+    return local_map(local, out_placements=out, in_placements=(batch, pw),
+                     in_grad_placements=(batch, gw), device_mesh=mesh,
+                     redistribute_inputs=True)(tokens, embed)
 
 
 def _stack(trees):
@@ -235,6 +290,11 @@ class LM:
         (None = CUDA)."""
         return init_params(self.schema(), key, dtype, device)
 
+    def logical_axes(self):
+        """The logical-axis tuple of every parameter leaf, in the
+        parameter tree's layout."""
+        return logical_axes(self.schema())
+
     # -- prefill blocks -------------------------------------------------------
     def _self_attn(self, x, norm, ap, flags: RunFlags, collect_kv: bool):
         """x + attention(rms_norm(x)); with ``collect_kv`` also the RoPE'd
@@ -356,7 +416,7 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for i in range(self.n_blocks):
-            bp = _layer(blocks, i)
+            bp = _gathered(_layer(blocks, i))
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(
                     self._block_out, x, bp, flags, cross_src, use_reentrant=False, **kw)
@@ -379,7 +439,7 @@ class LM:
         remat = flags.remat != "none" and torch.is_grad_enabled()
         x = audio_embeds
         for i in range(self.cfg.enc_layers):
-            bp = _layer(params["enc_blocks"], i)
+            bp = _gathered(_layer(params["enc_blocks"], i))
             if remat:
                 x = torch.utils.checkpoint.checkpoint(self._enc_block, x, bp, flags,
                                                       use_reentrant=False)
@@ -411,14 +471,15 @@ class LM:
         "aux": aux})``; ``aux`` is the MoE layers' router losses summed over
         blocks (0 for families without MoE)."""
         cfg = self.cfg
-        x = params["embed"][batch["tokens"].long()]
-        cross_src = self._cross_source(params, batch, flags)
+        top = {k: _gathered(v) for k, v in params.items() if "blocks" not in k}
+        x = _embed_tokens(batch["tokens"].long(), top["embed"])
+        cross_src = self._cross_source(dict(params, **top), batch, flags)
         x, aux, _ = self._run_blocks(x, params["blocks"], flags=flags, cross_src=cross_src)
-        x = rms_norm(x, params["final_norm"])
+        x = rms_norm(x, top["final_norm"])
         if flags.loss_impl == "chunked":
-            loss = self._chunked_ce(x, params["embed"], batch["labels"], flags)
+            loss = self._chunked_ce(x, top["embed"], batch["labels"], flags)
         else:
-            logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+            logits = torch.einsum("bsd,vd->bsv", x, top["embed"])
             loss = cross_entropy_loss(logits, batch["labels"], cfg.vocab_size)
         return loss + aux, {"ce": loss, "aux": aux}
 
@@ -440,7 +501,7 @@ class LM:
         return nll / torch.clamp(n, min=1)
 
     def _chunk_nll(self, xc, embed, lc):
-        logits = torch.einsum("bsd,vd->bsv", xc, embed).to(torch.float32)
+        logits = gather_dim(torch.einsum("bsd,vd->bsv", xc, embed).to(torch.float32), -1)
         valid = (lc >= 0) & (lc < self.cfg.vocab_size)
         safe = torch.where(valid, lc, torch.zeros_like(lc)).long()
         lse = torch.logsumexp(logits, dim=-1)

@@ -13,6 +13,10 @@ The recurrence (per head h, state size N, head dim P):
     h_i = exp(dt_i * A) * h_{i-1} + dt_i * B_i x_i^T
     y_i = C_i . h_i + D * x_i
 
+Under a mesh (DTensor activations) the depthwise conv and the chunked
+scan run per rank on its channels and heads (``local_map``), the gated
+norm through DTensor over the whole ``ssm_inner``.
+
 Rounding follows the reference op by op: ``softplus`` is
 ``logaddexp(x, 0)`` (``F.softplus`` switches to the identity above 20),
 ``silu`` is ``x * sigmoid(x)`` with both products in the input dtype.
@@ -23,12 +27,14 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd import ssd_decode_step
 from repro_torch.kernels.ssd.ref import ssd_step  # noqa: F401  (the model's recurrence)
 from repro_torch.models.common import ParamSpec, rms_norm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import act_placements
 
 NEG_INF = -2.0**30
 
@@ -169,18 +175,69 @@ def _in_proj(x: torch.Tensor, params: Dict[str, torch.Tensor]):
     return z, xs, bp, cp, dt
 
 
+def _conv(x, w, b):
+    """:func:`causal_conv`; on DTensors each rank convolves its own
+    channels (a ``local_map``: the conv is depthwise), the batch as ``x``
+    has it."""
+    if not isinstance(x, DTensor):
+        return causal_conv(x, w, b)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    px = act_placements(x, x.shape, 2)
+    pw = [Shard(0) if p == Shard(2) else Replicate() for p in px]
+    gw = _param_grads(px, pw)
+    return local_map(causal_conv, out_placements=px, in_placements=(px, pw, pw),
+                     in_grad_placements=(px, gw, gw), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, w, b)
+
+
+def _param_grads(px, pw):
+    """The gradient placements of a parameter that enters a ``local_map``
+    with placements ``pw`` beside activations placed ``px``: over a mesh dim
+    that splits the batch (``Shard(0)``) each rank's gradient covers its
+    sequences only, a sum (``Partial``)."""
+    from torch.distributed.tensor import Partial, Shard
+
+    return [Partial() if p == Shard(0) else q for p, q in zip(px, pw)]
+
+
+def _scan(x, dt, a, b_in, c_in, chunk: int):
+    """:func:`ssd_scan` from a zero state; on DTensors each rank scans its
+    own heads (a ``local_map``: the recurrence is independent per head),
+    B and C whole, the batch as ``x`` has it."""
+    if not isinstance(x, DTensor):
+        return ssd_scan(x, dt, a, b_in, c_in, chunk)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    px = act_placements(x, x.shape, 2)  # (B, S, H, P); dt (B, S, H) alike
+    pa = [Shard(0) if p == Shard(2) else Replicate() for p in px]
+    pbc = [Replicate() if p == Shard(2) else p for p in px]
+    # each rank's heads give a part of B's and C's gradient: a sum
+    gbc = [Partial() if p == Shard(2) else p for p in px]
+    pstate = [Shard(1) if p == Shard(2) else p for p in px]  # (B, H, P, N)
+    return local_map(lambda *t: ssd_scan(*t, chunk), out_placements=(px, pstate),
+                     in_placements=(px, px, pa, pbc, pbc),
+                     in_grad_placements=(px, px, _param_grads(px, pa), gbc, gbc),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, dt, a, b_in, c_in)
+
+
 def _ssd_mix(x: torch.Tensor, xs_pre, bp_pre, cp_pre, z, dt, params, cfg: ModelConfig):
     """Conv + SSD scan + gated norm + out projection of a prompt.
-    Returns (out (B, S, D), final SSD state)."""
+    Returns (out (B, S, D), final SSD state).  Under a mesh the conv and
+    the scan run per rank on its channels and heads; the gated norm
+    reduces over the whole (sharded) ``ssm_inner`` through DTensor."""
     bsz, s, _ = x.shape
     h, p = cfg.ssm_n_heads, cfg.ssm_head_dim
-    xs = silu(causal_conv(xs_pre, params["conv_x"], params["conv_bias_x"]))
-    bp = silu(causal_conv(bp_pre, params["conv_B"], params["conv_bias_B"]))
-    cp = silu(causal_conv(cp_pre, params["conv_C"], params["conv_bias_C"]))
+    xs = silu(_conv(xs_pre, params["conv_x"], params["conv_bias_x"]))
+    bp = silu(_conv(bp_pre, params["conv_B"], params["conv_bias_B"]))
+    cp = silu(_conv(cp_pre, params["conv_C"], params["conv_bias_C"]))
 
     a = -torch.exp(params["A_log"].to(torch.float32))
     xh = xs.reshape(bsz, s, h, p)
-    y, h_final = ssd_scan(xh, dt.to(xs.dtype), a, bp, cp, chunk=pick_chunk(s, cfg.ssm_chunk))
+    y, h_final = _scan(xh, dt.to(xs.dtype), a, bp, cp, pick_chunk(s, cfg.ssm_chunk))
     y = y + xh * params["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, h * p)
     y = rms_norm(y * silu(z), params["norm"])

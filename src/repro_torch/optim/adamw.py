@@ -7,7 +7,9 @@ correction, the update in float32, cast back to each leaf's dtype.
 ``torch.optim.AdamW`` places ``eps`` and the decay otherwise and is not
 used.  :func:`adamw_update` writes the new parameters and moments into the
 tensors it is given (the reference's jitted step donates them), so a
-parameter stays the same leaf tensor from step to step.
+parameter stays the same leaf tensor from step to step.  Under a mesh the
+leaves are DTensors and keep their placements through every in-place
+write; the moments may be sharded further than the parameters (zero1).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.profiler
 
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.sharding.rules import full, is_dtensor, like, mesh_context
 
 
 #: the profiler range around one update
@@ -37,14 +40,26 @@ class AdamWConfig:
     moment_dtype: torch.dtype = torch.float32
 
 
-def adamw_init(params, cfg: AdamWConfig):
+def adamw_init(params, cfg: AdamWConfig, shardings=None):
     """Zero moments in ``cfg.moment_dtype`` beside each leaf, and the int32
-    step."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)  # noqa: E731
+    step (a plain tensor, alike on every rank).  Under a mesh the moments
+    are DTensors: placed by ``shardings`` (the ``NamedSharding`` tree of
+    ``sharding.moment_shardings``; under zero1 sharded over "data" where
+    the parameters are replicated), else as their parameters."""
+
+    def zeros(p, sh=None):
+        if sh is None and not is_dtensor(p):
+            return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        from torch.distributed.tensor import zeros as dzeros
+
+        mesh, pl = (sh.mesh, sh.placements) if sh is not None else (p.device_mesh, p.placements)
+        return dzeros(p.shape, dtype=cfg.moment_dtype, device_mesh=mesh, placements=pl)
+
+    rest = () if shardings is None else (shardings,)
     device = next(tree_leaves(params))[1].device
     return {
-        "m": tree_map(zeros, params),
-        "v": tree_map(zeros, params),
+        "m": tree_map(zeros, params, *rest),
+        "v": tree_map(zeros, params, *rest),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
 
@@ -61,10 +76,13 @@ def abstract_opt_state(abstract_params, cfg: AdamWConfig):
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (flatten order) of each leaf's float32
-    sum of squares."""
+    sum of squares.  A sharded leaf's sum is Partial (each rank holds the
+    sum of its shard): it is reduced over the mesh, to the whole leaf's,
+    before it joins the total, so the norm is the global one and a plain
+    tensor."""
     total = 0
     for _, g in tree_leaves(tree):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+        total = total + full(torch.sum(torch.square(g.to(torch.float32))))
     return torch.sqrt(total)
 
 
@@ -73,7 +91,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
                  lr: Optional[Union[torch.Tensor, float]] = None):
     """One AdamW step.  Returns ``(params, state, {"grad_norm"})`` with the
     new values written into ``params`` and ``state``'s tensors."""
-    with torch.profiler.record_function(UPDATE_RANGE):  # for a profile's attribution
+    with torch.profiler.record_function(UPDATE_RANGE), mesh_context(params):
         return _update(params, grads, state, cfg, lr)
 
 
@@ -94,14 +112,17 @@ def _update(params, grads, state, cfg: AdamWConfig, lr):
     flat_g = dict(tree_leaves(grads))
     for key, p in tree_leaves(params):
         g, m, v = flat_g[key], flat_m[key], flat_v[key]
-        g32 = g.to(torch.float32) * scale
+        # each rank updates the shard of its moments (under zero1 a slice of
+        # the parameter and its grad); the new parameter is then gathered
+        # back to the parameter's placements, written in place
+        g32 = like(g, m).to(torch.float32) * scale
         m32 = m.to(torch.float32) * b1 + (1 - b1) * g32
         v32 = v.to(torch.float32) * b2 + (1 - b2) * torch.square(g32)
         mh = m32 / bc1
         vh = v32 / bc2
-        p32 = p.to(torch.float32)
+        p32 = like(p.detach(), m).to(torch.float32)
         delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p32
-        p.copy_((p32 - lr_t * delta).to(p.dtype))
+        p.copy_(like((p32 - lr_t * delta).to(p.dtype), p))
         m.copy_(m32.to(m.dtype))
         v.copy_(v32.to(v.dtype))
     state["step"].copy_(step)

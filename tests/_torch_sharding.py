@@ -1,0 +1,351 @@
+"""Multi-process helpers of the ``test_torch_sharding*`` files: spawn a
+group of ``gloo`` ranks on the CPU (rendezvous through a ``file://`` store
+under the test's temporary directory, never a fixed port: the suite runs
+under several xdist workers), and the per-rank work the tests hold to the
+reference.  The workers import torch and the port only (no JAX); each
+writes what rank 0 saw into an ``.npz`` per case, which the test process
+compares with the reference it computes meanwhile."""
+
+import json
+import os
+from pathlib import Path
+
+import numpy as np
+import torch
+
+#: batch and sequence of the sharded steps (the batch splits over 2 data ranks)
+B, S = 2, 32
+STEPS = 4
+#: at the reference's init four chained float32 AdamW steps of the reduced
+#: models with attention are chaotic (ROADMAP R8, R19, R24): their wq and
+#: wk are scaled by 1/4 and the vlm's cross gate set to 0.5, as the vlm and
+#: audio parity tests do, so the bars see the sharding, not the chaos
+TAME, GATE = 0.25, 0.5
+
+
+def start(fn, world: int, tmp: Path, *args):
+    """``fn(rank, world, init_file, out_dir, *args)`` in ``world`` spawned
+    processes, not waited for: returns the context to :func:`join`."""
+    import torch.multiprocessing as mp
+
+    out = Path(tmp)
+    out.mkdir(parents=True, exist_ok=True)
+    init = out / f"init_{fn.__name__}_{world}"
+    return mp.start_processes(fn, args=(world, str(init), str(out)) + args, nprocs=world,
+                              join=False, start_method="spawn")
+
+
+def join(ctx, timeout: float = 600.0) -> None:
+    import time
+
+    t0 = time.monotonic()
+    while not ctx.join(timeout=5):
+        if time.monotonic() - t0 > timeout:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError("the spawned ranks did not finish")
+
+
+def init_group(rank: int, world: int, init_file: str) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+
+
+def tame_params(params, family: str):
+    """:data:`TAME` and :data:`GATE` applied to every family with attention
+    (a power of two and a constant: the same values on both sides)."""
+    if family == "ssm":
+        return params
+
+    def tame(t):
+        if "wq" in t:
+            return dict(t, wq=t["wq"] * TAME, wk=t["wk"] * TAME)
+        return {k: tame(v) if isinstance(v, dict) else v for k, v in t.items()}
+
+    params = tame(params)
+    if family == "vlm":
+        blocks = params["blocks"]
+        params = dict(params, blocks=dict(blocks, cross_gate=blocks["cross_gate"] * 0 + GATE))
+    return params
+
+
+class FlashCount:
+    """Counts the flash attention calls of the training path (the kernel's
+    dispatch, ``ops.flash_attention``, which the autograd Function calls);
+    installed once per process."""
+
+    n = 0
+
+    @classmethod
+    def install(cls):
+        from repro_torch.kernels.flash_attention import ops
+
+        if not getattr(ops.flash_attention, "counted", False):
+            fn = ops.flash_attention
+
+            def counted(*a, **k):
+                cls.n += 1
+                return fn(*a, **k)
+
+            counted.counted = True
+            ops.flash_attention = counted
+        return cls
+
+
+def placement_strs(tree) -> dict:
+    from repro_torch.models.common import tree_leaves
+
+    return {k: [repr(p) for p in t.placements] for k, t in tree_leaves(tree)}
+
+
+def run_steps(mesh, arch: str, strategy: str, steps: int = STEPS, remat: str = "none",
+              loss_impl: str = "dense"):
+    """``steps`` sharded float32 train steps of the reduced ``arch`` from
+    ``PRNGKey(0)`` on ``mesh``: (metrics per step, full parameters as
+    numpy, placements of the parameters and moments after each step,
+    flash calls per step)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.lm import LM, RunFlags
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.sharding.rules import (
+        ShardingStrategy, distribute, embeds_sharding, moment_shardings, param_shardings,
+        token_sharding,
+    )
+
+    cfg = get_config(arch, reduced=True)
+    lm = LM(cfg)
+    params = tame_params(lm.init(prng.PRNGKey(0), torch.float32, "cpu"), cfg.family)
+    st = ShardingStrategy.from_name(strategy)
+    p_sh = param_shardings(lm.logical_axes(), params, mesh, st)
+    m_sh = moment_shardings(p_sh, params, mesh, st)
+    params = tree_map(distribute, params, p_sh)
+    ocfg = AdamWConfig()
+    opt = adamw_init(params, ocfg, m_sh)
+    step = make_train_step(lm, ocfg, RunFlags(remat=remat, q_chunk=S, loss_impl=loss_impl,
+                                              loss_chunk=8))
+    ds = SyntheticLMDataset(cfg, B, S)
+    counter = FlashCount.install()
+    metrics, placed, flash = [], [], []
+    for i in range(steps):
+        batch = {k: distribute(torch.from_numpy(v), (token_sharding if v.ndim == 2
+                                                     else embeds_sharding)(mesh, B))
+                 for k, v in ds.batch_at(i).items()}
+        counter.n = 0
+        params, opt, m = step(params, opt, batch)
+        flash.append(counter.n)
+        metrics.append({k: float(v) for k, v in m.items()})
+        placed.append({"params": placement_strs(params), "m": placement_strs(opt["m"]),
+                       "v": placement_strs(opt["v"])})
+    full = {k: t.full_tensor().detach().numpy() for k, t in tree_leaves(params)}
+    return metrics, full, placed, flash
+
+
+def save_case(out_dir: str, name: str, metrics, full, placed, flash) -> None:
+    np.savez(os.path.join(out_dir, f"{name}.npz"), **{f"p/{k}": v for k, v in full.items()},
+             __json__=np.frombuffer(json.dumps({"metrics": metrics, "placed": placed,
+                                                "flash": flash}).encode(), np.uint8))
+
+
+def load_case(out_dir, name: str):
+    with np.load(os.path.join(out_dir, f"{name}.npz")) as z:
+        meta = json.loads(bytes(z["__json__"]).decode())
+        full = {k[2:]: z[k] for k in z.files if k.startswith("p/")}
+    return meta, full
+
+
+def steps_worker(rank, world, init_file, out_dir, cases, local_checks=False):
+    """Each case (name, mesh shape, arch, strategy, keywords of
+    :func:`run_steps`) on its mesh over the same group; rank 0 saves.  With
+    ``local_checks`` first :func:`check_local_shards` on every rank."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    init_group(rank, world, init_file)
+    meshes = {}
+    try:
+        if local_checks:
+            check_local_shards(rank, out_dir)
+        for name, shape, arch, strategy, kw in cases:
+            if shape not in meshes:
+                meshes[shape] = make_host_mesh(*shape, device="cpu")
+            res = run_steps(meshes[shape], arch, strategy, **kw)
+            if rank == 0:
+                save_case(out_dir, name, *res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _expected_slice(full: np.ndarray, spec, sizes: dict, coord: dict) -> np.ndarray:
+    """The numpy slice of ``full`` that ``spec`` gives the rank at
+    ``coord``: along each dim, the mesh axes its entry names split it
+    major to minor in the order named."""
+    idx = []
+    for d, entry in enumerate(tuple(spec) + (None,) * (full.ndim - len(spec))):
+        axes = () if entry is None else ((entry,) if isinstance(entry, str) else entry)
+        n, k = 1, 0
+        for a in axes:
+            n, k = n * sizes[a], k * sizes[a] + coord[a]
+        step = full.shape[d] // n
+        idx.append(slice(k * step, (k + 1) * step))
+    return full[tuple(idx)]
+
+
+def check_local_shards(rank: int, out_dir: str) -> None:
+    """On a (2, 2) ("data", "model") and a (2, 1, 2) ("pod", "data",
+    "model") mesh of the 4 ranks: every leaf of the reduced llama and
+    olmoe, distributed under tp and fsdp, holds on this rank the numpy
+    slice its spec names.  Writes ``local_<rank>.json`` (leaves checked,
+    mismatches)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding.rules import ShardingStrategy, distribute, param_shardings
+
+    meshes = {"2x2": init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model")),
+              "2x1x2": init_device_mesh("cpu", (2, 1, 2),
+                                        mesh_dim_names=("pod", "data", "model"))}
+    checked, bad, tuples = 0, [], 0
+    for arch in ("llama3.2-1b", "olmoe-1b-7b"):
+        lm = LM(get_config(arch, reduced=True))
+        params = lm.init(prng.PRNGKey(0), torch.float32, "cpu")
+        for mname, mesh in meshes.items():
+            sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+            coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+            for strategy in ("tp", "fsdp"):
+                shs = dict(tree_leaves(param_shardings(lm.logical_axes(), params, mesh,
+                                                       ShardingStrategy(strategy))))
+                for k, t in tree_leaves(params):
+                    sh = shs[k]
+                    got = distribute(t, sh).to_local().numpy()
+                    want = _expected_slice(t.numpy(), sh.spec, sizes, coord)
+                    checked += 1
+                    tuples += any(isinstance(e, tuple) for e in sh.spec)
+                    if got.shape != want.shape or not np.array_equal(got, want):
+                        bad.append(f"{arch} {mname} {strategy} {k} {sh.spec}")
+    with open(os.path.join(out_dir, f"local_{rank}.json"), "w") as f:
+        json.dump({"checked": checked, "bad": bad, "tuple_specs": tuples}, f)
+
+
+#: ``train()`` cases of ``tests/test_torch_sharding_train.py``: reduced
+#: llama in the trainer's bf16, batch 2 x 32, lr 3e-3 (so the loss falls)
+TRAIN_KW = dict(batch=2, seq=32, lr=3e-3, log_every=0, device="cpu")
+TRAIN_STEPS = 8
+
+
+def train_worker(rank, world, init_file, out_dir):
+    """On 2 ranks: ``train()`` at mesh (2, 1) and (1, 2); a (1, 2) run
+    checkpointed at steps 2 and 4, resumed at (2, 1) to step 6, and its
+    step-4 checkpoint restored into the (2, 1) tree (every leaf gathered
+    whole); a 2-step (2, 1) run logged as the CLI logs.  Every rank writes
+    ``train_<rank>.json``; rank 0 also ``restored.npz``."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from repro_torch import prng
+    from repro_torch.checkpoint.store import restore
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.sharding.rules import ShardingStrategy, distribute, param_shardings
+
+    init_group(rank, world, init_file)
+    cfg = get_config("llama3.2-1b", reduced=True)
+    ckpt = os.path.join(out_dir, "ckpt")
+    res = {}
+    try:
+        for shape in ((2, 1), (1, 2)):
+            res[f"losses_{shape[0]}x{shape[1]}"] = train(cfg, steps=TRAIN_STEPS,
+                                                         mesh_shape=shape, **TRAIN_KW)
+        res["whole_1x2"] = train(cfg, steps=4, mesh_shape=(1, 2), ckpt_dir=ckpt, ckpt_every=2,
+                                 **TRAIN_KW)
+        res["resumed_2x1"] = train(cfg, steps=6, mesh_shape=(2, 1), ckpt_dir=ckpt, **TRAIN_KW)
+        mesh = make_host_mesh(2, 1, device="cpu")
+        lm = LM(cfg)
+        params = lm.init(prng.PRNGKey(1), device="cpu")  # another seed: restore overwrites
+        params = tree_map(distribute, params, param_shardings(
+            lm.logical_axes(), params, mesh, ShardingStrategy("dp")))
+        tree, step, _ = restore(ckpt, {"0": params, "1": adamw_init(params, AdamWConfig())},
+                                step=4)
+        res["restored_step"] = step
+        res["restored_placements"] = sorted({repr(tuple(t.placements))
+                                             for _, t in tree_leaves(tree) if hasattr(t, "placements")})
+        full = {k: (t.full_tensor() if hasattr(t, "full_tensor") else t).float().numpy()
+                for k, t in tree_leaves(tree)}
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "restored.npz"), **full)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res["cli_like"] = train(cfg, steps=2, mesh_shape=(2, 1), **dict(TRAIN_KW, log_every=1))
+        res["printed"] = buf.getvalue()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"train_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def one_rank_worker(rank, world, init_file, out_dir):
+    """chip_smoke.py's phase 51 on the CPU: the reduced llama trained plain
+    (no process group), then through a one-rank mesh with ``train()``
+    (``dp``) and under ``tp`` with ``make_train_step``; writes the three
+    runs' losses to ``one_rank.json``."""
+    import torch.distributed as dist
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset, make_train_iterator
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import LM, RunFlags
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.sharding.rules import (
+        ShardingStrategy, distribute, moment_shardings, param_shardings, token_sharding,
+    )
+
+    torch.set_num_threads(1)
+    cfg = get_config("llama3.2-1b", reduced=True)
+    kw = dict(TRAIN_KW, steps=4)
+    res = {"plain": train(cfg, **kw)}
+    init_group(rank, world, init_file)
+    try:
+        res["dp"] = train(cfg, mesh_shape=(1, 1), **kw)
+        mesh = make_host_mesh(1, 1, device="cpu")
+        lm, st, ocfg = LM(cfg), ShardingStrategy("tp"), AdamWConfig(lr=kw["lr"])
+        params = lm.init(prng.PRNGKey(0), device="cpu")
+        p_sh = param_shardings(lm.logical_axes(), params, mesh, st)
+        params = tree_map(distribute, params, p_sh)
+        opt = adamw_init(params, ocfg, moment_shardings(p_sh, params, mesh, st))
+        step = make_train_step(lm, ocfg, RunFlags(remat="none", q_chunk=kw["seq"]))
+        tok = token_sharding(mesh, kw["batch"])
+        it = make_train_iterator(SyntheticLMDataset(cfg, kw["batch"], kw["seq"]), device="cpu",
+                                 shardings={"tokens": tok, "labels": tok})
+        res["tp"] = []
+        try:
+            for _ in range(kw["steps"]):
+                params, opt, m = step(params, opt, next(it))
+                res["tp"].append(float(m["loss"]))
+        finally:
+            it.close()
+        res["tp_placements"] = sorted({repr(tuple(t.placements))
+                                       for t in params["blocks"]["attn"].values()})
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, "one_rank.json"), "w") as f:
+        json.dump(res, f)
