@@ -38,8 +38,8 @@ Phases (any failed check raises, so the exit code is non-zero):
    process during phase 10): finished mask, every finish tick and chunk
    count identical to the main path's run;
 6. small inputs on the card against the same runs on the CPU (identical
-   finish ticks); the CPU path is the one the tests hold to the JAX
-   reference;
+   finish ticks; run in phase 11, beside its workers); the CPU path is the
+   one the tests hold to the JAX reference;
 7. the host cost: one chunk of the ada batch alone on the card, through
    the graph and eagerly (and through the graph with the plain step core):
    wall and CUDA-event time per tick, device time per tick from the
@@ -169,10 +169,11 @@ Phases (any failed check raises, so the exit code is non-zero):
     ``placement="random"`` (8 seeds, ada, through the CUDA graph; every job
     finishes, one step-kernel launch per executed tick, counted from 0
     just before), a small paper batch under ada and srsf2 on the card and
-    the CPU (identical finish ticks), and ``monte_carlo_jct(n_seeds=8,
-    n_jobs=32)`` on the card and on the CPU (the CPU side in a worker
-    process during phases 10-11): identical sampled traces and
-    ``per_seed``;
+    the CPU (identical finish ticks; run in phase 11, beside its workers), and
+    ``monte_carlo_jct(n_seeds=8, n_jobs=32)`` on the card and on the CPU
+    (the CPU side in a worker process from phase 8 to the end of phase
+    11, the card side beside phases 31-32's workers): identical sampled
+    traces and ``per_seed``;
 30. sampled serving (``greedy=False``, temperature 0.8) at full width for
     both families (every token in the vocab), and on the reduced float32
     configs on the card (plain path) and the CPU: identical tokens, or the
@@ -295,9 +296,9 @@ Phases (any failed check raises, so the exit code is non-zero):
     the later losses within phase 26's bar (0.15 of the loss, relative),
     ``torch.cuda.max_memory_allocated`` ordered block < dots < none, and
     exactly 16 layers x 8 steps x 2 flash launches per run (the forward,
-    and the recompute's forward in the backward pass: the kernel is bound
-    through ctypes, so the checkpoint runs it again); step ms and peak
-    memory of the three;
+    and the recompute's forward in the backward pass: the kernel's custom
+    op is one the dots policy does not save, so the checkpoint runs it
+    again); step ms and peak memory of the three;
 49. the dynamic event engine on the host, seed 0, comm ada, at registered
     size: ``preemption_gain`` under ``sched`` static and
     preemptive_srsf, ``elastic_surge`` under static and elastic, the three
@@ -321,7 +322,10 @@ Phases (any failed check raises, so the exit code is non-zero):
     ``paper`` and ``preemption_gain`` (preemptive_srsf) under
     ``gating="rescan"`` and ``workloads="rescan"`` (each also ``==`` its
     incremental run of phase 31 or 49: avg JCT, events, every finish
-    time), ``paper`` and ``chaos_recovery_storm`` under
+    time; ``paper`` under the gating rescan at half its registered
+    depth, iterations 500-3000, and ``==`` an incremental run of that
+    depth beside it, REST_CUTS), ``paper`` and
+    ``chaos_recovery_storm`` under
     ``observe=ObsConfig.full()`` (``==`` the unobserved run, mean JCT parts
     the reference's, the Chrome trace written to a temporary file, loaded
     back, the reference's event count; observed and unobserved wall times
@@ -346,15 +350,36 @@ Phases (any failed check raises, so the exit code is non-zero):
     run's (every collective over one rank is the identity), exactly 16 x
     8 flash launches in each; step ms (median of steps 3-8), peak memory,
     and one profiled step's device ms, NCCL kernels and idle share of the
-    three.
+    three;
+52. the dry-run beside the card: (a) in phase 51's worker, on the same
+    one-rank NCCL mesh, full-width llama3.2-1b served greedily through
+    ``make_prefill_step`` and ``make_serve_step`` (batch 8, prompt 512, 8
+    tokens, bf16): plain, then on DTensor parameters under ``tp`` with the
+    prefill's cache placed by ``place_cache`` and decoded with
+    ``decode_constrain``: tokens identical, 16 flash launches each (the
+    prefill's); (b) after the card phases, in this process (meta shards on
+    fake process groups, no card work): ``launch/dryrun.py``'s trace of
+    phase 25's training step, phase 20's prefill and one decode step on a
+    fake one-rank mesh, and of ``llama32_1b|train_4k|single|tuned`` on the
+    fake (32, 8) H100 mesh: counted FLOPs, ``model_flops``, the useful
+    ratio, ``compute_s`` and ``memory_s`` beside phase 28's device time of
+    a step, ``peak_bytes`` beside phase 25's
+    ``torch.cuda.max_memory_allocated``; every trace completes with
+    positive counts and ``run_useful_ratio`` <= 1 (``model_flops`` less
+    the prefill's vocab projection of the prompt tokens it does not
+    project), the largest ops by FLOPs printed.
 
 Phases run in the order of their numbers, but for 31, 32, 49 and 50 (a, b),
-which run after 29, 48 and 51, which run after phase 25's main path, and
-50 (c), which runs last.  Worker processes run only during phases 10-11
-(with phase 50 (a)'s CPU side) and 31-32 (49 and 50 (b) with them, beside
-phase 50 (a)'s card side), and phase 51's (its imports beside phases 25-28,
-its run alone), so the phases that time host-bound work (7, 12-30, 33)
-have the host to themselves.  The
+which run after 29, 48 and 51 (with 52 (a)), which run after phase 25's
+main path, phase 6 and phase 29's small batch, which run in phase 11
+while its workers finish, phase 29's ``monte_carlo_jct`` on the card,
+which runs beside phases 31-32's workers (checks, not timed), and 50 (c)
+and 52 (b), which run last.  Worker processes run only during phases
+8-11 (started at phase 8, importing, phase 29's CPU side from phase 8,
+the rest from phase 10, with phase 50 (a)'s CPU side) and 31-32 (49 and
+50 (b) with them, beside phases 50 (a)'s and 29's card runs), and phase
+51's (its imports beside phases 25-28, its run alone), so the phases
+that time host-bound work (7, 12-30, 33) have the host to themselves.  The
 served models' prefill windows (phases 35-36, 40-41, 45-46), whose flash
 records are counted, run the prefill once as a
 discarded warm-up step before the one they report (in a whole run a
@@ -364,7 +389,8 @@ few flash records for a served model's prefill, is logged and taken
 again, up to 3 windows, before the check that needs it fails.
 
 Then the kernels line (JSON; the flash kernel's launches are the serving,
-training (phases 48's and 51's too) and multi_job main paths' of every family, the
+training (phases 48's and 51's too, and 52 (a)'s sharded prefill) and
+multi_job main paths' of every family, the
 SSD step's those of mamba and jamba, the fluid step's include phase 29's
 and phase 50 (a)'s;
 phases 34's, 39's and 44's shapes under "shapes") and, last, ``{"ok":
@@ -424,11 +450,12 @@ PROFILE_WINDOWS = 3
 
 
 def _profile(torch, run, what: str, required: bool = True, prepare=None, complete=None,
-             warmup: bool = False):
-    """``run()`` under ``torch.profiler`` (host and CUDA activity), then a
-    synchronize, inside the window (``prepare()`` and a synchronize before
-    each run, outside the window).  Returns the profile and its averages
-    on the device.  In a whole chip_smoke.py run a window loses its first
+             warmup: bool = False, host: bool = True):
+    """``run()`` under ``torch.profiler`` (host and CUDA activity; CUDA only
+    without ``host``, for a caller that reads the device records alone),
+    then a synchronize, inside the window (``prepare()`` and a synchronize
+    before each run, outside the window).  Returns the profile and its
+    averages on the device.  In a whole chip_smoke.py run a window loses its first
     kernel records while CUPTI starts (42-44 of gemma's prefill's 2,925,
     and of a VLM prefill's its first flash launch; a fresh process loses
     none): with ``warmup`` each window first runs ``run()`` once as a
@@ -444,7 +471,8 @@ def _profile(torch, run, what: str, required: bool = True, prepare=None, complet
     runs = 2 if warmup else 1
     kw = {"schedule": schedule(wait=0, warmup=1, active=1, repeat=1)} if warmup else {}
     for window in range(1, PROFILE_WINDOWS + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
+        activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+        with profile(activities=activities, **kw) as prof:
             for i in range(runs):
                 if prepare is not None:
                     prepare()
@@ -1339,13 +1367,17 @@ def _tick_cost(torch, tag, batch, cfg, blocks=(), plain=True) -> dict:
 
     def _device_ms(r, mode):
         """Device time per tick by the profiler (kernels and copies), and
-        their number per tick."""
+        their number per tick: device records only (gathering an eager
+        chunk's host records, ~250 ops a tick, took ~30 s of phase 7), the
+        chunk run once as a discarded warm-up first (without host records
+        a window lost ~3 ticks' kernel records while CUPTI started)."""
         def reset():
             for n, v in r.state.items():
                 v.copy_(state0[n])
 
         _, on_device = _profile(torch, r.run_chunk, f"a chunk of the {tag} ({mode})",
-                                required=mode == "eager", prepare=reset)
+                                required=mode == "eager", prepare=reset, warmup=True,
+                                host=False)
         return (sum(e.self_device_time_total for e in on_device) / 1e3 / ticks,
                 sum(e.count for e in on_device) / ticks)
 
@@ -1597,20 +1629,34 @@ def _first_divergence(torch, name, seeds, over, comm, fast_kw, dev, max_ticks=40
     _log(f"card vs CPU, {name} {comm} {fast_kw}: no tick differs from the same state")
 
 
-def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> tuple:
+#: phases 8-11's worker processes
+WFBP_WORKERS = 7
+
+
+def _pool_imports() -> None:
+    """Phases 8-11's workers, started at phase 8: the imports their runs
+    need (no CUDA call: the card is the main process's meanwhile)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch  # noqa: F401
+
+    from repro_torch.core import fluidsim  # noqa: F401
+    from repro_torch.scenarios import sweep  # noqa: F401
+
+
+def _wfbp_checks_phase(torch, dev, main, chunk_steps, pool, mc_cpu) -> tuple:
     """Phases 10 and 11, and phase 5's eager run.  The host-bound runs
     (the eager runs of the paper ada, model_zoo ada and paper kway2
-    batches, the CPU side of phase 11, phase 29's CPU side of
-    ``monte_carlo_jct`` and phase 50's CPU side of the sweep's fluid cells)
-    go to worker processes, started together, while this process replays
-    the plain step core's graphs and phase 11's card side, so the card is
-    shared meanwhile (their walls are printed, not kept; phase 7 times an
-    eager tick alone).  Returns phase 29's and phase 50's CPU sides, so
-    that no worker runs beside the phases that time host-bound work after
-    phase 12."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
+    batches, the CPU side of phase 11 and phase 50's CPU side of the
+    sweep's fluid cells) go to ``pool``'s worker processes, started
+    together, while this process replays the plain step core's graphs and
+    phase 11's card side, so the card is shared meanwhile (their walls are
+    printed, not kept; phase 7 times an eager tick alone), and then phase 6
+    and phase 29's small batch (checks, card against CPU) while the
+    workers finish.  ``mc_cpu``, phase 29's CPU side of
+    ``monte_carlo_jct``, runs in the same pool since phase 8.  Returns phase 29's and phase 50's CPU sides, so that
+    no worker runs beside the phases that time host-bound work after phase
+    12."""
     reruns = (("model_zoo ada", "model_zoo", SEEDS, ZOO_CUT, "ada"),
               ("paper kway2", "paper", KWAY_SEEDS, PAPER_CUT, "kway2"))
     cpu_jobs = [(name, seeds, over, comm, fast_kw, "cpu", None)
@@ -1619,50 +1665,54 @@ def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> tuple:
                   ("paper ada", "paper", SEEDS, PAPER_CUT, "ada"),
                   ("model_zoo ada", "model_zoo", SEEDS, ZOO_CUT, "ada"))
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(max_workers=7,
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
-        eager = [pool.submit(_batch_worker, (name, seeds, over, comm, {}, "cuda", False))
-                 for _, name, seeds, over, comm in eager_runs]
-        mc_cpu = pool.submit(_mc_worker, "cpu")
-        rest_cpu = pool.submit(_rest_fluid_sweep, "cpu")
-        on_cpu = [pool.submit(_batch_worker, job) for job in cpu_jobs]
-        # ---- 10. the plain step core in the graph ---------------------------
-        for tag, name, seeds, over, comm in reruns:
-            res = _batch_worker((name, seeds, over, comm, {"kernel": "ref"}, "cuda", None))
-            _require(res["launches"] == 0, f"{tag}: the plain run launched the kernel")
-            _check_same(f"{tag}, plain step core in the graph", res, main[tag])
-            _log(f"{tag}, plain step core in the graph: identical finished mask, finish ticks "
-                 f"and chunk count ({res['chunks']}); wall {res['wall']:.3f} s (card shared)")
-        # the graph side of the shallower eager kway2 run
-        eager_ref = {tag: main[tag] for tag, *_ in eager_runs}
-        eager_ref["paper kway2"] = _batch_worker(
-            ("paper", KWAY_SEEDS, KWAY_EAGER_CUT, "kway2", {}, "cuda", None))
-        # ---- 11. card side ---------------------------------------------------
-        on_card = [_batch_worker((name, seeds, over, comm, fast_kw, "cuda", None))
-                   for name, seeds, over, comm, fast_kw, _, _ in cpu_jobs]
-        for job, card, fut in zip(cpu_jobs, on_card, on_cpu):
-            name, seeds, over, comm, fast_kw = job[:5]
-            cpu = fut.result()
-            tag = f"{name} {comm} {fast_kw or ''} ({len(seeds)} seeds)"
-            if not ((card["finished"] == cpu["finished"]).all()
-                    and (card["jct"] == cpu["jct"]).all()):
-                _first_divergence(torch, name, seeds, over, comm, fast_kw, dev)
-            _check_same(f"{tag}: card vs CPU", card, cpu)
-            _log(f"{tag}: card == CPU on every finish tick ({int(card['finished'].sum())} "
-                 f"jobs, {card['chunks']} chunks)")
-        for (tag, _, _, over, _), fut in zip(eager_runs, eager):
-            res = fut.result()
-            ticks = res["chunks"] * chunk_steps
-            _require(res["launches"] == ticks, f"{tag} eager: one launch per executed tick")
-            _check_same(f"{tag}, kernel eagerly", res, eager_ref[tag])
-            _log(f"{tag} (iterations {over.get('min_iters')}-{over.get('max_iters')}), kernel "
-                 f"eagerly (worker process, card shared): finished mask, finish ticks and "
-                 f"chunk count identical to the graph's; wall {res['wall']:.3f} s, "
-                 f"{res['wall'] / ticks * 1e3:.4f} ms per tick, {res['launches']} launches")
-        mc = mc_cpu.result()
-        rest = rest_cpu.result()
-    _log(f"phases 10-11: {time.perf_counter() - t0:.3f} s wall (phase 29's CPU side "
-         f"{mc['wall']:.3f} s of it; phase 50's CPU side {sum(r['wall_s'] for r in rest):.3f} "
+    eager = [pool.submit(_batch_worker, (name, seeds, over, comm, {}, "cuda", False))
+             for _, name, seeds, over, comm in eager_runs]
+    # one worker per scenario: the 8 cells run one after another in each
+    rest_cpu = [pool.submit(_rest_fluid_sweep, "cpu", (name,))
+                for name in REST_FLUID["scenarios"]]
+    on_cpu = [pool.submit(_batch_worker, job) for job in cpu_jobs]
+    # ---- 10. the plain step core in the graph -------------------------------
+    for tag, name, seeds, over, comm in reruns:
+        res = _batch_worker((name, seeds, over, comm, {"kernel": "ref"}, "cuda", None))
+        _require(res["launches"] == 0, f"{tag}: the plain run launched the kernel")
+        _check_same(f"{tag}, plain step core in the graph", res, main[tag])
+        _log(f"{tag}, plain step core in the graph: identical finished mask, finish ticks "
+             f"and chunk count ({res['chunks']}); wall {res['wall']:.3f} s (card shared)")
+    # the graph side of the shallower eager kway2 run
+    eager_ref = {tag: main[tag] for tag, *_ in eager_runs}
+    eager_ref["paper kway2"] = _batch_worker(
+        ("paper", KWAY_SEEDS, KWAY_EAGER_CUT, "kway2", {}, "cuda", None))
+    # ---- 11. card side -------------------------------------------------------
+    on_card = [_batch_worker((name, seeds, over, comm, fast_kw, "cuda", None))
+               for name, seeds, over, comm, fast_kw, _, _ in cpu_jobs]
+    # ---- 6. and 29's small batch: card against CPU, while the workers run -
+    _mark("6, beside phases 10-11's workers")
+    _card_cpu_phase()
+    _mark("29 (small batch), beside phases 10-11's workers")
+    _random_small_phase()
+    for job, card, fut in zip(cpu_jobs, on_card, on_cpu):
+        name, seeds, over, comm, fast_kw = job[:5]
+        cpu = fut.result()
+        tag = f"{name} {comm} {fast_kw or ''} ({len(seeds)} seeds)"
+        if not ((card["finished"] == cpu["finished"]).all()
+                and (card["jct"] == cpu["jct"]).all()):
+            _first_divergence(torch, name, seeds, over, comm, fast_kw, dev)
+        _check_same(f"{tag}: card vs CPU", card, cpu)
+        _log(f"{tag}: card == CPU on every finish tick ({int(card['finished'].sum())} "
+             f"jobs, {card['chunks']} chunks)")
+    for (tag, _, _, over, _), fut in zip(eager_runs, eager):
+        res = fut.result()
+        ticks = res["chunks"] * chunk_steps
+        _require(res["launches"] == ticks, f"{tag} eager: one launch per executed tick")
+        _check_same(f"{tag}, kernel eagerly", res, eager_ref[tag])
+        _log(f"{tag} (iterations {over.get('min_iters')}-{over.get('max_iters')}), kernel "
+             f"eagerly (worker process, card shared): finished mask, finish ticks and "
+             f"chunk count identical to the graph's; wall {res['wall']:.3f} s, "
+             f"{res['wall'] / ticks * 1e3:.4f} ms per tick, {res['launches']} launches")
+    mc = mc_cpu.result()
+    rest = [r for fut in rest_cpu for r in fut.result()]
+    _log(f"phases 10-11: {time.perf_counter() - t0:.3f} s wall (phase 29's CPU side, begun "
+         f"at phase 8, {mc['wall']:.3f} s; phase 50's CPU side {sum(r['wall_s'] for r in rest):.3f} "
          f"s in {len(rest)} cells)")
     return mc, rest
 
@@ -1674,6 +1724,10 @@ def _wfbp_checks_phase(torch, dev, main, chunk_steps) -> tuple:
 #: the training main path: batch 8 x seq 512 (the serve shape: BH 256, S = T
 #: 512, D 64 in llama's attention), the reference's default lr, 8 steps
 TRAIN = dict(steps=8, batch=8, seq=512, lr=3e-4, seed=0)
+#: phase 52 (a): llama3.2-1b served through the one-rank mesh, greedy
+MESH_SERVE = dict(batch=8, prompt=512, gen=8)
+#: what phases 25 and 28 measured, for phase 52 (b) to print beside its traces
+MEASURED: dict = {}
 #: the paper batch of phase 4 under the random placement (phase 29)
 MC_JCT = dict(n_seeds=8, n_jobs=32)
 SAMPLE_T = 0.8
@@ -1904,6 +1958,66 @@ def _mesh_steps(torch, cfg, base, mesh, strategy, steps, counter) -> dict:
             "nccl_ms": sum(e.self_device_time_total for e in nccl) / 1e3, "profile_s": prof_s}
 
 
+def _mesh_serve(torch, cfg, base, mesh) -> dict:
+    """Phase 52 (a), in phase 51's worker: full-width ``cfg`` (``base``'s bf16
+    weights) served greedily through ``make_prefill_step`` and
+    ``make_serve_step``, MESH_SERVE's batch, prompt (drawn from seed 0) and
+    tokens: plain, then on ``mesh`` under ``tp`` (DTensor parameters, the
+    prompt placed by ``token_sharding``, the prefill's cache placed by
+    ``place_cache`` and decoded with ``decode_constrain``).  Returns each
+    run's tokens, flash launches (prefill and decode), wall and cache
+    placements."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.lm import LM, RunFlags
+    from repro_torch.sharding.rules import (
+        ShardingStrategy, distribute, full, param_shardings, place_cache, token_sharding,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lm = LM(cfg)
+    b, s, gen = MESH_SERVE["batch"], MESH_SERVE["prompt"], MESH_SERVE["gen"]
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s)),
+                             dtype=torch.int32)
+    out = {}
+    for tag in ("plain", "sharded"):
+        params = tree_map(lambda t: t.to(dev, non_blocking=True), base)
+        tokens = prompt.to(dev)
+        flags = RunFlags(remat="none", q_chunk=min(512, s))
+        if tag == "sharded":
+            params = tree_map(distribute, params, param_shardings(
+                lm.logical_axes(), params, mesh, ShardingStrategy("tp")))
+            tokens = distribute(tokens, token_sharding(mesh, b))
+            flags = RunFlags(remat="none", q_chunk=min(512, s), decode_constrain=True)
+        torch.cuda.synchronize()
+        flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        logits, cache = make_prefill_step(lm, s + gen, flags)(params, {"tokens": tokens})
+        prefill_flash = flash_attention_cuda.launches
+        placed = {}
+        if tag == "sharded":
+            cache = place_cache(cache, mesh, b, cfg, mode="auto")
+            placed = {k: [repr(p) for p in t.placements] for k, t in tree_leaves(cache)}
+        step = make_serve_step(lm, flags)
+        toks = [torch.argmax(full(logits), dim=-1)]
+        for _ in range(gen - 1):
+            tok = toks[-1][:, None].to(torch.int32)
+            if tag == "sharded":
+                tok = distribute(tok, token_sharding(mesh, b))
+            logits, cache = step(params, cache, tok)
+            toks.append(torch.argmax(full(logits), dim=-1))
+        generated = torch.stack(toks, dim=1).cpu().numpy()
+        torch.cuda.synchronize()
+        out[tag] = {"tokens": generated.tolist(), "prefill_flash": prefill_flash,
+                    "flash": flash_attention_cuda.launches,
+                    "wall": time.perf_counter() - t0, "placed": placed,
+                    "in_vocab": bool(((generated >= 0) & (generated < cfg.vocab_size)).all())}
+        del params, cache, logits
+        torch.cuda.empty_cache()
+    return out
+
+
 def _device_only_profile(torch, run, what: str) -> list:
     """``run()`` under ``torch.profiler`` with CUDA activity only (a DTensor
     step dispatches tens of thousands of host ops, whose records would
@@ -1996,6 +2110,8 @@ def _mesh_worker() -> dict:
         out["tp"] = _mesh_steps(torch, cfg, base, mesh, "tp", TRAIN["steps"],
                                 flash_attention_cuda)
         marks["tp"] = time.perf_counter() - t_start
+        out["serve"] = _mesh_serve(torch, cfg, base, mesh)
+        marks["serve"] = time.perf_counter() - t_start
     finally:
         dist.destroy_process_group()
     out["marks"] = marks
@@ -2052,7 +2168,109 @@ def _mesh_phase(pool, imports) -> int:
          f"{import_s:.1f} s, while phases 25-28 ran; seconds since its run began, at the end "
          f"of each stage: {res['marks']}; profiled steps "
          f"{[round(r['profile_s'], 3) for r in (plain, dp, tp)]} s)")
-    return train_dp["launches"] + tp["launches"]
+    # ---- 52 (a). sharded serving through the same one-rank mesh --------------
+    serve = res["serve"]
+    sp, ss = serve["plain"], serve["sharded"]
+    _log(f"-- phase 52 (a): llama3.2-1b served greedily (batch {MESH_SERVE['batch']}, prompt "
+         f"{MESH_SERVE['prompt']}, {MESH_SERVE['gen']} tokens, bf16, make_prefill_step / "
+         f"make_serve_step): plain {sp['wall']:.3f} s, on the one-rank mesh under tp with the "
+         f"cache placed by place_cache and decode_constrain {ss['wall']:.3f} s; flash launches "
+         f"plain {sp['flash']} (prefill {sp['prefill_flash']}), sharded {ss['flash']} (prefill "
+         f"{ss['prefill_flash']}); tokens identical: {sp['tokens'] == ss['tokens']}; first "
+         f"row {ss['tokens'][0]}; cache placements {ss['placed']}")
+    _require(sp["in_vocab"] and ss["in_vocab"], "phase 52 (a): every token in the vocab")
+    _require(ss["tokens"] == sp["tokens"],
+             "phase 52 (a): the sharded serve's tokens identical to the plain path's")
+    _require(ss["prefill_flash"] == ss["flash"] == 16 and sp["flash"] == 16,
+             "phase 52 (a): 16 flash launches a prefill (one per layer), none in decode")
+    return train_dp["launches"] + tp["launches"] + ss["flash"]
+
+
+def _dryrun_phase() -> None:
+    """Phase 52 (b), after the card phases, in this process (no card work:
+    meta shards on fake process groups): the dry-run of phase 25's training
+    step and phase 20's serve (prefill 8 x 512, one decode step of a
+    576-slot cache) through a fake one-rank mesh under ``dp`` (the plain
+    path's replicated layout), and of ``llama32_1b|train_4k|single|tuned``
+    on the fake (32, 8) H100 mesh, each printed beside what phases 25 and
+    28 measured: counted FLOPs, ``model_flops``, the useful ratio,
+    ``compute_s`` and ``memory_s`` against the step's measured device time,
+    ``peak_bytes`` against ``torch.cuda.max_memory_allocated``, and the
+    ops with the most FLOPs.  Requires every trace to complete with
+    positive counts and ``run_useful_ratio`` (``model_flops`` less what
+    the step does not run: a prefill's vocab projection of all but the
+    last token) <= 1; the ratios are findings."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.config import INPUT_SHAPES, InputShape
+
+    t0 = time.perf_counter()
+    plain = dryrun.Profile(strategy="dp", remat="none")
+    runs = {}
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        one = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        for tag, shape in (("train, phase 25", InputShape("chip_train", TRAIN["seq"],
+                                                           TRAIN["batch"], "train")),
+                           ("prefill, phase 20", InputShape("chip_prefill", 512, 8, "prefill")),
+                           ("decode, phase 20", InputShape("chip_decode", 576, 8, "decode"))):
+            t1 = time.perf_counter()
+            runs[tag] = dryrun.run_combo("llama32_1b", shape, one, plain, correct_scan=False)
+            runs[tag]["wall_s"] = time.perf_counter() - t1
+    finally:
+        dist.destroy_process_group()
+    mesh = make_production_mesh()
+    try:
+        t1 = time.perf_counter()
+        runs["llama32_1b|train_4k|single|tuned"] = dryrun.run_combo(
+            "llama32_1b", INPUT_SHAPES["train_4k"], mesh, dryrun.TUNED_PROFILES["llama32_1b"],
+            correct_scan=False)
+        runs["llama32_1b|train_4k|single|tuned"]["wall_s"] = time.perf_counter() - t1
+    finally:
+        dist.destroy_process_group()
+    import torch
+
+    from repro_torch.launch.mesh import HBM_BYTES
+
+    _log(f"dry-run: HBM_BYTES {HBM_BYTES} B (80 GiB, the roofline's); the card's "
+         f"torch.cuda.get_device_properties(0).total_memory "
+         f"{torch.cuda.get_device_properties(0).total_memory} B")
+    dev_s = MEASURED.get("train_device_ms", float("nan")) / 1e3
+    for tag, r in runs.items():
+        _require(r["status"] == "ok", f"phase 52 (b): the {tag} trace completes")
+        c, rf, mem = r["cost"], r["roofline"], r["memory"]
+        _log(f"dry-run {tag} ({rf['chips']} chips, {r['wall_s']:.2f} s to trace): counted "
+             f"{c['flops']:.6e} FLOPs a rank ({rf['hlo_flops_global']:.6e} in all), model_flops "
+             f"{rf['model_flops']:.6e}, useful ratio {rf['useful_flops_ratio']:.4f}; run_flops "
+             f"{rf['run_flops']:.6e}, run useful ratio {rf['run_useful_ratio']:.4f}; unfused "
+             f"bytes {c['bytes_accessed']:.6e}, transcendentals {c['transcendentals']:.6e}; "
+             f"compute_s {rf['compute_s']:.6f}, memory_s {rf['memory_s']:.6f}, collective_s "
+             f"{rf['collective_s']:.6f} (dominant {rf['dominant']}); peak_bytes "
+             f"{mem['peak_bytes']:.6e} ({rf['hbm_peak_frac']:.4f} of 80 GiB); collectives "
+             f"{r['collectives']['op_counts']}")
+        _require(c["flops"] > 0 and c["bytes_accessed"] > 0 and mem["peak_bytes"] > 0,
+                 f"phase 52 (b): positive counts for {tag}")
+        _log(f"  the largest ops a rank: " + "; ".join(
+            f"{op} {n:.4e}" for op, n in list(r["flops_by_op"].items())[:4]))
+        _require(rf["run_useful_ratio"] <= 1,
+                 f"phase 52 (b): the useful ratio of what the step runs <= 1 for {tag}")
+    tr = runs["train, phase 25"]
+    rf = tr["roofline"]
+    _log(f"dry-run against the card (train, phase 25's step): compute_s {rf['compute_s']:.6f} s "
+         f"and memory_s {rf['memory_s']:.6f} s against phase 28's device time "
+         f"{dev_s:.6f} s a step (compute roofline share {rf['compute_s'] / dev_s:.4f}, unfused "
+         f"bytes at 3.35 TB/s {rf['memory_s'] / dev_s:.4f}) and phase 25's median step "
+         f"{MEASURED.get('train_step_ms', float('nan')):.3f} ms; model_flops at 989 TFLOP/s "
+         f"{rf['model_flops'] / 989e12:.6f} s, {rf['model_flops'] / 989e12 / dev_s:.4f} of the "
+         f"device time (MFU of the device time); peak_bytes {tr['memory']['peak_bytes']:.6e} "
+         f"against phase 25's torch.cuda.max_memory_allocated "
+         f"{MEASURED.get('train_peak', float('nan')):.6e} (ratio "
+         f"{tr['memory']['peak_bytes'] / MEASURED.get('train_peak', float('nan')):.4f}); "
+         f"phase 52 (b) {time.perf_counter() - t0:.1f} s")
 
 
 def _cast(params, dtype):
@@ -2103,6 +2321,8 @@ def _train_phases(torch, dev) -> int:
     _require(param_count(LM(cfg).schema()) == 1_237_387_264, "llama3.2-1b parameters")
     main = _train_main(torch, cfg, flash_attention_cuda)
     launches = main["launches"]
+    MEASURED["train_peak"] = main["peak"]
+    MEASURED["train_step_ms"] = float(np.median(main["step_ms"][1:]))
     _log(f"train {cfg.name}: flash kernel launches {launches} (expected {cfg.n_layers} layers "
          f"x {TRAIN['steps']} steps = {cfg.n_layers * TRAIN['steps']}: one per layer in each "
          f"forward; the backward recomputes the plain version)")
@@ -2259,6 +2479,7 @@ def _train_phases(torch, dev) -> int:
     upd_ms = sum(e.device_time_total for e in ranges[UPDATE_RANGE]) / 1e3
     upd_kernels = sum(kernels_in(e) for e in ranges[UPDATE_RANGE])
     n_leaves = len(list(tree_leaves(params)))
+    MEASURED["train_device_ms"] = device_ms
     _require(device_ms > 0 and flash_ms > 0, "the profiler saw the training step's flash kernel")
     _require(len(ranges[BACKWARD_RANGE]) == cfg.n_layers and len(ranges[UPDATE_RANGE]) == 1,
              "the profiler saw the recompute and update ranges")
@@ -2296,19 +2517,41 @@ def _mc_worker(device) -> dict:
     return out
 
 
-def _random_phase(torch, dev, chunk_steps, cpu) -> tuple:
-    """Phase 29: the random placement on the card.  The paper batch of
-    phase 4 under ``placement="random"`` (the main path: launch count 0
-    just before, one launch per executed tick), a small batch on the card
-    and the CPU, and ``monte_carlo_jct`` on both (``cpu``: the CPU side's
-    result, run in a worker process during phases 10-11).  Returns
-    (launches, executed ticks)."""
-    from repro_torch.scenarios import get_scenario, run_scenario_fluid
+def _card_cpu_phase() -> None:
+    """Phase 6: small inputs on the card against the same runs on the CPU:
+    identical finish ticks."""
+    from repro_torch.scenarios import QUICK_OVERRIDES, get_scenario, run_scenario_fluid
 
+    for name, comm, placement in (("smoke", "ada", "lwf"),
+                                  ("contended_residue", "srsf2", "ls"),
+                                  ("oversub_fabric", "srsf1", "rack_pack")):
+        scn = get_scenario(name, seed=1, **QUICK_OVERRIDES[name])
+        on_card = run_scenario_fluid(scn, comm=comm, placement=placement)
+        on_cpu = run_scenario_fluid(scn, comm=comm, placement=placement, device="cpu")
+        _require((on_card["finished"] == on_cpu["finished"]).all(), name)
+        _require((on_card["jct"] == on_cpu["jct"]).all(), name)
+        _log(f"{name} {comm} {placement}: card == CPU on every finish tick "
+             f"({int(on_card['finished'].sum())} jobs)")
+
+
+def _random_phase(torch, dev, chunk_steps) -> tuple:
+    """Phase 29: the random placement on the card, the paper batch of phase
+    4 under ``placement="random"`` (the main path: launch count 0 just
+    before, one launch per executed tick; the small batch is
+    :func:`_random_small_phase`, ``monte_carlo_jct`` :func:`_mc_phase`).
+    Returns (launches, executed ticks)."""
     res = _paper_batch("ada", "", "simulate_traces_batched", placement="random")
     ticks = _summary("paper ada random placement (simulate_traces_batched, CUDA graph)", res,
                      chunk_steps)
     _require(res["launches"] == ticks > 0, "random placement: one launch per executed tick")
+    return res["launches"], ticks
+
+
+def _random_small_phase() -> None:
+    """Phase 29's small paper batch under the random placement, ada and
+    srsf2, on the card and the CPU: identical finish ticks."""
+    from repro_torch.scenarios import get_scenario, run_scenario_fluid
+
     small = get_scenario("paper", seed=1, n_jobs=24, min_iters=60, max_iters=300,
                          horizon_s=300.0)
     for comm in ("ada", "srsf2"):
@@ -2318,6 +2561,12 @@ def _random_phase(torch, dev, chunk_steps, cpu) -> tuple:
                  and (on_card["jct"] == on_cpu["jct"]).all(), f"random {comm}: card vs CPU")
         _log(f"paper (24 jobs, seed 1) {comm} random placement: card == CPU on every finish "
              f"tick ({int(on_card['finished'].sum())} jobs)")
+
+
+def _mc_phase(cpu) -> None:
+    """Phase 29's ``monte_carlo_jct``, on the card beside phases 31-32's
+    workers, against ``cpu``, its CPU side (run in a worker process in
+    phases 8-11): identical sampled traces and ``per_seed``."""
     card = _mc_worker("cuda")
     for k, v in card["traces"].items():
         _require((v == cpu["traces"][k]).all(), f"monte_carlo_jct traces: {k}")
@@ -2325,8 +2574,8 @@ def _random_phase(torch, dev, chunk_steps, cpu) -> tuple:
     _log(f"monte_carlo_jct(n_seeds={MC_JCT['n_seeds']}, n_jobs={MC_JCT['n_jobs']}): sampled "
          f"traces and per_seed identical on the card and the CPU; avg JCT "
          f"{card['avg_jct_mean']:.4f} +- {card['avg_jct_std']:.4f} s, finished "
-         f"{card['finished_frac']}; wall card {card['wall']:.3f} s, CPU {cpu['wall']:.3f} s")
-    return res["launches"], ticks
+         f"{card['finished_frac']}; wall card {card['wall']:.3f} s (beside the event "
+         f"workers), CPU {cpu['wall']:.3f} s (a worker process)")
 
 
 def _sampled_phase(torch, dev) -> None:
@@ -2438,9 +2687,9 @@ REST_FLUID_FIELDS = ("n_jobs", "n_finished", "avg_jct", "median_jct", "p95_jct",
 #: equals: a phase-31 or phase-49 cell), seed 0, comm ada, registered size;
 #: the longest first
 REST_HOST_CELLS = (
-    ("paper/gating=rescan", "paper", {"gating": "rescan"}, "paper/ada"),
     ("paper/comm_chunks=4", "paper", {"comm_chunks": 4}, None),
     ("paper/observed", "paper", {"observe": "full"}, "paper/ada"),
+    ("paper/gating=rescan", "paper", {"gating": "rescan"}, "paper/ada/half"),
     ("paper/workloads=rescan", "paper", {"workloads": "rescan"}, "paper/ada"),
     ("paper/link", "paper", {"contention_domain": "link"}, None),
     ("preemption_gain/preemptive_srsf/gating=rescan", "preemption_gain",
@@ -2453,6 +2702,12 @@ REST_HOST_CELLS = (
      "trace_replay_philly/static"),
 )
 REPLAY_WINDOW_S = 60.0
+#: scenario overrides of a phase-50 (b) run: the paper run under the gating
+#: rescan runs at half its registered depth (iterations 500-3000; 98 s at
+#: full depth on a slow host), held to the reference's run at the same
+#: depth and to the incremental run beside it
+REST_CUTS = {"paper/gating=rescan": dict(min_iters=500, max_iters=3000),
+             "paper/ada/half": dict(min_iters=500, max_iters=3000)}
 #: phase 50 (c): the event sweep at QUICK size
 REST_EVENT = dict(scenarios=("paper", "oversub_fabric"), comms=("ada", "srsf1", "srsf2"))
 #: the JAX reference's phase-50 results on the CPU
@@ -2481,14 +2736,14 @@ REFERENCE_SWEEP_FLUID = {
         (12, 12, 153.4083366394043, 31.900009155273438, 1010.0, 1010.0, 1260.0),
 }
 REFERENCE_REST = {
-    'paper/gating=rescan': {
-        'avg_jct': 2777.5749093755935,
-        'events': 2389581,
+    'paper/gating=rescan': {  # at half depth (REST_CUTS)
+        'avg_jct': 1228.1472811544309,
+        'events': 1197320,
         'preemptions': 0,
-        'comm_contended': 42255,
-        'comm_clean': 161288,
+        'comm_contended': 19579,
+        'comm_clean': 82537,
         'censored': 0,
-        'finish_sha256': '63f458f1eb3ea69d2b2e2b6bf38e0de49fb73b0b881253999b12b71caf62bf10',
+        'finish_sha256': '7eec0b22c3243435ca1ecd4c44be5df0043c5ca1f907520009ffe0bbebdfd3f1',
     },
     'paper/comm_chunks=4': {
         'avg_jct': 2376.0394285773973,
@@ -2707,7 +2962,7 @@ def _rest_worker(tag, name, kw) -> dict:
     kw = dict(kw)
     if kw.get("observe") == "full":
         kw["observe"] = ObsConfig.full()
-    scn = get_scenario(name, seed=0)
+    scn = get_scenario(name, seed=0, **REST_CUTS.get(tag, {}))
     t0 = time.perf_counter()
     res = run_scenario_event(scn, comm="ada", **kw)
     wall = time.perf_counter() - t0
@@ -2740,10 +2995,10 @@ def _rest_worker(tag, name, kw) -> dict:
     return row
 
 
-def _rest_fluid_sweep(device=None) -> list:
-    """Phase 50 (a): the sweep's fluid cells on ``device`` (None: the
-    card), one record dict per cell; on the CPU in a worker process of
-    phases 10-11."""
+def _rest_fluid_sweep(device=None, scenarios=REST_FLUID["scenarios"]) -> list:
+    """Phase 50 (a): the sweep's fluid cells of ``scenarios`` on ``device``
+    (None: the card), one record dict per cell; on the CPU in worker
+    processes of phases 10-11, one a scenario."""
     import torch
 
     if str(SRC) not in sys.path:
@@ -2752,7 +3007,7 @@ def _rest_fluid_sweep(device=None) -> list:
         torch.set_num_threads(1)
     from repro_torch.scenarios import sweep
 
-    recs = sweep(list(REST_FLUID["scenarios"]), comms=REST_FLUID["comms"],
+    recs = sweep(list(scenarios), comms=REST_FLUID["comms"],
                  seeds=REST_FLUID["seeds"], backend="fluid",
                  per_scenario_overrides=REST_FLUID["per_scenario_overrides"], device=device)
     return [dataclasses.asdict(r) for r in recs]
@@ -2761,14 +3016,16 @@ def _rest_fluid_sweep(device=None) -> list:
 def _submit_event_runs(pool) -> dict:
     """Phases 31-32's, 49's and 50's host runs, queued on ``pool`` (worker
     processes started when phase 29 ends, beside no card phase but phase
-    50's fluid cells), the registered-size paper runs first."""
+    50's fluid cells and phase 29's ``monte_carlo_jct``), the
+    registered-size paper runs first."""
     rest = [pool.submit(_rest_worker, tag, name, kw) for tag, name, kw, _ in REST_HOST_CELLS[:5]]
     reg = [pool.submit(_event_worker, name, 0, comm, pl, {}) for name, comm, pl in EVENT_CELLS]
     cut = {(comm, s): pool.submit(_event_worker, "paper", s, comm, "lwf", PAPER_CUT)
            for comm in EVENT_FLUID_COMMS for s in SEEDS}
     dyn = [pool.submit(_dynamic_worker, name, sched) for name, sched in DYNAMIC_CELLS]
     rest += [pool.submit(_rest_worker, tag, name, kw) for tag, name, kw, _ in REST_HOST_CELLS[5:]]
-    return {"registered": reg, "cut": cut, "dynamic": dyn, "rest": rest}
+    half = pool.submit(_rest_worker, "paper/ada/half", "paper", {})
+    return {"registered": reg, "cut": cut, "dynamic": dyn, "rest": rest, "half": half}
 
 
 def _dynamic_phase(futures) -> None:
@@ -2855,6 +3112,8 @@ def _rest_phase(futures) -> None:
     for fut in futures["dynamic"]:
         r = fut.result()
         base[r["cell"]] = r
+    half = futures["half"].result()
+    base[half["tag"]] = dict(half, values=(half["avg_jct"],))
     against = {tag: inc for tag, _, _, inc in REST_HOST_CELLS}
     for fut in futures["rest"]:
         r = fut.result()
@@ -2874,7 +3133,7 @@ def _rest_phase(futures) -> None:
         if against[tag] is not None:
             _require(r["avg_jct"] == inc["values"][0] and r["events"] == inc["events"]
                      and r["finish_sha256"] == inc["finish_sha256"],
-                     f"{tag}: == the {against[tag]} run of phase 31 or 49")
+                     f"{tag}: == the {against[tag]} run of phase 31, 49 or 50 (b)")
             _log(f"  == the incremental, unobserved {against[tag]} run (avg JCT, events, every "
                  f"finish time): {inc['wall']:.3f} s wall there, {r['wall']:.3f} s here")
         if "mean_parts" in want:
@@ -2942,7 +3201,8 @@ def _event_phases(futures, fluid_results) -> None:
              f"{r['comm']} {r['placement']}: finished {r['n_finished']}/{r['n_jobs']}, avg JCT "
              f"{r['avg_jct']} s, makespan {r['makespan']} s, {r['events']} events in "
              f"{r['wall']:.3f} s wall = {r['events'] / r['wall']:.1f} events/s on the host "
-             f"({cpu}, one of {EVENT_WORKERS} worker processes, beside no card phase)")
+             f"({cpu}, one of {EVENT_WORKERS} worker processes, beside phases 50 (a)'s and "
+             f"29's card runs in the main process)")
         _require(r["n_finished"] == r["n_jobs"] and r["censored"] == 0,
                  f"event engine {r['name']} {r['comm']}: every job finishes")
     for comm, fluid in zip(EVENT_FLUID_COMMS, fluid_results):
@@ -3626,7 +3886,6 @@ def main() -> int:
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.scenarios import (
         QUICK_OVERRIDES, fluid_config, get_scenario, monte_carlo_fluid,
-        run_scenario_fluid,
     )
 
     t_start = time.perf_counter()
@@ -3768,19 +4027,6 @@ def main() -> int:
     _log(f"main path: 4 paper batches + oversub_fabric, one at a time, wall "
          f"{time.perf_counter() - t0:.3f} s")
 
-    # ---- 6. small inputs: card vs CPU ---------------------------------------
-    _mark("6")
-    for name, comm, placement in (("smoke", "ada", "lwf"),
-                                  ("contended_residue", "srsf2", "ls"),
-                                  ("oversub_fabric", "srsf1", "rack_pack")):
-        scn = get_scenario(name, seed=1, **QUICK_OVERRIDES[name])
-        on_card = run_scenario_fluid(scn, comm=comm, placement=placement)
-        on_cpu = run_scenario_fluid(scn, comm=comm, placement=placement, device="cpu")
-        _require((on_card["finished"] == on_cpu["finished"]).all(), name)
-        _require((on_card["jct"] == on_cpu["jct"]).all(), name)
-        _log(f"{name} {comm} {placement}: card == CPU on every finish tick "
-             f"({int(on_card['finished'].sum())} jobs)")
-
     chunk_steps = fluidsim.FluidSimConfig().chunk_steps
     main_launches, executed = 0, 0
     for (comm, impl, entry), res in zip(jobs, results):
@@ -3820,23 +4066,35 @@ def main() -> int:
     paper_tick = _tick_cost(torch, "paper ada batch, 8 lanes x 160 jobs", batch, cfg,
                             blocks=(8, 16, 32, cfg.chunk_steps))
 
-    # ---- 8. the step kernel with its overlap plane --------------------------
-    _mark("8")
-    overlap_rows = _overlap_kernel_phase(torch, dev)
+    # phases 8-11's worker processes: phase 29's CPU side of monte_carlo_jct
+    # (the longest, no card work) from phase 8 on, the rest from phase 10;
+    # the others start and import meanwhile (no CUDA call)
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
-    # ---- 9. the WFBP and exact k-way main path -------------------------------
-    _mark("9")
-    t0 = time.perf_counter()
-    wfbp_main, wfbp_launches, wfbp_ticks = _main_wfbp_phase(torch, chunk_steps)
-    _log(f"main path, WFBP and k-way: {len(MAIN_WFBP)} batches, one at a time, wall "
-         f"{time.perf_counter() - t0:.3f} s; fluid_step_core launches {wfbp_launches} "
-         f"(counted over graph replays), executed ticks {wfbp_ticks}")
-    _require(wfbp_launches == wfbp_ticks > 0, "one launch per executed tick")
+    with ProcessPoolExecutor(max_workers=WFBP_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        mc_cpu = pool.submit(_mc_worker, "cpu")
+        for _ in range(WFBP_WORKERS - 1):
+            pool.submit(_pool_imports)
 
-    # ---- 10./11. plain core and eager; card against CPU ----------------------
-    _mark("10-11")
-    mc_cpu, rest_cpu = _wfbp_checks_phase(torch, dev, {**wfbp_main, "paper ada": ada},
-                                          chunk_steps)
+        # ---- 8. the step kernel with its overlap plane ----------------------
+        _mark("8")
+        overlap_rows = _overlap_kernel_phase(torch, dev)
+
+        # ---- 9. the WFBP and exact k-way main path ---------------------------
+        _mark("9")
+        t0 = time.perf_counter()
+        wfbp_main, wfbp_launches, wfbp_ticks = _main_wfbp_phase(torch, chunk_steps)
+        _log(f"main path, WFBP and k-way: {len(MAIN_WFBP)} batches, one at a time, wall "
+             f"{time.perf_counter() - t0:.3f} s; fluid_step_core launches {wfbp_launches} "
+             f"(counted over graph replays), executed ticks {wfbp_ticks}")
+        _require(wfbp_launches == wfbp_ticks > 0, "one launch per executed tick")
+
+        # ---- 10./11. plain core and eager; card against CPU ------------------
+        _mark("10-11")
+        mc_cpu, rest_cpu = _wfbp_checks_phase(torch, dev, {**wfbp_main, "paper ada": ada},
+                                              chunk_steps, pool, mc_cpu)
 
     # ---- 12. per tick: one model_zoo chunk through the graph -----------------
     _mark("12")
@@ -3878,23 +4136,24 @@ def main() -> int:
     finally:
         mesh_pool.shutdown()
 
-    # ---- 29. the random placement and monte_carlo_jct -----------------------
+    # ---- 29. the random placement ----------------------------------------------
     _mark("29")
-    random_launches, random_ticks = _random_phase(torch, dev, chunk_steps, mc_cpu)
+    random_launches, random_ticks = _random_phase(torch, dev, chunk_steps)
     main_launches += random_launches
 
     # ---- 31./32. the event engine on the host, against the fluid path -------
     # in worker processes, beside no card phase but phase 50 (a)'s fluid cells
+    # and phase 29's monte_carlo_jct
     _mark("31-32")
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     with ProcessPoolExecutor(max_workers=EVENT_WORKERS,
                              mp_context=multiprocessing.get_context("spawn")) as pool:
         event_runs = _submit_event_runs(pool)
         # ---- 50 (a). the sweep's fluid cells on the card, meanwhile ----------
         _mark("50 (a), card side, beside the workers")
         rest_card = _rest_fluid_card(torch, chunk_steps)
+        # ---- 29. monte_carlo_jct on the card, meanwhile ----------------------
+        _mark("29 (monte_carlo_jct), card side, beside the workers")
+        _mc_phase(mc_cpu)
         _mark("31-32, the workers' results")
         _event_phases(event_runs, results[:3])
         # ---- 49. the dynamic event engine, in the same worker processes ------
@@ -3981,6 +4240,10 @@ def main() -> int:
     # ---- 50 (c). the event sweep in spawned processes and in this one ------
     _mark("50 (c)")
     _event_sweep_phase()
+
+    # ---- 52 (b). the dry-run beside the card's measurements ------------------
+    _mark("52 (b)")
+    _dryrun_phase()
 
     line = {"kernels": [{
         "name": "fluid_step_core",

@@ -9,7 +9,8 @@ source of its ``REFERENCE_SWEEP_FLUID``, ``REFERENCE_REST`` and
 * (b) the event engine at registered size, seed 0, comm ada: ``paper``
   with ``comm_chunks=4`` and with ``contention_domain="link"``; ``paper``
   and ``preemption_gain`` (``sched="preemptive_srsf"``) under
-  ``gating="rescan"`` and ``workloads="rescan"``; ``paper`` and
+  ``gating="rescan"`` (``paper`` at half depth, ``HOST_CUTS``) and
+  ``workloads="rescan"``; ``paper`` and
   ``chaos_recovery_storm`` under ``observe=ObsConfig.full()`` (mean JCT
   parts and the Chrome trace's event count); ``trace_replay_philly`` under
   ``profile_phases=True`` (the keys of ``replay_summary(window_s=60)``
@@ -60,6 +61,10 @@ HOST_CELLS = (
     ("trace_replay_philly/profile_phases", "trace_replay_philly", {"profile_phases": True}),
 )
 REPLAY_WINDOW_S = 60.0
+#: scenario overrides of a host cell: the paper run under the gating rescan
+#: at half its registered depth (iterations 500-3000), as chip_smoke.py runs
+#: it since its phase-50 pool stage was bound by that run
+HOST_CUTS = {"paper/gating=rescan": {"min_iters": 500, "max_iters": 3000}}
 
 
 def finish_digest(res) -> str:
@@ -81,7 +86,8 @@ def _host_cell(cell):
     if kw.get("observe") == "full":
         kw["observe"] = ObsConfig.full()
     t0 = time.perf_counter()
-    res = run_scenario_event(get_scenario(name, seed=0), comm="ada", **kw)
+    res = run_scenario_event(get_scenario(name, seed=0, **HOST_CUTS.get(tag, {})), comm="ada",
+                             **kw)
     wall = time.perf_counter() - t0
     row = {"avg_jct": res.avg_jct(), "events": res.events_processed,
            "preemptions": res.preemptions, "comm_contended": res.comm_started_contended,

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.lm import LM, RunFlags
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -46,18 +48,26 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig, flags: RunFlags = RunFlags()):
 
 
 def make_prefill_step(lm: LM, max_seq: int, flags: RunFlags = RunFlags()):
-    """(params, batch) -> (last-token logits, cache)."""
+    """(params, batch) -> (last-token logits, cache).  On DTensor
+    parameters (placed by ``sharding.param_shardings``) the step runs
+    through DTensor's propagation as the train step does, and the logits
+    and the cache come back as DTensors (``sharding.place_cache`` lays the
+    cache out for the serve step)."""
 
     def prefill_step(params, batch):
-        return lm.prefill_fn(params, batch, max_seq=max_seq, flags=flags)
+        with torch.no_grad(), mesh_context(params):
+            return lm.prefill_fn(params, batch, max_seq=max_seq, flags=flags)
 
     return prefill_step
 
 
 def make_serve_step(lm: LM, flags: RunFlags = RunFlags()):
-    """(params, cache, token) -> (logits, cache)."""
+    """(params, cache, token) -> (logits, cache), the cache updated in
+    place.  On DTensor parameters the cache is one ``sharding.place_cache``
+    placed: each rank writes its shards of it."""
 
     def serve_step(params, cache, token):
-        return lm.decode_fn(params, cache, token, flags)
+        with torch.no_grad(), mesh_context(params):
+            return lm.decode_fn(params, cache, token, flags)
 
     return serve_step

@@ -52,7 +52,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_train
 from repro_torch.models.common import ParamSpec, apply_rope, no_batch_einsum
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import act_placements
+from repro_torch.sharding.rules import act_placements, batch_spec_axes
 
 NEG_INF = -2.0**30  # large-but-finite; avoids NaN from all-masked rows
 
@@ -222,18 +222,77 @@ def init_kv_cache(cfg: ModelConfig, batch: int, window: int,
     }
 
 
+def abstract_kv_cache(cfg: ModelConfig, batch: int, window: int,
+                      dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """:func:`init_kv_cache`'s shapes and dtypes as meta tensors (no memory)."""
+    return init_kv_cache(cfg, batch, window, dtype, "meta")
+
+
+def _write_slot(cache_t: torch.Tensor, slot: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache_t[:, slot] = new`` in place: cache_t (B, W, KV, hd), new (B, 1,
+    KV, hd), slot (1,) long on the device.  On DTensors each rank writes
+    its own shard (the cache keeps its placements: a redistribution would
+    write into a copy), ``new`` brought to the cache's placements but
+    whole along W; where W is sharded, only the rank whose slots hold
+    ``slot`` changes, the others write back what they hold, so nothing
+    waits for the host."""
+    if not isinstance(cache_t, DTensor):
+        cache_t.index_copy_(1, slot, new)
+        return
+    from torch.distributed.tensor import Replicate
+
+    mesh, pl = cache_t.device_mesh, list(cache_t.placements)
+    want = [Replicate() if p.is_shard(1) else p for p in pl]
+    new = new if list(new.placements) == want else new.redistribute(mesh, want)
+    new, local = new.to_local(), cache_t._local_tensor
+    slot = slot.to_local() if isinstance(slot, DTensor) else slot
+    size, start = cache_t.shape[1], 0
+    for i, p in enumerate(pl):  # this rank's first slot: shards split in mesh-dim order
+        if p.is_shard(1):
+            size //= mesh.size(i)
+            start += mesh.get_coordinate()[i] * size
+    idx = slot - start
+    valid = ((idx >= 0) & (idx < size)).view(1, 1, 1, 1)
+    idx = idx.clamp(0, size - 1)
+    local.index_copy_(1, idx, torch.where(valid, new, local.index_select(1, idx)))
+
+
+def _decode_placements(t, batch_axes, model_dim: Optional[int]):
+    """``t`` redistributed to the reference's decode constraint: dim 0 (the
+    batch) sharded over the mesh dims ``batch_axes``, dim ``model_dim``
+    over "model" (None: replicated), replicated over the rest."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = t.device_mesh.mesh_dim_names
+    pl = [Shard(0) if n in batch_axes else Shard(model_dim) if n == "model" and model_dim
+          is not None else Replicate() for n in names]
+    return t if list(t.placements) == pl else t.redistribute(t.device_mesh, pl)
+
+
 def decode_attention(
     x1: torch.Tensor,  # (B, 1, D)
     params: Dict[str, torch.Tensor],
     cache: Dict[str, torch.Tensor],
     pos: torch.Tensor,  # 0-dim int32: index of the token being generated
     cfg: ModelConfig,
+    *,
+    constrain: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step of self-attention against a (ring-buffer) KV cache
     of ``window`` slots (slot = pos % window; RoPE is applied to keys at
     write time with absolute positions).  The slot is written in place and
     the cache's own tensors are returned.  ``pos`` stays on the device:
-    nothing here waits for the host."""
+    nothing here waits for the host.
+
+    On DTensors (a cache placed by ``sharding.place_cache``) each rank
+    writes its shard of the slot (:func:`_write_slot`).  ``constrain`` is
+    the reference's flash-decode sharding: after the update the keys and
+    values are read sequence-sharded over "model" (the batch over the mesh
+    dims that ``sharding.batch_spec_axes`` gives it), q is replicated over "model" and the logits are
+    sharded on the key dim, so that the products run on each rank's
+    slots; DTensor then gathers the logits (B, H, 1, W) for the softmax,
+    not the cache.  Plain tensors ignore it, as the reference's constraint
+    does nothing on one device."""
     h, kvh, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim_
     window = cache["k"].shape[1]
 
@@ -245,22 +304,80 @@ def decode_attention(
     k1 = apply_rope(k1, p, cfg.rope_theta)
     slot = torch.remainder(pos, window).reshape(1).long()
     ck, cv = cache["k"], cache["v"]
-    ck.index_copy_(1, slot, k1)
-    cv.index_copy_(1, slot, v1)
+    _write_slot(ck, slot, k1)
+    _write_slot(cv, slot, v1)
+    if isinstance(q, DTensor) and constrain:
+        dp = batch_spec_axes(q.device_mesh, q.shape[0]) or ()
+        ck = _decode_placements(ck, dp, 1)
+        cv = _decode_placements(cv, dp, 1)
+        q = _decode_placements(q, dp, None)
+        kk = _repeat_kv(ck, h // kvh)  # (B, W, H, hd)
+        vv = _repeat_kv(cv, h // kvh)
+        logits = torch.einsum("bshk,bthk->bhst", q, kk).to(torch.float32)
+        logits = _decode_placements(logits / math.sqrt(hd), dp, 3)
+        out = _masked_softmax_pv(logits, vv, pos, window, x1.dtype)
+    elif isinstance(q, DTensor):
+        out = _per_rank_decode(q, ck, cv, pos)
+    else:
+        out = _decode_core(q, ck, cv, pos)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y, {"k": cache["k"], "v": cache["v"]}
 
+
+def _masked_softmax_pv(logits, vv, pos, window: int, dtype):
+    """Mask the unwritten slots of (B, H, 1, W) float32 logits, softmax,
+    probabilities in ``dtype`` times the values (B, W, H, hd)."""
+    # slot j is valid iff it has been written: j <= pos (before wrap) or
+    # always (after wrap: every slot holds one of the last `window` keys).
+    if pos is not None:
+        valid = torch.arange(window, device=vv.device)[None, :] <= pos
+        valid = valid | (pos >= window)
+        logits = logits.masked_fill(~valid[None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhst,bthk->bshk", probs, vv)
+
+
+def _decode_core(q, ck, cv, pos=None):
+    """One token's attention on plain tensors: q (B, 1, H, hd) over the keys
+    and values (B, W, KV, hd), float32 logits, the unwritten slots masked
+    where ``pos`` is given (self attention; cross attention masks none)."""
+    h, kvh, hd = q.shape[2], ck.shape[2], q.shape[3]
     kk = _repeat_kv(ck, h // kvh)  # (B, W, H, hd)
     vv = _repeat_kv(cv, h // kvh)
     logits = torch.einsum("bshk,bthk->bhst", q, kk).to(torch.float32)
     logits = logits / math.sqrt(hd)
-    # slot j is valid iff it has been written: j <= pos (before wrap) or
-    # always (after wrap: every slot holds one of the last `window` keys).
-    valid = torch.arange(window, device=x1.device)[None, :] <= pos
-    valid = valid | (pos >= window)
-    logits = logits.masked_fill(~valid[None, None], NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(x1.dtype)
-    out = torch.einsum("bhst,bthk->bshk", probs, vv)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, {"k": ck, "v": cv}
+    return _masked_softmax_pv(logits, vv, pos, ck.shape[1], q.dtype)
+
+
+def _per_rank_decode(q, ck, cv, pos=None):
+    """:func:`_decode_core` on DTensors, run by each rank on its own heads
+    (a ``local_map``, as the prefill's :func:`_per_local_heads`): q's heads
+    sharded over "model" where they divide, the batch as q has it; the
+    keys and values whole along the sequence, their kv heads sharded
+    alike where "model" divides them too, else whole, each rank repeating
+    them and keeping its q heads' slice.  DTensor's own plan for the
+    batched products folds the batch and the head dims, which torch 2.11
+    refuses with the heads sharded."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    pq = act_placements(q, q.shape, 2)
+    whole = Shard(2) in pq and ck.shape[2] % mesh.size(mesh.mesh_dim_names.index("model")) != 0
+    pkv = [Replicate() if p == Shard(2) else p for p in pq] if whole else pq
+    rank = mesh.get_local_rank("model") if whole else 0
+    pp = [Replicate()] * mesh.ndim if isinstance(pos, DTensor) else None
+
+    def local(q, ck, cv, pos):
+        if whole:  # the kv heads of this rank's q heads
+            n_rep, hl = q.shape[2] * mesh.size(mesh.mesh_dim_names.index("model")) // ck.shape[2], \
+                q.shape[2]
+            ck = _repeat_kv(ck, n_rep)[:, :, rank * hl:(rank + 1) * hl]
+            cv = _repeat_kv(cv, n_rep)[:, :, rank * hl:(rank + 1) * hl]
+        return _decode_core(q, ck, cv, pos)
+
+    return local_map(local, out_placements=pq, in_placements=(pq, pkv, pkv, pp),
+                     device_mesh=mesh, redistribute_inputs=True)(q, ck, cv, pos)
 
 
 def decode_cross_attention(
@@ -273,14 +390,9 @@ def decode_cross_attention(
     """One decode step of cross attention against the prefill's keys and
     values: no mask, no RoPE, float32 logits, probabilities in the
     activation dtype (R7), as the reference.  Reads the cache only."""
-    h, kvh, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim_
     q = torch.einsum("bsd,dhk->bshk", x1, params["wq"])
-    kk = _repeat_kv(cross_k, h // kvh)
-    vv = _repeat_kv(cross_v, h // kvh)
-    logits = torch.einsum("bshk,bthk->bhst", q, kk).to(torch.float32) / math.sqrt(hd)
-    probs = torch.softmax(logits, dim=-1).to(x1.dtype)
-    out = torch.einsum("bhst,bthk->bshk", probs, vv)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    attend = _per_rank_decode if isinstance(q, DTensor) else _decode_core
+    return torch.einsum("bshk,hkd->bsd", attend(q, cross_k, cross_v), params["wo"])
 
 
 def precompute_cross_kv(enc_out: torch.Tensor, params: Dict[str, torch.Tensor]

@@ -69,9 +69,14 @@ def init_params(schema: Schema, key, dtype: torch.dtype = torch.bfloat16,
     cast to ``dtype``; ``zeros`` and ``ones`` leaves draw nothing.  ``key``
     is a :mod:`repro_torch.prng` key (or the reference's, as numpy); the
     draws run on ``device`` (None = CUDA) and give the reference's weights
-    there (``repro_torch.prng``)."""
+    there (``repro_torch.prng``).  On the ``meta`` device nothing is drawn
+    and ``key`` is not read: every leaf is an empty meta tensor of its
+    shape and ``dtype`` (the reference's ``abstract_params``)."""
     dev = resolve_device(device)
     specs = list(tree_leaves(schema))
+    if dev.type == "meta":
+        return tree_unflatten({name: torch.empty(spec.shape, dtype=dtype, device=dev)
+                               for name, spec in specs})
     keys = prng.split(prng.as_key(key).to(dev), len(specs))
 
     def make(spec: ParamSpec, k: torch.Tensor) -> torch.Tensor:
@@ -176,6 +181,27 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     valid = (labels >= 0) & (labels < vocab_size)
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    gold = take_last(logits, safe)
     nll = (lse - gold) * valid
     return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def take_last(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[..., idx]`` per position: ``gather`` along the last dim of ``t``
+    (B, S, V) at ``idx`` (B, S).  On DTensors (``t`` whole along its last
+    dim, :func:`gather_dim`) each rank gathers its own rows in a
+    ``local_map``, the batch as ``t`` has it and the rest whole: DTensor's strategy may shard ``t``'s last dim for the
+    gather and give a masked partial, whose reduction fails on a 3-d
+    tensor in torch 2.13."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return torch.gather(t, -1, idx[..., None])[..., 0]
+    from torch.distributed.tensor.experimental import local_map
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Shard(0) if p == Shard(0) else Replicate() for p in t.placements]
+    return local_map(lambda a, i: torch.gather(a, -1, i[..., None])[..., 0],
+                     out_placements=pl, in_placements=(pl, pl), device_mesh=t.device_mesh,
+                     redistribute_inputs=True)(t, idx)

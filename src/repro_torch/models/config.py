@@ -3,7 +3,8 @@
 A copy of ``ModelConfig``: the fields, derived sizes and analytic
 parameter count of all six families (``ssm``, ``dense``, ``moe``,
 ``hybrid``, the ``audio`` enc-dec backbone and the ``vlm``), the
-reference's numbers to the parameter.  The analytic count is the
+reference's numbers to the parameter; and of ``InputShape`` with the
+dry-run's four ``INPUT_SHAPES``, field for field.  The analytic count is the
 reference's own model, not the schema's leaf sum (it counts two norms a
 layer and none for the encoder or the cross sub-layer); it is copied as
 it is.
@@ -182,3 +183,25 @@ class ModelConfig:
 
     def _enc_layer_params(self, padded: bool) -> int:
         return self._attn_params(padded) + self._mlp_params(self.d_ff)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One assigned (seq_len, global_batch) workload shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -15,7 +15,11 @@ need, as plain functions of nested dicts of tensors:
   mesh) it gathers fsdp's weight shards per block, looks the embedding up
   vocab-parallel and reads the loss's vocab whole;
 * ``prefill_fn`` — prompt pass producing last-token logits + the cache;
-* ``decode_fn`` — one-token serve step, updating the cache in place;
+* ``decode_fn`` — one-token serve step, updating the cache in place; both
+  run on DTensor parameters too (a cache placed by
+  ``sharding.place_cache``, each rank writing its shard);
+* ``abstract_params`` / ``abstract_cache`` — the trees as meta tensors,
+  for the dry-run (``launch/dryrun.py``);
 * ``init_cache`` — ``{"pos", "layers": ...}``, each leaf stacked over
   blocks, as the reference lays it out: ``{conv_x, conv_B, conv_C, state}``
   for ``ssm``, the ring-buffer KV cache ``{k, v}`` (L, B, window, KV, hd)
@@ -61,10 +65,10 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     ParamSpec, Schema, apply_rope, cross_entropy_loss, gather_dim, in_no_batch_einsum, init_params,
-    logical_axes, rms_norm, tree_map,
+    logical_axes, rms_norm, take_last, tree_map,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import gather_batch_dims
+from repro_torch.sharding.rules import batch_spec_axes, gather_batch_dims
 
 def stack_schema(schema: Schema, n: int, axis: str = "layers") -> Schema:
     return tree_map(lambda s: ParamSpec((n,) + s.shape, (axis,) + s.axes, s.init, s.scale),
@@ -130,6 +134,60 @@ def _embed_tokens(tokens, embed):
                      redistribute_inputs=True)(tokens, embed)
 
 
+def _lookup(tokens, embed):
+    """The serving steps' embedding rows: indexing, as the reference; on a
+    DTensor table the vocab-parallel :func:`_embed_tokens`."""
+    return _embed_tokens(tokens, embed) if isinstance(embed, DTensor) else embed[tokens]
+
+
+def _constrain_acts(x, flags: "RunFlags"):
+    """``RunFlags.constrain_acts``: the residual stream ``Shard(0)`` over the
+    mesh dims that carry its batch (``sharding.batch_spec_axes``) and
+    replicated over the rest (a plain tensor, or the flag off, as it is)."""
+    if not flags.constrain_acts or not isinstance(x, DTensor):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    dp = batch_spec_axes(x.device_mesh, x.shape[0]) or ()
+    pl = [Shard(0) if n in dp else Replicate() for n in x.device_mesh.mesh_dim_names]
+    return x if list(x.placements) == pl else x.redistribute(x.device_mesh, pl)
+
+
+#: rank of one layer's cache leaf: (B, W, KV, hd), (B, C, W-1), (B, H, P, N)
+_LEAF_RANK = {"k": 4, "v": 4, "conv_x": 3, "conv_B": 3, "conv_C": 3, "state": 4}
+
+
+def _stacked_whole(layers):
+    """``layers`` (the cache's stacked leaves) with every DTensor leaf whose
+    layer or sub-layer dims are sharded redistributed whole along them,
+    and the (placed, working) pairs to copy back after the step.  The
+    reference's rule shards the first dim whose size equals the batch,
+    which a stacked dim can be (4 sub-layers at batch 4); a layer's view
+    of a leaf sharded there would be a copy, and the step's in-place
+    writes would be lost.  Elsewhere ``layers`` as it is, nothing to copy."""
+    from torch.distributed.tensor import Replicate
+
+    written = []
+
+    def one(path, t):
+        if not isinstance(t, DTensor):
+            return t
+        lead = t.dim() - _LEAF_RANK[path[-1]]
+        pl = [Replicate() if p.is_shard() and p.dim < lead else p for p in t.placements]
+        if pl == list(t.placements):
+            return t
+        work = t.redistribute(t.device_mesh, pl)
+        written.append((t, work))
+        return work
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return one(path, node)
+
+    return walk(layers, ()), written
+
+
 def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
@@ -146,9 +204,9 @@ class RunFlags:
     is checkpointed selectively (:func:`_dots_policy`), saving the output
     of every product with no batch dimension and recomputing the rest, and
     the audio encoder's blocks are recomputed whole, as the reference's.
-    The flash kernel is bound through ``ctypes`` and its forward is not an
-    aten op, so under "block" and "dots" it launches again in the
-    recompute.
+    The flash kernel is a custom op (``repro_torch::flash_attention``) that
+    the dots policy does not save, so under "block" and "dots" alike it
+    launches again in the recompute.
     ``loss_impl``: "dense" materialises the (B, S, V) logits, "chunked"
     computes the loss over sequence chunks of ``loss_chunk`` (each chunk
     recomputed in the backward pass), as the reference does.  ``q_chunk``
@@ -158,7 +216,26 @@ class RunFlags:
     causal prefill and training attention) as in
     :func:`repro_torch.kernels.flash_attention.flash_attention`: "" lets
     the device decide (CUDA kernel on the card, plain version on the CPU),
-    "ref" forces the plain version."""
+    "ref" forces the plain version.
+
+    The dry-run's fields (``launch/dryrun.py`` sets them from its profiles;
+    they act only on DTensor activations, and change what is sharded, not
+    what is computed): ``constrain_acts`` redistributes the residual
+    stream to ``Shard(0)`` over the mesh dims of the batch and replicated
+    over the rest, after the embedding and at every block boundary, the
+    reference's ``with_sharding_constraint(x, P(act_dp, None, None))``;
+    ``decode_constrain`` keeps the decode KV cache sharded on its sequence
+    over "model" (the batch over its mesh dims) through the update,
+    replicates q over "model" and shards the logits on the key dim (the
+    reference's flash-decode constraints; where its softmax runs
+    as partial reductions over the sequence shards, DTensor gathers the
+    (B, H, 1, W) logits for it, never the cache).  The reference's
+    ``scan_unroll`` has no counterpart: the port has no ``lax.scan``
+    (its blocks are a Python loop) and its counters see every block, so
+    there is no scan body to correct for.  Nor have the reference's
+    ``act_dp`` and ``decode_dp``: the batch's mesh dims are
+    ``sharding.batch_spec_axes`` of the activation's mesh and global
+    batch, which is what the reference's dry-run sets them to."""
 
     remat: str = "block"
     q_chunk: int = 512
@@ -166,6 +243,8 @@ class RunFlags:
     loss_chunk: int = 512
     ssd_impl: str = ""
     attn_impl: str = ""
+    decode_constrain: bool = False
+    constrain_acts: bool = False
 
     def __post_init__(self) -> None:
         if self.remat not in ("none", "block", "dots"):
@@ -289,6 +368,12 @@ class LM:
         threefry ``key`` (:func:`repro_torch.prng.PRNGKey`), on ``device``
         (None = CUDA)."""
         return init_params(self.schema(), key, dtype, device)
+
+    def abstract_params(self, dtype: torch.dtype = torch.bfloat16):
+        """The parameter tree's shapes, every leaf in ``dtype``, as meta
+        tensors (the reference's ``abstract_params``): :meth:`init` on the
+        meta device, which draws nothing."""
+        return self.init(None, dtype, "meta")
 
     def logical_axes(self):
         """The logical-axis tuple of every parameter leaf, in the
@@ -417,6 +502,7 @@ class LM:
         caches = []
         for i in range(self.n_blocks):
             bp = _gathered(_layer(blocks, i))
+            x = _constrain_acts(x, flags)
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(
                     self._block_out, x, bp, flags, cross_src, use_reentrant=False, **kw)
@@ -472,7 +558,7 @@ class LM:
         blocks (0 for families without MoE)."""
         cfg = self.cfg
         top = {k: _gathered(v) for k, v in params.items() if "blocks" not in k}
-        x = _embed_tokens(batch["tokens"].long(), top["embed"])
+        x = _constrain_acts(_embed_tokens(batch["tokens"].long(), top["embed"]), flags)
         cross_src = self._cross_source(dict(params, **top), batch, flags)
         x, aux, _ = self._run_blocks(x, params["blocks"], flags=flags, cross_src=cross_src)
         x = rms_norm(x, top["final_norm"])
@@ -505,7 +591,7 @@ class LM:
         valid = (lc >= 0) & (lc < self.cfg.vocab_size)
         safe = torch.where(valid, lc, torch.zeros_like(lc)).long()
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        gold = take_last(logits, safe)
         return ((lse - gold) * valid).sum(), valid.sum()
 
     # -- caches ---------------------------------------------------------------
@@ -542,6 +628,11 @@ class LM:
             "layers": _stack([layer] * self.n_blocks),
         }
 
+    def abstract_cache(self, batch: int, max_seq: int, dtype: torch.dtype = torch.bfloat16):
+        """:meth:`init_cache`'s tree, shapes and dtypes as meta tensors (no
+        memory): the reference's ``abstract_cache``."""
+        return self.init_cache(batch, max_seq, dtype, "meta")
+
     # -- decode ---------------------------------------------------------------
     def _decode_block(self, x, bp, bc, pos, flags: RunFlags):
         """One block of a decode step; writes its new state into ``bc``
@@ -549,11 +640,12 @@ class LM:
         stacked cache; the cross keys and values are only read)."""
         cfg = self.cfg
         fam = cfg.family
+        dc = flags.decode_constrain
         if fam in ("vlm", "audio"):
-            return self._decode_cross_block(x, bp, bc, pos)
+            return self._decode_cross_block(x, bp, bc, pos, dc)
         if fam in ("dense", "moe"):
             h = rms_norm(x, bp["attn_norm"])
-            y, _ = attn_mod.decode_attention(h, bp["attn"], bc, pos, cfg)
+            y, _ = attn_mod.decode_attention(h, bp["attn"], bc, pos, cfg, constrain=dc)
             x = x + y
             h = rms_norm(x, bp["mlp_norm"])
             if fam == "dense":
@@ -570,7 +662,7 @@ class LM:
         for p in range(cfg.block_len):
             if p == cfg.attn_index_in_block:
                 h = rms_norm(x, bp["attn_norm"])
-                y, _ = attn_mod.decode_attention(h, bp["attn"], bc["attn"], pos, cfg)
+                y, _ = attn_mod.decode_attention(h, bp["attn"], bc["attn"], pos, cfg, constrain=dc)
             else:
                 h = rms_norm(x, bp["ssm_norm"][ssm_i])
                 y, _ = ssm_mod.ssm_decode_step(h, _layer(bp["ssm"], ssm_i),
@@ -588,7 +680,7 @@ class LM:
             x = x + y
         return x
 
-    def _decode_cross_block(self, x, bp, bc, pos):
+    def _decode_cross_block(self, x, bp, bc, pos, dc=False):
         """A ``vlm`` pattern block or an ``audio`` decoder block of a decode
         step (see :meth:`_apply_cross_block`)."""
         cfg = self.cfg
@@ -599,7 +691,7 @@ class LM:
 
         if cfg.family == "audio":
             y, _ = attn_mod.decode_attention(rms_norm(x, bp["self_norm"]), bp["self_attn"],
-                                             bc["self"], pos, cfg)
+                                             bc["self"], pos, cfg, constrain=dc)
             x = x + y
             x = x + cross(x, bp["cross_norm"])
             return x + ffn_mod.mlp(rms_norm(x, bp["mlp_norm"]), bp["mlp"], cfg.act)
@@ -607,7 +699,7 @@ class LM:
         for i in range(n_self):
             y, _ = attn_mod.decode_attention(rms_norm(x, bp["self_norm"][i]),
                                              _layer(bp["self_attn"], i), _layer(bc["self"], i),
-                                             pos, cfg)
+                                             pos, cfg, constrain=dc)
             x = x + y
             x = x + ffn_mod.mlp(rms_norm(x, bp["mlp_norm"][i]), _layer(bp["mlp"], i), cfg.act)
         x = x + torch.tanh(bp["cross_gate"]).to(x.dtype) * cross(x, bp["cross_norm"])
@@ -628,12 +720,16 @@ class LM:
         needs the old cache again clones it first.  Nothing here waits for
         the host, so the step can be captured in a CUDA graph."""
         pos = cache["pos"]
-        x = params["embed"][token.long()]
+        top = {k: _gathered(v) for k, v in params.items() if "blocks" not in k}
+        x = _lookup(token.long(), top["embed"])
+        layers, written = _stacked_whole(cache["layers"])
         for i in range(self.n_blocks):
-            x = self._decode_block(x, _layer(params["blocks"], i), _layer(cache["layers"], i),
-                                   pos, flags)
-        x = rms_norm(x, params["final_norm"])
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"])[:, 0, : self.cfg.vocab_size]
+            x = self._decode_block(x, _gathered(_layer(params["blocks"], i)),
+                                   _layer(layers, i), pos, flags)
+        for placed, work in written:  # back into the donated cache's own tensors
+            placed.copy_(work)
+        x = rms_norm(x, top["final_norm"])
+        logits = torch.einsum("bsd,vd->bsv", x, top["embed"])[:, 0, : self.cfg.vocab_size]
         pos.add_(1)
         return logits, cache
 
@@ -647,12 +743,13 @@ class LM:
         continues from position S."""
         tokens = batch["tokens"]
         s = tokens.shape[1]
-        x = params["embed"][tokens.long()]
-        cross_src = self._cross_source(params, batch, flags)
+        top = {k: _gathered(v) for k, v in params.items() if "blocks" not in k}
+        x = _lookup(tokens.long(), top["embed"])
+        cross_src = self._cross_source(dict(params, **top), batch, flags)
         x, _, kvs = self._run_blocks(x, params["blocks"], flags=flags, collect_kv=True,
                                      cross_src=cross_src)
-        x = rms_norm(x, params["final_norm"])
-        logits = torch.einsum("bd,vd->bv", x[:, -1], params["embed"])[:, : self.cfg.vocab_size]
+        x = rms_norm(x, top["final_norm"])
+        logits = torch.einsum("bd,vd->bv", x[:, -1], top["embed"])[:, : self.cfg.vocab_size]
         pos = torch.tensor(s, dtype=torch.int32, device=tokens.device)
         return logits, {"pos": pos, "layers": self._pack_cache(kvs, s, self.kv_window(max_seq))}
 
@@ -673,8 +770,18 @@ class LM:
                            extra_lead: int = 0) -> torch.Tensor:
         """k: (L[, sub], B, S, KV, hd) stacked over layers (and sub-layers
         with ``extra_lead``); the reference's ``vmap`` over the stacked
-        axes is a fold of them into the batch axis."""
+        axes is a fold of them into the batch axis.  On a DTensor each rank
+        packs its own shard (a ``local_map``, S whole): the fold of a
+        batch-sharded dim into the stacked ones is no DTensor layout."""
         n = 2 + extra_lead
+        if isinstance(k, DTensor):
+            from torch.distributed.tensor import Replicate
+            from torch.distributed.tensor.experimental import local_map
+
+            pl = [Replicate() if p.is_shard(n) else p for p in k.placements]
+            return local_map(lambda t: self._ring_pack_stacked(t, s, w, extra_lead),
+                             out_placements=pl, in_placements=(pl,), device_mesh=k.device_mesh,
+                             redistribute_inputs=True)(k)
         packed = self._ring_pack(k.reshape((-1,) + tuple(k.shape[n:])), s, w)
         return packed.reshape(tuple(k.shape[:n]) + tuple(packed.shape[1:]))
 

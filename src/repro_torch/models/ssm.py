@@ -290,6 +290,44 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype = torch.bflo
     }
 
 
+def abstract_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype = torch.bfloat16):
+    """:func:`init_ssm_cache`'s shapes and dtypes as meta tensors (the state
+    float32, as there)."""
+    return init_ssm_cache(cfg, batch, dtype, "meta")
+
+
+def _ssd_step_per_rank(x, dt, a, b, c, d, state, *, impl: str = "", out=None):
+    """:func:`repro_torch.kernels.ssd.ssd_decode_step` in place on a
+    DTensor state (B, H, P, N) placed by ``sharding.place_cache`` (batch
+    over the data dims, heads over "model" where they divide): each rank
+    runs the kernel on its own shard, the other inputs brought to the
+    state's batch and head placements (B and C whole over "model"), and
+    y (B, H, P) comes back as a DTensor of those placements.  The state is
+    never redistributed (that would write into a copy); the recurrence is
+    independent per sequence and head, so no rank needs another's.  The
+    kernel reads raw pointers, so it cannot take DTensors itself."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    del out  # always the state itself: the decode step's in-place call
+    mesh, ps = state.device_mesh, list(state.placements)
+
+    def to(t, dims):  # dims: {state dim: t's dim}, the rest replicated
+        pl = [Shard(dims[p.dim]) if p.is_shard() and p.dim in dims else Replicate()
+              for p in ps]
+        t = t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, [Replicate()] * len(ps),
+                                                                run_check=False)
+        return (t if list(t.placements) == pl else t.redistribute(mesh, pl)).to_local().contiguous()
+
+    xl = to(x, {0: 0, 1: 1})
+    y = ssd_decode_step(xl, to(dt, {0: 0, 1: 1}), to(a, {1: 0}), to(b, {0: 0}), to(c, {0: 0}),
+                        to(d, {1: 0}), state._local_tensor, impl=impl,
+                        out=state._local_tensor)[0]
+    y_pl = [Shard(p.dim) if p.is_shard() and p.dim in (0, 1) else Replicate() for p in ps]
+    bsz, h, p = x.shape
+    return DTensor.from_local(y, mesh, y_pl, run_check=False, shape=x.shape,
+                              stride=(h * p, p, 1)), state
+
+
 def ssm_decode_step(x1: torch.Tensor, params: Dict[str, torch.Tensor], cache,
                     cfg: ModelConfig, ssd_impl: str = "") -> Tuple[torch.Tensor, dict]:
     """One-token decode.  x1: (B, 1, D) -> (y (B,1,D), cache).
@@ -312,7 +350,8 @@ def ssm_decode_step(x1: torch.Tensor, params: Dict[str, torch.Tensor], cache,
     xs, bp, cp = silu(xs), silu(bp), silu(cp)
 
     a = -torch.exp(params["A_log"].to(torch.float32))
-    y, _ = ssd_decode_step(
+    step = _ssd_step_per_rank if isinstance(cache["state"], DTensor) else ssd_decode_step
+    y, _ = step(
         xs.reshape(bsz, h, p), dt.to(xs.dtype), a, bp, cp,
         params["D"].to(x1.dtype), cache["state"], impl=ssd_impl, out=cache["state"],
     )

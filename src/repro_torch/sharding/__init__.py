@@ -8,6 +8,7 @@ from repro_torch.sharding.rules import (
     embeds_sharding,
     moment_shardings,
     param_shardings,
+    place_cache,
     replicated,
     spec_for_param,
     token_sharding,
@@ -20,6 +21,7 @@ __all__ = [
     "embeds_sharding",
     "moment_shardings",
     "param_shardings",
+    "place_cache",
     "replicated",
     "spec_for_param",
     "token_sharding",

@@ -251,6 +251,46 @@ def cache_shardings(abstract_cache, mesh, batch: int, cfg, mode: str = "auto"):
     return walk(abstract_cache, ())
 
 
+def place_cache(cache, mesh, batch: int, cfg, mode: str = "auto"):
+    """A decode cache distributed by :func:`cache_shardings` over ``mesh``
+    (a ``DeviceMesh``): the counterpart of the reference's
+    ``jit(in_shardings=c_sh)``.  A DTensor leaf is redistributed to its
+    rule's placements; a plain leaf, which every rank holds alike (a cache
+    made from the same prompt, or zeros), keeps its own slice with nothing
+    sent; a meta leaf (``LM.abstract_cache``) becomes a DTensor of meta
+    shards (:func:`abstract_place`)."""
+    shardings = cache_shardings(cache, mesh, batch, cfg, mode=mode)
+
+    def one(t, sh: NamedSharding):
+        if is_dtensor(t):
+            return t if tuple(t.placements) == sh.placements else t.redistribute(
+                mesh, sh.placements)
+        if t.is_meta:
+            return abstract_place(t, sh)
+        return distribute(t, sh)
+
+    return tree_map(one, cache, shardings)
+
+
+def local_shape(shape, placements_, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a tensor of ``shape`` (the rules
+    shard only dims that their mesh axes divide)."""
+    out = list(shape)
+    for i, p in enumerate(placements_):
+        if p.is_shard():
+            out[p.dim] //= mesh.size(i)
+    return tuple(out)
+
+
+def abstract_place(meta, sharding: NamedSharding):
+    """A DTensor of ``meta``'s shape and dtype placed by ``sharding`` whose
+    shard on this rank is a meta tensor (a shape and a dtype, no data, no
+    memory): the dry-run's stand-in for a sharded input."""
+    mesh, pl = sharding.mesh, sharding.placements
+    local = torch.empty(local_shape(meta.shape, pl, mesh), dtype=meta.dtype, device="meta")
+    return wrap_local(local, mesh, pl, meta.shape)
+
+
 def replicated(mesh) -> NamedSharding:
     return NamedSharding(mesh, ())
 

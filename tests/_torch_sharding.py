@@ -349,3 +349,281 @@ def one_rank_worker(rank, world, init_file, out_dir):
         dist.destroy_process_group()
     with open(os.path.join(out_dir, "one_rank.json"), "w") as f:
         json.dump(res, f)
+
+
+#: the sharded serving cases' prompt, decode steps and cache length
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 16, 4
+SERVE_MAX = SERVE_S + SERVE_STEPS
+
+
+def serve_params(cfg, seed: int = 0):
+    """float32 weights of the reduced ``cfg`` for the sharded serving and
+    dry-run cases, drawn with ``torch.Generator(seed)`` by the schema's
+    rule (normal * scale / sqrt(fan_in), zeros and ones as specified) and
+    tamed (:func:`tame_params`): the cases hold the sharded port to the
+    plain port on the same weights, so the threefry's reference draws (14 s
+    a reduced model on the CPU) are not needed."""
+    import math
+
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    from repro_torch.models.lm import LM
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def make(spec):
+        if spec.init in ("zeros", "ones"):
+            return (torch.zeros if spec.init == "zeros" else torch.ones)(spec.shape)
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        return torch.randn(spec.shape, generator=gen) * (spec.scale / math.sqrt(max(fan_in, 1)))
+
+    # LM.init's layout: leaves in sorted-key order
+    return tame_params(tree_unflatten({k: make(spec) for k, spec in tree_leaves(LM(cfg).schema())}),
+                       cfg.family)
+
+
+def serve_inputs(cfg, seed: int = 0):
+    """The prompt (B, S), the teacher-forced decode tokens (B, steps) and
+    the stub embeddings of the sharded serving cases, from ``seed``."""
+    from repro_torch.launch.serve import stub_embeddings
+
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(np.int32)
+    forced = rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_STEPS)).astype(np.int32)
+    embeds = {k: v.numpy() for k, v in
+              stub_embeddings(cfg, rng, SERVE_B, torch.float32, "cpu").items()}
+    return prompt, forced, embeds
+
+
+def serve_run(cfg, params, mesh=None, strategy: str = "tp", mode: str = "auto",
+              constrain: bool = False):
+    """Prefill the serving cases' prompt, then decode its forced tokens
+    through ``make_prefill_step`` / ``make_serve_step``: plain (``mesh``
+    None) or with parameters placed by ``param_shardings`` under
+    ``strategy``, the batch by ``token_sharding`` and the prefill's cache by
+    ``place_cache(mode)``.  Returns (last-token logits of the prefill, the
+    logits of each decode step) as numpy, and the cache's placements."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.lm import LM, RunFlags
+    from repro_torch.sharding.rules import (
+        ShardingStrategy, distribute, embeds_sharding, full, param_shardings, place_cache,
+        token_sharding,
+    )
+
+    lm = LM(cfg)
+    prompt, forced, embeds = serve_inputs(cfg)
+    batch = {"tokens": torch.from_numpy(prompt),
+             **{k: torch.from_numpy(v) for k, v in embeds.items()}}
+    if mesh is not None:
+        st = ShardingStrategy.from_name(strategy)
+        params = tree_map(distribute, params, param_shardings(lm.logical_axes(), params, mesh, st))
+        batch = {k: distribute(v, (token_sharding if v.dim() == 2 else embeds_sharding)(
+            mesh, SERVE_B)) for k, v in batch.items()}
+    flags = RunFlags(remat="none", q_chunk=SERVE_S, decode_constrain=constrain)
+    logits, cache = make_prefill_step(lm, SERVE_MAX, flags)(params, batch)
+    out = [full(logits).numpy()]
+    placed = {}
+    if mesh is not None:
+        cache = place_cache(cache, mesh, SERVE_B, cfg, mode=mode)
+        placed = {k: [repr(p) for p in t.placements] for k, t in tree_leaves(cache)}
+    step = make_serve_step(lm, flags)
+    for i in range(SERVE_STEPS):
+        tok = torch.from_numpy(forced[:, i:i + 1].copy())
+        if mesh is not None:
+            tok = distribute(tok, token_sharding(mesh, SERVE_B))
+        logits, cache = step(params, cache, tok)
+        out.append(full(logits).numpy())
+    return out, placed
+
+
+def serve_worker(rank, world, init_file, out_dir, cases, train_cases=()):
+    """Each serving case (name, mesh shape, arch, strategy, cache mode,
+    decode_constrain) on its mesh over the same group, the reduced arch in
+    float32 (:func:`serve_params`); rank 0 writes the logits to
+    ``<name>.npz``.  Each train case (name, mesh shape, arch, strategy)
+    runs one step with and without ``constrain_acts`` and writes both
+    metrics to ``<name>.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    init_group(rank, world, init_file)
+    meshes = {}
+    try:
+        for name, shape, arch, strategy, mode, constrain in cases:
+            if shape not in meshes:
+                meshes[shape] = make_host_mesh(*shape, device="cpu")
+            cfg = get_config(arch, reduced=True)
+            params = serve_params(cfg)
+            out, placed = serve_run(cfg, params, meshes[shape], strategy, mode, constrain)
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"{name}.npz"),
+                         **{f"l{i}": v for i, v in enumerate(out)},
+                         __json__=np.frombuffer(json.dumps(placed).encode(), np.uint8))
+        for name, shape, arch, strategy in train_cases:
+            if shape not in meshes:
+                meshes[shape] = make_host_mesh(*shape, device="cpu")
+            res = {}
+            for on in (False, True):
+                res[str(on)] = _constrained_step(meshes[shape], arch, strategy, on)
+            if rank == 0:
+                with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+                    json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _constrained_step(mesh, arch: str, strategy: str, on: bool) -> dict:
+    """One sharded float32 train step of the reduced ``arch`` (step 0's
+    batch, :func:`serve_params`) with ``RunFlags(constrain_acts=on)``: its
+    metrics."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import LM, RunFlags
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.sharding.rules import (
+        ShardingStrategy, distribute, embeds_sharding, moment_shardings, param_shardings,
+        token_sharding,
+    )
+
+    cfg = get_config(arch, reduced=True)
+    lm = LM(cfg)
+    params = serve_params(cfg)
+    st = ShardingStrategy.from_name(strategy)
+    p_sh = param_shardings(lm.logical_axes(), params, mesh, st)
+    params = tree_map(distribute, params, p_sh)
+    ocfg = AdamWConfig()
+    opt = adamw_init(params, ocfg, moment_shardings(p_sh, params, mesh, st))
+    step = make_train_step(lm, ocfg, RunFlags(remat="none", q_chunk=S, constrain_acts=on))
+    batch = {k: distribute(torch.from_numpy(v), (token_sharding if v.ndim == 2
+                                                 else embeds_sharding)(mesh, B))
+             for k, v in SyntheticLMDataset(cfg, B, S).batch_at(0).items()}
+    _, _, m = step(params, opt, batch)
+    return {k: float(v) for k, v in m.items()}
+
+
+#: the collective-count cases: (name, world, mesh shape, strategy), reduced
+#: llama, one train step at batch 4 x 32
+COMM_CASES = (("dp2", 2, (2, 1), "dp"), ("tp2", 2, (1, 2), "tp"), ("fsdp2", 2, (2, 1), "fsdp"),
+              ("dp4", 4, (4, 1), "dp"), ("tp4", 4, (2, 2), "tp"), ("fsdp4", 4, (2, 2), "fsdp"))
+COMM_B = 4
+
+
+def comm_step(mesh, strategy: str, meta: bool) -> dict:
+    """One float32 train step of the reduced llama under ``strategy`` on
+    ``mesh``, counted by ``launch.hlo.StepTrace``: every collective in
+    order (kind, bytes, mesh dim), ``collective_bytes`` and the gradient
+    bytes.  ``meta``: every input a meta shard (``abstract_place``), as the
+    dry-run traces; else :func:`serve_params`' weights and step 0's batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.hlo import collective_bytes, trace_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.lm import LM, RunFlags
+    from repro_torch.optim.adamw import AdamWConfig, abstract_opt_state, adamw_init
+    from repro_torch.sharding.rules import (
+        ShardingStrategy, abstract_place, distribute, moment_shardings, param_shardings,
+        token_sharding,
+    )
+
+    cfg = get_config("llama3.2-1b", reduced=True)
+    lm = LM(cfg)
+    st, ocfg = ShardingStrategy.from_name(strategy), AdamWConfig()
+    ap = lm.abstract_params(torch.float32)
+    p_sh = param_shardings(lm.logical_axes(), ap, mesh, st)
+    m_sh = moment_shardings(p_sh, ap, mesh, st)
+    tok = token_sharding(mesh, COMM_B)
+    raw = SyntheticLMDataset(cfg, COMM_B, S).batch_at(0)
+    if meta:
+        place = abstract_place
+        params = tree_map(place, ap, p_sh)
+        ao = abstract_opt_state(ap, ocfg)
+        opt = {"m": tree_map(place, ao["m"], m_sh), "v": tree_map(place, ao["v"], m_sh),
+               "step": ao["step"]}
+        batch = {k: place(torch.empty(v.shape, dtype=torch.int32, device="meta"), tok)
+                 for k, v in raw.items()}
+    else:
+        params = tree_map(distribute, serve_params(cfg), p_sh)
+        opt = adamw_init(params, ocfg, m_sh)
+        batch = {k: distribute(torch.from_numpy(v), tok) for k, v in raw.items()}
+    step = make_train_step(lm, ocfg, RunFlags(remat="none", q_chunk=S))
+    _, trace = trace_step(step, (params, opt, batch), mesh, donated=(params, opt))
+    grad_bytes = sum(t.numel() * 4 for _, t in tree_leaves(ap))
+    return {"records": [list(r) for r in trace.collectives], "bytes": collective_bytes(trace),
+            "grad_bytes": grad_bytes}
+
+
+def comm_worker(rank, world, init_file, out_dir):
+    """The :data:`COMM_CASES` of this world size on real ``gloo`` ranks;
+    rank 0 writes ``comm_gloo_<world>.json``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    init_group(rank, world, init_file)
+    try:
+        res = {name: comm_step(init_device_mesh("cpu", shape, mesh_dim_names=("data", "model")),
+                               strategy, meta=False)
+               for name, w, shape, strategy in COMM_CASES if w == world}
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(os.path.join(out_dir, f"comm_gloo_{world}.json"), "w") as f:
+            json.dump(res, f)
+
+
+def fake_worker(rank, world, init_file, out_dir, combos, part: int = 0):
+    """In one process: with ``part`` 0 the :data:`COMM_CASES` as rank 0 of a
+    ``fake`` process group of each world size, on meta shards
+    (``comm_fake.json``); then ``dryrun.run_combo`` of each (arch,
+    InputShape fields) in ``combos`` on the reduced config (this process's
+    ``dryrun.config_for_shape`` returns it) over a fake (2, 2) mesh (``combos_<part>.json``: the result's counts, or the
+    error)."""
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import InputShape
+
+    torch.set_num_threads(1)
+    # the combos trace the reduced configs (this process only)
+    dryrun.config_for_shape = lambda arch, shape: get_config(arch, reduced=True)
+    res = {}
+    for w in (2, 4) if part == 0 else ():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=w)
+        try:
+            for name, cw, shape, strategy in COMM_CASES:
+                if cw == w:
+                    res[name] = comm_step(init_device_mesh("cpu", shape,
+                                                           mesh_dim_names=("data", "model")),
+                                          strategy, meta=True)
+        finally:
+            dist.destroy_process_group()
+    if part == 0:
+        with open(os.path.join(out_dir, "comm_fake.json"), "w") as f:
+            json.dump(res, f)
+    out = {}
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+        for arch, fields in combos:
+            shape = InputShape(*fields)
+            try:
+                r = dryrun.run_combo(arch, shape, mesh, dryrun.TUNED_PROFILES[arch])
+                out[f"{arch}|{shape.name}"] = {k: r[k] for k in (
+                    "status", "cost", "memory", "collectives", "roofline", "correction_deltas",
+                    "flops_by_op") if k in r}
+            except Exception:  # reported by the test
+                out[f"{arch}|{shape.name}"] = {"status": "error",
+                                               "error": traceback.format_exc()[-3000:]}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"combos_{part}.json"), "w") as f:
+        json.dump(out, f)
