@@ -170,7 +170,7 @@ Phases (any failed check raises, so the exit code is non-zero):
     finishes, one step-kernel launch per executed tick, counted from 0
     just before), a small paper batch under ada and srsf2 on the card and
     the CPU (identical finish ticks; run in phase 11, beside its workers), and
-    ``monte_carlo_jct(n_seeds=8, n_jobs=32)`` on the card and on the CPU
+    ``monte_carlo_jct(n_seeds=8, n_jobs=16)`` on the card and on the CPU
     (the CPU side in a worker process from phase 8 to the end of phase
     11, the card side beside phases 31-32's workers): identical sampled
     traces and ``per_seed``;
@@ -360,14 +360,18 @@ Phases (any failed check raises, so the exit code is non-zero):
     prefill's); (b) after the card phases, in this process (meta shards on
     fake process groups, no card work): ``launch/dryrun.py``'s trace of
     phase 25's training step, phase 20's prefill and one decode step on a
-    fake one-rank mesh, and of ``llama32_1b|train_4k|single|tuned`` on the
-    fake (32, 8) H100 mesh: counted FLOPs, ``model_flops``, the useful
-    ratio, ``compute_s`` and ``memory_s`` beside phase 28's device time of
-    a step, ``peak_bytes`` beside phase 25's
-    ``torch.cuda.max_memory_allocated``; every trace completes with
+    fake one-rank mesh, and of ``llama32_1b|train_4k|single|tuned`` and
+    ``llama32_1b|prefill_32k|single|tuned`` on the fake (32, 8) H100 mesh
+    and, unsharded, on a fake one-rank mesh: counted FLOPs,
+    ``model_flops``, the useful ratio, ``compute_s`` and ``memory_s``
+    beside phase 28's device time of a step, ``peak_bytes`` beside phase
+    25's ``torch.cuda.max_memory_allocated``; every trace completes with
     positive counts and ``run_useful_ratio`` <= 1 (``model_flops`` less
     the prefill's vocab projection of the prompt tokens it does not
-    project), the largest ops by FLOPs printed.
+    project), the largest ops by FLOPs printed; no rank repeats work of
+    another (the 256 ranks' FLOPs at most 1.01 times the unsharded
+    step's), the useful ratios and collective bytes printed beside those
+    of the port before its products were pinned (:data:`UNPINNED`).
 
 Phases run in the order of their numbers, but for 31, 32, 49 and 50 (a, b),
 which run after 29, 48 and 51 (with 52 (a)), which run after phase 25's
@@ -1728,8 +1732,16 @@ TRAIN = dict(steps=8, batch=8, seq=512, lr=3e-4, seed=0)
 MESH_SERVE = dict(batch=8, prompt=512, gen=8)
 #: what phases 25 and 28 measured, for phase 52 (b) to print beside its traces
 MEASURED: dict = {}
-#: the paper batch of phase 4 under the random placement (phase 29)
-MC_JCT = dict(n_seeds=8, n_jobs=32)
+#: phase 52 (b)'s (32, 8) combos as recorded before every product of a
+#: model-sharded weight was pinned, under DTensor's own plan (torch 2.11 on
+#: an H100's host, ``python -m repro_torch.launch.dryrun --no-correction``;
+#: not measured by this script, printed as the "before" of its "after"):
+#: useful ratio and collective bytes a rank
+UNPINNED = {"train_4k": (0.1194, 1.7955e11), "prefill_32k": (0.1428, 2.8320e10)}
+#: the paper batch of phase 4 under the random placement (phase 29), its
+#: jobs cut from 32 to 16 a lane on both sides so that phases 8-11 fit the
+#: time limit
+MC_JCT = dict(n_seeds=8, n_jobs=16)
 SAMPLE_T = 0.8
 
 
@@ -2191,15 +2203,19 @@ def _dryrun_phase() -> None:
     meta shards on fake process groups): the dry-run of phase 25's training
     step and phase 20's serve (prefill 8 x 512, one decode step of a
     576-slot cache) through a fake one-rank mesh under ``dp`` (the plain
-    path's replicated layout), and of ``llama32_1b|train_4k|single|tuned``
-    on the fake (32, 8) H100 mesh, each printed beside what phases 25 and
-    28 measured: counted FLOPs, ``model_flops``, the useful ratio,
-    ``compute_s`` and ``memory_s`` against the step's measured device time,
-    ``peak_bytes`` against ``torch.cuda.max_memory_allocated``, and the
-    ops with the most FLOPs.  Requires every trace to complete with
+    path's replicated layout), and of ``llama32_1b|train_4k`` and
+    ``|prefill_32k`` under the tuned profile on the fake (32, 8) H100 mesh
+    and, unsharded, on the fake one-rank mesh, each printed beside what
+    phases 25 and 28 measured: counted FLOPs, ``model_flops``, the useful
+    ratio, ``compute_s`` and ``memory_s`` against the step's measured
+    device time, ``peak_bytes`` against ``torch.cuda.max_memory_allocated``,
+    and the ops with the most FLOPs.  Requires every trace to complete with
     positive counts and ``run_useful_ratio`` (``model_flops`` less what
     the step does not run: a prefill's vocab projection of all but the
-    last token) <= 1; the ratios are findings."""
+    last token) <= 1, and no redundant work on the (32, 8) mesh: its 256
+    ranks' FLOPs at most 1.01 times the unsharded step's (every product of
+    a weight split over "model" runs on each rank's shard; llama's weights
+    all divide the 8-way axis); the ratios are findings."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -2210,7 +2226,15 @@ def _dryrun_phase() -> None:
 
     t0 = time.perf_counter()
     plain = dryrun.Profile(strategy="dp", remat="none")
-    runs = {}
+    tuned = dryrun.TUNED_PROFILES["llama32_1b"]
+    runs, whole = {}, {}
+
+    def trace(shape, mesh, profile):
+        t1 = time.perf_counter()
+        r = dryrun.run_combo("llama32_1b", shape, mesh, profile, correct_scan=False)
+        r["wall_s"] = time.perf_counter() - t1
+        return r
+
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
     try:
         one = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
@@ -2218,18 +2242,16 @@ def _dryrun_phase() -> None:
                                                            TRAIN["batch"], "train")),
                            ("prefill, phase 20", InputShape("chip_prefill", 512, 8, "prefill")),
                            ("decode, phase 20", InputShape("chip_decode", 576, 8, "decode"))):
-            t1 = time.perf_counter()
-            runs[tag] = dryrun.run_combo("llama32_1b", shape, one, plain, correct_scan=False)
-            runs[tag]["wall_s"] = time.perf_counter() - t1
+            runs[tag] = trace(shape, one, plain)
+        for name in UNPINNED:
+            whole[name] = runs[f"llama32_1b|{name}|unsharded|tuned"] = trace(
+                INPUT_SHAPES[name], one, tuned)
     finally:
         dist.destroy_process_group()
     mesh = make_production_mesh()
     try:
-        t1 = time.perf_counter()
-        runs["llama32_1b|train_4k|single|tuned"] = dryrun.run_combo(
-            "llama32_1b", INPUT_SHAPES["train_4k"], mesh, dryrun.TUNED_PROFILES["llama32_1b"],
-            correct_scan=False)
-        runs["llama32_1b|train_4k|single|tuned"]["wall_s"] = time.perf_counter() - t1
+        for name in UNPINNED:
+            runs[f"llama32_1b|{name}|single|tuned"] = trace(INPUT_SHAPES[name], mesh, tuned)
     finally:
         dist.destroy_process_group()
     import torch
@@ -2251,13 +2273,24 @@ def _dryrun_phase() -> None:
              f"compute_s {rf['compute_s']:.6f}, memory_s {rf['memory_s']:.6f}, collective_s "
              f"{rf['collective_s']:.6f} (dominant {rf['dominant']}); peak_bytes "
              f"{mem['peak_bytes']:.6e} ({rf['hbm_peak_frac']:.4f} of 80 GiB); collectives "
-             f"{r['collectives']['op_counts']}")
+             f"{r['collectives']['op_counts']}, {r['collectives']['total']:.6e} B a rank")
         _require(c["flops"] > 0 and c["bytes_accessed"] > 0 and mem["peak_bytes"] > 0,
                  f"phase 52 (b): positive counts for {tag}")
         _log(f"  the largest ops a rank: " + "; ".join(
             f"{op} {n:.4e}" for op, n in list(r["flops_by_op"].items())[:4]))
         _require(rf["run_useful_ratio"] <= 1,
                  f"phase 52 (b): the useful ratio of what the step runs <= 1 for {tag}")
+    for name, (useful0, coll0) in UNPINNED.items():
+        r, w = runs[f"llama32_1b|{name}|single|tuned"], whole[name]
+        chips = r["roofline"]["chips"]
+        ratio = r["cost"]["flops"] * chips / w["cost"]["flops"]
+        _log(f"dry-run llama32_1b|{name} on (32, 8) under torch {torch.__version__}: {chips} "
+             f"ranks x {r['cost']['flops']:.6e} FLOPs = {ratio:.6f} of the unsharded step's "
+             f"{w['cost']['flops']:.6e}; useful ratio {r['roofline']['useful_flops_ratio']:.4f} "
+             f"(recorded before the products were pinned: {useful0}); collectives "
+             f"{r['collectives']['total']:.6e} B a rank (recorded before: {coll0:.4e})")
+        _require(ratio <= 1.01, f"phase 52 (b): no rank repeats another's work in "
+                                f"llama32_1b|{name} (256 ranks' FLOPs <= 1.01 x unsharded)")
     tr = runs["train, phase 25"]
     rf = tr["roofline"]
     _log(f"dry-run against the card (train, phase 25's step): compute_s {rf['compute_s']:.6f} s "

@@ -30,7 +30,11 @@ prompt's logits stay (B, H, qc, qc + w - 1) a chunk.
 
 Under a mesh (DTensor q, k and v) the attention of both kinds runs on
 each rank's own heads through a ``local_map`` (:func:`_per_local_heads`),
-so the kernel reads plain local tensors.
+so the kernel reads plain local tensors.  Every projection, prefill,
+decode and cross, runs on each rank's shard of its weight
+(``sharding.rules.sharded_product``): wq, wk and wv column-parallel over
+the heads (wk and wv replicated where "model" does not divide the kv
+heads), wo row-parallel.
 
 Decode (:func:`decode_attention`, :func:`decode_cross_attention`) is plain
 PyTorch, as in the reference, which has no kernel for it.  Self attention
@@ -50,9 +54,9 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_train
-from repro_torch.models.common import ParamSpec, apply_rope, no_batch_einsum
+from repro_torch.models.common import ParamSpec, apply_rope
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import act_placements, batch_spec_axes
+from repro_torch.sharding.rules import act_placements, batch_spec_axes, sharded_product
 
 NEG_INF = -2.0**30  # large-but-finite; avoids NaN from all-masked rows
 
@@ -111,9 +115,9 @@ def attention_forward(
     kv_x = x if kv_input is None else kv_input
     h, kvh, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim_
 
-    q = no_batch_einsum("bsd,dhk->bshk", x, params["wq"])
-    k = no_batch_einsum("btd,dgk->btgk", kv_x, params["wk"])
-    v = no_batch_einsum("btd,dgk->btgk", kv_x, params["wv"])
+    q = sharded_product("bsd,dhk->bshk", x, params["wq"], "no_batch")
+    k = sharded_product("btd,dgk->btgk", kv_x, params["wk"], "no_batch")
+    v = sharded_product("btd,dgk->btgk", kv_x, params["wv"], "no_batch")
     if use_rope and kv_input is None:
         pos = torch.arange(s, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
@@ -127,7 +131,7 @@ def attention_forward(
         out = _per_local_heads(attend, q, k, v, h // kvh)
     else:
         out = attend(q, _repeat_kv(k, h // kvh), _repeat_kv(v, h // kvh))
-    return no_batch_einsum("bshk,hkd->bsd", out, params["wo"])
+    return sharded_product("bshk,hkd->bsd", out, params["wo"], "no_batch")
 
 
 def _attend_heads(q, k, v, mask_kind: str, window: int, qc: int, impl: str) -> torch.Tensor:
@@ -296,9 +300,9 @@ def decode_attention(
     h, kvh, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim_
     window = cache["k"].shape[1]
 
-    q = torch.einsum("bsd,dhk->bshk", x1, params["wq"])
-    k1 = torch.einsum("bsd,dgk->bsgk", x1, params["wk"])
-    v1 = torch.einsum("bsd,dgk->bsgk", x1, params["wv"])
+    q = sharded_product("bsd,dhk->bshk", x1, params["wq"])
+    k1 = sharded_product("bsd,dgk->bsgk", x1, params["wk"])
+    v1 = sharded_product("bsd,dgk->bsgk", x1, params["wv"])
     p = pos[None] if pos.dim() == 0 else pos
     q = apply_rope(q, p, cfg.rope_theta)
     k1 = apply_rope(k1, p, cfg.rope_theta)
@@ -320,7 +324,7 @@ def decode_attention(
         out = _per_rank_decode(q, ck, cv, pos)
     else:
         out = _decode_core(q, ck, cv, pos)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    y = sharded_product("bshk,hkd->bsd", out, params["wo"])
     return y, {"k": cache["k"], "v": cache["v"]}
 
 
@@ -390,15 +394,15 @@ def decode_cross_attention(
     """One decode step of cross attention against the prefill's keys and
     values: no mask, no RoPE, float32 logits, probabilities in the
     activation dtype (R7), as the reference.  Reads the cache only."""
-    q = torch.einsum("bsd,dhk->bshk", x1, params["wq"])
+    q = sharded_product("bsd,dhk->bshk", x1, params["wq"])
     attend = _per_rank_decode if isinstance(q, DTensor) else _decode_core
-    return torch.einsum("bshk,hkd->bsd", attend(q, cross_k, cross_v), params["wo"])
+    return sharded_product("bshk,hkd->bsd", attend(q, cross_k, cross_v), params["wo"])
 
 
 def precompute_cross_kv(enc_out: torch.Tensor, params: Dict[str, torch.Tensor]
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The cross sub-layer's keys and values (B, T, KV, hd) of the encoder
     output or the vision tokens (B, T, D), computed once at prefill."""
-    k = torch.einsum("btd,dgk->btgk", enc_out, params["wk"])
-    v = torch.einsum("btd,dgk->btgk", enc_out, params["wv"])
+    k = sharded_product("btd,dgk->btgk", enc_out, params["wk"])
+    v = sharded_product("btd,dgk->btgk", enc_out, params["wv"])
     return k, v

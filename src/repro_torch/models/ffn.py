@@ -12,7 +12,9 @@ PyTorch.  Nothing in it waits for the host (no ``.item()``, no boolean
 indexing), so a decode step around it can be captured in a CUDA graph.
 Under a mesh the dispatch runs through DTensor (its cumsum and scatter on
 whole operands, ROADMAP item 10) and the slots are cut to each rank's
-experts before the expert products.
+experts before the expert products.  The MLP's, the router's and the
+experts' products run on each rank's shard of their weights
+(``sharding.rules.sharded_product``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import act_placements
+from repro_torch.sharding.rules import act_placements, sharded_product
 
 
 def mlp_schema(cfg: ModelConfig, d_ff: int) -> Dict[str, ParamSpec]:
@@ -52,11 +54,17 @@ def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def mlp(x: torch.Tensor, params: Dict[str, torch.Tensor], act: str) -> torch.Tensor:
+    """The gated (or plain) MLP; under a mesh ``w_gate`` and ``w_up``
+    column-parallel over the ffn dim, ``w_down`` row-parallel
+    (:func:`repro_torch.sharding.rules.sharded_product`)."""
+    def up(name):
+        return sharded_product("...d,df->...f", x, params[name], "matmul")
+
     if "w_gate" in params:
-        h = _act(x @ params["w_gate"], act) * (x @ params["w_up"])
+        h = _act(up("w_gate"), act) * up("w_up")
     else:
-        h = _act(x @ params["w_up"], act)
-    return h @ params["w_down"]
+        h = _act(up("w_up"), act)
+    return sharded_product("...f,fd->...d", h, params["w_down"], "matmul")
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +101,7 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def route(x: torch.Tensor, router: torch.Tensor, k: int):
     """The router: (float32 logits (B,S,E), probabilities, the top-k gates
     renormalised to sum 1 (B,S,K), their expert ids (B,S,K) int64)."""
-    logits = (x @ router).to(torch.float32)
+    logits = sharded_product("...d,de->...e", x, router, "matmul").to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = top_k(probs, k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -142,12 +150,14 @@ def moe(x: torch.Tensor, params: Dict[str, torch.Tensor],
         # experts, a slice, so the expert products run on local experts
         disp = disp.redistribute(disp.device_mesh, act_placements(x, disp.shape, 1))
 
+    def up(name):  # each rank's experts on their own slots
+        return sharded_product("becd,edf->becf", disp, params[name])
+
     if "w_gate" in params:
-        h = _act(torch.einsum("becd,edf->becf", disp, params["w_gate"]), cfg.act)
-        h = h * torch.einsum("becd,edf->becf", disp, params["w_up"])
+        h = _act(up("w_gate"), cfg.act) * up("w_up")
     else:
-        h = _act(torch.einsum("becd,edf->becf", disp, params["w_up"]), cfg.act)
-    out = torch.einsum("becf,efd->becd", h, params["w_down"])
+        h = _act(up("w_up"), cfg.act)
+    out = sharded_product("becf,efd->becd", h, params["w_down"])
 
     # gather back, weighted by the gates; dropped choices read the zero row
     out_flat = torch.cat([out.reshape(b, e * c, d),

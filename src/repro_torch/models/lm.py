@@ -13,7 +13,9 @@ need, as plain functions of nested dicts of tensors:
   (``torch.utils.checkpoint`` in place of ``jax.checkpoint``, selective
   under ``remat="dots"``); on DTensor parameters (``launch.train`` under a
   mesh) it gathers fsdp's weight shards per block, looks the embedding up
-  vocab-parallel and reads the loss's vocab whole;
+  vocab-parallel, runs every product on each rank's shard of its weight
+  (``sharding.rules.sharded_product``; the vocab projection
+  column-parallel) and reads the loss's vocab whole;
 * ``prefill_fn`` — prompt pass producing last-token logits + the cache;
 * ``decode_fn`` — one-token serve step, updating the cache in place; both
   run on DTensor parameters too (a cache placed by
@@ -68,7 +70,7 @@ from repro_torch.models.common import (
     logical_axes, rms_norm, take_last, tree_map,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import batch_spec_axes, gather_batch_dims
+from repro_torch.sharding.rules import batch_spec_axes, gather_batch_dims, sharded_product
 
 def stack_schema(schema: Schema, n: int, axis: str = "layers") -> Schema:
     return tree_map(lambda s: ParamSpec((n,) + s.shape, (axis,) + s.axes, s.init, s.scale),
@@ -103,8 +105,8 @@ def _embed_tokens(tokens, embed):
     are on).  On DTensors a vocab-parallel lookup, per rank in a
     ``local_map``: where "model" splits the vocab, each rank looks up the
     tokens its rows hold, zeroes the others, and the output is the sum
-    over the ranks (``Partial``); the grad of each rank's rows stays with
-    it.  DTensor's own strategies fail here: indexing's backward
+    over the ranks (``Partial``), reduced once; the grad of each rank's
+    rows stays with it.  DTensor's own strategies fail here: indexing's backward
     (``index_put``) in torch 2.11, the embedding's masked partial in 2.13."""
     if not isinstance(embed, DTensor):
         return F.embedding(tokens, embed)
@@ -113,10 +115,12 @@ def _embed_tokens(tokens, embed):
 
     mesh = embed.device_mesh
     names = mesh.mesh_dim_names
-    batch = [Shard(0) if p == Shard(0) and n != "model" else Replicate()
-             for n, p in zip(names, tokens.placements)]
     pw = [p if n == "model" else Replicate() for n, p in zip(names, embed.placements)]
     split = Shard(0) in pw
+    # the batch stays split where the tokens split it, over "model" too
+    # unless the vocab is split there
+    batch = [Shard(0) if p == Shard(0) and not (n == "model" and split) else Replicate()
+             for n, p in zip(names, tokens.placements)]
     rows = embed.shape[0] // (mesh.size(names.index("model")) if split else 1)
     lo = mesh.get_local_rank("model") * rows if split else 0
     out = [Partial() if q == Shard(0) else p for p, q in zip(batch, pw)]
@@ -129,9 +133,12 @@ def _embed_tokens(tokens, embed):
         valid = (ids >= 0) & (ids < rows)
         return F.embedding(torch.where(valid, ids, 0), w).masked_fill(~valid[..., None], 0)
 
-    return local_map(local, out_placements=out, in_placements=(batch, pw),
-                     in_grad_placements=(batch, gw), device_mesh=mesh,
-                     redistribute_inputs=True)(tokens, embed)
+    x = local_map(local, out_placements=out, in_placements=(batch, pw),
+                  in_grad_placements=(batch, gw), device_mesh=mesh,
+                  redistribute_inputs=True)(tokens, embed)
+    # reduced once to the residual stream's placement: a Partial stream
+    # would be reduced again by every op that reads it
+    return x.redistribute(mesh, batch) if split else x
 
 
 def _lookup(tokens, embed):
@@ -391,9 +398,9 @@ class LM:
                                            q_chunk=flags.q_chunk)
         if not collect_kv:
             return x, None
-        k = torch.einsum("btd,dgk->btgk", h, ap["wk"])
+        k = sharded_product("btd,dgk->btgk", h, ap["wk"])
         k = apply_rope(k, torch.arange(h.shape[1], device=h.device), cfg.rope_theta)
-        v = torch.einsum("btd,dgk->btgk", h, ap["wv"])
+        v = sharded_product("btd,dgk->btgk", h, ap["wv"])
         return x, {"k": k, "v": v}
 
     def _cross_attn(self, x, norm, ap, cross_src, flags: RunFlags):
@@ -565,7 +572,7 @@ class LM:
         if flags.loss_impl == "chunked":
             loss = self._chunked_ce(x, top["embed"], batch["labels"], flags)
         else:
-            logits = torch.einsum("bsd,vd->bsv", x, top["embed"])
+            logits = sharded_product("bsd,vd->bsv", x, top["embed"])
             loss = cross_entropy_loss(logits, batch["labels"], cfg.vocab_size)
         return loss + aux, {"ce": loss, "aux": aux}
 
@@ -587,7 +594,7 @@ class LM:
         return nll / torch.clamp(n, min=1)
 
     def _chunk_nll(self, xc, embed, lc):
-        logits = gather_dim(torch.einsum("bsd,vd->bsv", xc, embed).to(torch.float32), -1)
+        logits = gather_dim(sharded_product("bsd,vd->bsv", xc, embed).to(torch.float32), -1)
         valid = (lc >= 0) & (lc < self.cfg.vocab_size)
         safe = torch.where(valid, lc, torch.zeros_like(lc)).long()
         lse = torch.logsumexp(logits, dim=-1)
@@ -729,7 +736,7 @@ class LM:
         for placed, work in written:  # back into the donated cache's own tensors
             placed.copy_(work)
         x = rms_norm(x, top["final_norm"])
-        logits = torch.einsum("bsd,vd->bsv", x, top["embed"])[:, 0, : self.cfg.vocab_size]
+        logits = sharded_product("bsd,vd->bsv", x, top["embed"])[:, 0, : self.cfg.vocab_size]
         pos.add_(1)
         return logits, cache
 
@@ -749,7 +756,7 @@ class LM:
         x, _, kvs = self._run_blocks(x, params["blocks"], flags=flags, collect_kv=True,
                                      cross_src=cross_src)
         x = rms_norm(x, top["final_norm"])
-        logits = torch.einsum("bd,vd->bv", x[:, -1], top["embed"])[:, : self.cfg.vocab_size]
+        logits = sharded_product("bd,vd->bv", x[:, -1], top["embed"])[:, : self.cfg.vocab_size]
         pos = torch.tensor(s, dtype=torch.int32, device=tokens.device)
         return logits, {"pos": pos, "layers": self._pack_cache(kvs, s, self.kv_window(max_seq))}
 

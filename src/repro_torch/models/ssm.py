@@ -15,7 +15,11 @@ The recurrence (per head h, state size N, head dim P):
 
 Under a mesh (DTensor activations) the depthwise conv and the chunked
 scan run per rank on its channels and heads (``local_map``), the gated
-norm through DTensor over the whole ``ssm_inner``.
+norm through DTensor over the whole ``ssm_inner``; the in-projections
+run column-parallel over the channels and heads, ``out_proj``
+row-parallel (``sharding.rules.sharded_product``; ``w_B`` and ``w_C`` are
+replicated).  A batch split over "model" too (``dp`` with the model axis
+in the batch) stays split: each rank runs its own sequences whole.
 
 Rounding follows the reference op by op: ``softplus`` is
 ``logaddexp(x, 0)`` (``F.softplus`` switches to the identity above 20),
@@ -34,7 +38,7 @@ from repro_torch.kernels.ssd import ssd_decode_step
 from repro_torch.kernels.ssd.ref import ssd_step  # noqa: F401  (the model's recurrence)
 from repro_torch.models.common import ParamSpec, rms_norm
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import act_placements
+from repro_torch.sharding.rules import act_placements, sharded_product
 
 NEG_INF = -2.0**30
 
@@ -166,12 +170,11 @@ def pick_chunk(s: int, target: int) -> int:
 
 def _in_proj(x: torch.Tensor, params: Dict[str, torch.Tensor]):
     """z, x, B, C projections and the softplus'd dt (float32)."""
-    z = x @ params["w_z"]
-    xs = x @ params["w_x"]
-    bp = x @ params["w_B"]
-    cp = x @ params["w_C"]
-    dt = softplus((x @ params["w_dt"]).to(torch.float32)
-                  + params["dt_bias"].to(torch.float32))
+    def proj(name):  # column-parallel where "model" splits the weight
+        return sharded_product("...d,dc->...c", x, params[name], "matmul")
+
+    z, xs, bp, cp = proj("w_z"), proj("w_x"), proj("w_B"), proj("w_C")
+    dt = softplus(proj("w_dt").to(torch.float32) + params["dt_bias"].to(torch.float32))
     return z, xs, bp, cp, dt
 
 
@@ -241,7 +244,7 @@ def _ssd_mix(x: torch.Tensor, xs_pre, bp_pre, cp_pre, z, dt, params, cfg: ModelC
     y = y + xh * params["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, h * p)
     y = rms_norm(y * silu(z), params["norm"])
-    return y @ params["out_proj"], h_final
+    return sharded_product("...c,cd->...d", y, params["out_proj"], "matmul"), h_final
 
 
 def ssm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor],
@@ -357,5 +360,5 @@ def ssm_decode_step(x1: torch.Tensor, params: Dict[str, torch.Tensor], cache,
     )
     y = y.reshape(bsz, h * p)
     y = rms_norm(y * silu(z), params["norm"])
-    out = (y @ params["out_proj"])[:, None, :]
+    out = sharded_product("...c,cd->...d", y, params["out_proj"], "matmul")[:, None, :]
     return out, cache

@@ -24,7 +24,9 @@ is a mesh (:class:`repro_torch.launch.mesh.AbstractMesh` or a
 are the DTensor placements (:func:`placements`).  :func:`local_shard`
 cuts a rank's shard out of a full array with no communication, and
 :func:`distribute` places a full tensor that every rank holds alike.
-The rest are the port's helpers for running on DTensors: the placements
+The rest are the port's helpers for running on DTensors: every product
+of an activation and a weight as GSPMD partitions it from the weight's
+sharding (:func:`sharded_product`), the placements
 of an activation beside the batch (:func:`act_placements`), fsdp's
 gather of a weight (:func:`gather_batch_dims`), redistribution to a
 reference's placements (:func:`like`), the whole of a DTensor
@@ -41,7 +43,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.launch.mesh import axis_names, mesh_shape
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import no_batch_einsum, tree_leaves, tree_map
 
 # Logical axes that shard over the tensor-parallel ("model") mesh axis.
 _TP_AXES = (
@@ -374,20 +376,138 @@ def distribute(full, sharding: NamedSharding):
 
 def act_placements(ref, shape, model_dim: Optional[int] = None) -> list:
     """Placements for an activation of ``shape`` beside ``ref`` (a DTensor
-    whose dim 0 is the batch): over each mesh dim but "model" the batch as
-    ``ref`` has it (sharded or replicated), over "model" dim ``model_dim``
+    whose dim 0 is the batch): over each mesh dim the batch as ``ref`` has
+    it where ``ref`` splits it there, else, over "model", dim ``model_dim``
     (heads, channels, experts) sharded where it divides, else replicated.
-    What the per-head and per-expert code runs on, one rank's shard."""
+    What the per-head and per-expert code runs on, one rank's shard.  A
+    batch split over "model" too (``dp`` with the model axis in the batch)
+    stays split: each rank then runs every head of its own sequences."""
     from torch.distributed.tensor import Replicate, Shard
 
     mesh = ref.device_mesh
     out = []
     for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, ref.placements)):
-        if name == "model":
+        if p == Shard(0):
+            out.append(p)
+        elif name == "model":
             ok = model_dim is not None and shape[model_dim] % mesh.size(i) == 0
             out.append(Shard(model_dim) if ok else Replicate())
         else:
-            out.append(Shard(0) if p == Shard(0) else Replicate())
+            out.append(Replicate())
+    return out
+
+
+def _letters(eq: str, x, w) -> Tuple[str, str, str]:
+    """The subscripts of ``eq`` ("xs,ws->os") with a leading ``...`` in
+    ``xs`` and ``os`` spelled out as upper-case letters for ``x``'s rank."""
+    ins, os_ = eq.replace(" ", "").split("->")
+    xs, ws = ins.split(",")
+    if "..." in ws or len(ws) != w.dim():
+        raise ValueError(f"sharded_product: {eq!r} does not name the weight's {w.dim()} dims")
+    if xs.startswith("..."):
+        lead = "ABCDEFGH"[: x.dim() - (len(xs) - 3)]
+        xs, os_ = lead + xs[3:], os_.replace("...", lead)
+    if len(xs) != x.dim():
+        raise ValueError(f"sharded_product: {eq!r} does not name the input's {x.dim()} dims")
+    return xs, ws, os_
+
+
+def _plain_product(eq: str, x, w, via: str):
+    """``x`` times ``w`` by the site's own op (see :func:`sharded_product`)."""
+    if via == "matmul":
+        return torch.matmul(x, w)
+    if via == "no_batch":
+        return no_batch_einsum(eq, x, w)
+    if via == "einsum":
+        return torch.einsum(eq, x, w)
+    raise ValueError(f"unknown via {via!r}; expected 'matmul', 'no_batch' or 'einsum'")
+
+
+def sharded_product(eq: str, x, w, via: str = "einsum"):
+    """The product of an activation ``x`` and a weight ``w`` spelled by
+    ``eq`` ("xs,ws->os"; ``xs`` and ``os`` may start with ``...``), run on
+    plain tensors as the site always ran it: ``via`` "matmul" is ``x @ w``
+    (``aten.mm``), "no_batch" the marked
+    :func:`repro_torch.models.common.no_batch_einsum` (``aten.bmm``, saved
+    by ``remat="dots"``), "einsum" ``torch.einsum``.
+
+    On DTensors each rank runs the same op on its own shards in a
+    ``local_map``, the layout GSPMD gives the reference's product from the
+    weight's sharding, never DTensor's own plan:
+
+    * the weight's "model" shard on an output dim (ffn, heads, kv heads,
+      vocab, experts, ssm channels and heads): column-parallel.  ``x``
+      replicated over "model" (or, for a dim that ``x`` shares with the
+      weight, the experts, sharded alike); the output sharded on that
+      dim, no collective;
+    * on a contracted dim (``w_down``, ``wo``, ``out_proj``):
+      row-parallel.  ``x`` sharded on it, as the column product leaves it;
+      the output a ``Partial`` over "model", reduced once to the residual
+      stream's placement (replicated over "model");
+    * the weight replicated over "model" (a dim that "model" does not
+      divide): the product on the rank's own rows; or, where ``x`` comes
+      in split over "model" on a contracted dim (the SSM decode's output
+      under ``dp`` with the model axis in the batch, on torch 2.11),
+      row-parallel on the rank's rows of the weight, a slice.
+
+    Over every other mesh dim, and over "model" where the weight is
+    replicated there, ``x`` keeps each split of a dim that the output
+    carries and the weight does not (the batch, over "data", and over
+    "model" under ``dp`` with the model axis in the batch); any other
+    split is gathered.  The weight is gathered whole over every mesh dim
+    but "model" (fsdp).  A placement it does not know (a weight's "model"
+    placement other than a shard of one of its dims, one operand a DTensor
+    and the other not) raises ``ValueError``: no product is left to
+    DTensor's propagation."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return _plain_product(eq, x, w, via)
+    if not (is_dtensor(x) and is_dtensor(w)):
+        raise ValueError("sharded_product: one operand is a DTensor and the other is not")
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    xs, ws, os_ = _letters(eq, x, w)
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    col = pwm = None  # the weight's letter split over "model", its placement there
+    for name, p in zip(names, w.placements):
+        if name == "model" and not p.is_replicate():
+            if type(p) is not Shard:
+                raise ValueError(f"sharded_product {eq!r}: the weight's placement {p} over "
+                                 "'model' is not a shard of one of its dims")
+            col, pwm = ws[p.dim], p
+    if col is None and "model" in names:
+        # a replicated weight beside an input split over "model" on a
+        # contracted dim: gathering the input would repeat the product on
+        # every rank of the group, so each rank takes its rows of the weight
+        p = x.placements[names.index("model")]
+        if type(p) is Shard and xs[p.dim] in ws and xs[p.dim] not in os_:
+            col, pwm = xs[p.dim], Shard(ws.index(xs[p.dim]))
+    pw, px, pout, gx, gw = [], [], [], [], []
+    for name, pwi, pxi in zip(names, w.placements, x.placements):
+        if name == "model" and col is not None:
+            # row-parallel, or a dim both share (the experts): x split
+            # alike; column-parallel: every rank reads the whole input and
+            # its grad is a part of the sum
+            shared = col in xs
+            px.append(Shard(xs.index(col)) if shared else Replicate())
+            gx.append(px[-1] if shared else Partial())
+            pw.append(pwm)
+            gw.append(pwm)
+            pout.append(Shard(os_.index(col)) if col in os_ else Partial())
+            continue
+        pw.append(Replicate())
+        free = (type(pxi) is Shard and xs[pxi.dim] in os_ and xs[pxi.dim] not in ws)
+        px.append(pxi if free else Replicate())
+        gx.append(px[-1])
+        # the weight's grad from a rank's own rows is a part of the sum
+        gw.append(Partial() if free else Replicate())
+        pout.append(Shard(os_.index(xs[pxi.dim])) if free else Replicate())
+    out = local_map(lambda a, b: _plain_product(eq, a, b, via), out_placements=pout,
+                    in_placements=(px, pw), in_grad_placements=(gx, gw), device_mesh=mesh,
+                    redistribute_inputs=True)(x, w)
+    if any(p.is_partial() for p in pout):
+        out = out.redistribute(mesh, [Replicate() if p.is_partial() else p for p in pout])
     return out
 
 

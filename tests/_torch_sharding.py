@@ -106,7 +106,8 @@ def run_steps(mesh, arch: str, strategy: str, steps: int = STEPS, remat: str = "
     """``steps`` sharded float32 train steps of the reduced ``arch`` from
     ``PRNGKey(0)`` on ``mesh``: (metrics per step, full parameters as
     numpy, placements of the parameters and moments after each step,
-    flash calls per step)."""
+    flash calls per step).  With ``mesh`` None the same steps on plain
+    tensors (no placements)."""
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMDataset
@@ -122,28 +123,34 @@ def run_steps(mesh, arch: str, strategy: str, steps: int = STEPS, remat: str = "
     cfg = get_config(arch, reduced=True)
     lm = LM(cfg)
     params = tame_params(lm.init(prng.PRNGKey(0), torch.float32, "cpu"), cfg.family)
-    st = ShardingStrategy.from_name(strategy)
-    p_sh = param_shardings(lm.logical_axes(), params, mesh, st)
-    m_sh = moment_shardings(p_sh, params, mesh, st)
-    params = tree_map(distribute, params, p_sh)
     ocfg = AdamWConfig()
-    opt = adamw_init(params, ocfg, m_sh)
+    if mesh is None:
+        opt = adamw_init(params, ocfg)
+    else:
+        st = ShardingStrategy.from_name(strategy)
+        p_sh = param_shardings(lm.logical_axes(), params, mesh, st)
+        m_sh = moment_shardings(p_sh, params, mesh, st)
+        params = tree_map(distribute, params, p_sh)
+        opt = adamw_init(params, ocfg, m_sh)
     step = make_train_step(lm, ocfg, RunFlags(remat=remat, q_chunk=S, loss_impl=loss_impl,
                                               loss_chunk=8))
     ds = SyntheticLMDataset(cfg, B, S)
     counter = FlashCount.install()
     metrics, placed, flash = [], [], []
     for i in range(steps):
-        batch = {k: distribute(torch.from_numpy(v), (token_sharding if v.ndim == 2
-                                                     else embeds_sharding)(mesh, B))
-                 for k, v in ds.batch_at(i).items()}
+        batch = {k: torch.from_numpy(v) for k, v in ds.batch_at(i).items()}
+        if mesh is not None:
+            batch = {k: distribute(v, (token_sharding if v.ndim == 2 else embeds_sharding)(
+                mesh, B)) for k, v in batch.items()}
         counter.n = 0
         params, opt, m = step(params, opt, batch)
         flash.append(counter.n)
         metrics.append({k: float(v) for k, v in m.items()})
-        placed.append({"params": placement_strs(params), "m": placement_strs(opt["m"]),
-                       "v": placement_strs(opt["v"])})
-    full = {k: t.full_tensor().detach().numpy() for k, t in tree_leaves(params)}
+        if mesh is not None:
+            placed.append({"params": placement_strs(params), "m": placement_strs(opt["m"]),
+                           "v": placement_strs(opt["v"])})
+    full = {k: (t if mesh is None else t.full_tensor()).detach().numpy()
+            for k, t in tree_leaves(params)}
     return metrics, full, placed, flash
 
 
@@ -575,13 +582,52 @@ def comm_worker(rank, world, init_file, out_dir):
             json.dump(res, f)
 
 
+def flops_rows(trace) -> list:
+    """A ``launch.hlo.StepTrace``'s FLOPs as [op, input shapes, FLOPs] rows."""
+    return [[op, [list(s) for s in shp], n] for (op, shp), n in trace.flops_by_op.items()]
+
+
+def weight_matrices(cfg, names) -> list:
+    """The weights of ``cfg`` whose leaf is named in ``names``, as (rows,
+    cols) matrices: their stacked dims ("layers", "sublayer") dropped, the
+    first dim left (the input's) the rows."""
+    import math
+
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.lm import LM
+
+    lm = LM(cfg)
+    axes = dict(tree_leaves(lm.logical_axes()))
+    out = set()
+    for k, t in tree_leaves(lm.abstract_params()):
+        if k.split("/")[-1] in names:
+            dims = [d for d, a in zip(t.shape, axes[k]) if a not in ("layers", "sublayer")]
+            out.add((dims[0], math.prod(dims[1:])))
+    return sorted(out)
+
+
+def weight_product_flops(rows, matrices) -> float:
+    """The FLOPs of the :func:`flops_rows` ``rows`` that are products (no
+    batch, or a batch of 1) of one of the weights ``matrices``: ``x @ W``,
+    ``g @ W^T`` or the grad of ``W`` (an output of W's shape)."""
+
+    def touches(a, b, w):
+        if len(a) != len(b) or any(d != 1 for d in a[:-2]):
+            return False
+        return (b[-2], b[-1]) in (w, w[::-1]) or (a[-2], b[-1]) == w
+
+    return sum(n for _, shp, n in rows if len(shp) == 2
+               and any(touches(*shp, tuple(w)) for w in matrices))
+
+
 def fake_worker(rank, world, init_file, out_dir, combos, part: int = 0):
     """In one process: with ``part`` 0 the :data:`COMM_CASES` as rank 0 of a
     ``fake`` process group of each world size, on meta shards
     (``comm_fake.json``); then ``dryrun.run_combo`` of each (arch,
     InputShape fields) in ``combos`` on the reduced config (this process's
     ``dryrun.config_for_shape`` returns it) over a fake (2, 2) mesh (``combos_<part>.json``: the result's counts, or the
-    error)."""
+    error; for a prefill or decode also the FLOPs by op and input shapes of
+    the same step traced unsharded, on a fake one-rank mesh)."""
     import traceback
 
     import torch.distributed as dist
@@ -625,5 +671,104 @@ def fake_worker(rank, world, init_file, out_dir, combos, part: int = 0):
                                                "error": traceback.format_exc()[-3000:]}
     finally:
         dist.destroy_process_group()
+    # each prefill and decode again unsharded (the same global batch and
+    # flags): its FLOPs by op and input shapes
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        one = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        for arch, fields in combos:
+            shape, key = InputShape(*fields), f"{arch}|{fields[0]}"
+            if shape.kind == "train" or out[key]["status"] != "ok":
+                continue
+            profile = dryrun.TUNED_PROFILES[arch]
+            try:
+                tr = dryrun._build_and_trace(get_config(arch, reduced=True), shape, one,
+                                             profile, dryrun.run_flags(profile, shape))
+                out[key]["unsharded"] = flops_rows(tr)
+            except Exception:  # reported by the test
+                out[key]["unsharded_error"] = traceback.format_exc()[-3000:]
+    finally:
+        dist.destroy_process_group()
     with open(os.path.join(out_dir, f"combos_{part}.json"), "w") as f:
         json.dump(out, f)
+
+
+# ---- the sharded steps held to the plain port, for a host without JAX ----
+
+_FAMILIES = {"dense": "llama3.2-1b", "ssm": "mamba2-130m", "moe": "olmoe-1b-7b",
+             "hybrid": "jamba-v0.1-52b", "vlm": "llama-3.2-vision-11b",
+             "audio": "seamless-m4t-large-v2"}
+#: the sharded training cases of ``test_torch_sharding_steps.py`` (2 ranks)
+#: and ``test_torch_sharding_mesh4.py`` (4 ranks): (name, mesh shape, arch,
+#: strategy, keywords of :func:`run_steps`)
+PLAIN_CHECK_CASES = {
+    2: [(f"{fam}_{st}", shape, arch, st, {}) for st, shape in (("dp", (2, 1)), ("tp", (1, 2)))
+        for fam, arch in _FAMILIES.items()]
+    + [(f"dense_tp_{remat}", (1, 2), _FAMILIES["dense"], "tp",
+        {"remat": remat, "loss_impl": loss, "steps": 2})
+       for remat, loss in (("block", "dense"), ("dots", "dense"), ("none", "chunked"))],
+    4: [("dense_tp_2x2", (2, 2), _FAMILIES["dense"], "tp", {}),
+        ("dense_tp_1x4", (1, 4), _FAMILIES["dense"], "tp", {}),
+        ("dense_fsdp_2x2", (2, 2), _FAMILIES["dense"], "fsdp", {}),
+        ("moe_fsdp_2x2", (2, 2), _FAMILIES["moe"], "fsdp", {}),
+        ("dense_zero1_2x2", (2, 2), _FAMILIES["dense"], "zero1", {}),
+        ("moe_zero1_2x2", (2, 2), _FAMILIES["moe"], "zero1", {})],
+}
+#: the step tests' bars on the metrics (relative): loss, ce and aux; grad norm
+METRIC_RTOL, GRAD_NORM_RTOL = 1e-5, 1e-3
+
+
+def check_against_plain(out: Path) -> int:
+    """:data:`PLAIN_CHECK_CASES` on 2 and then 4 spawned ``gloo`` ranks
+    (:func:`steps_worker`) while this process runs the same steps on plain
+    tensors (:func:`run_steps` with no mesh).  Prints each case's losses
+    beside the plain ones; returns the number of cases whose metrics differ
+    by more than :data:`METRIC_RTOL` / :data:`GRAD_NORM_RTOL`."""
+    import time
+
+    bad = 0
+    for world, cases in PLAIN_CHECK_CASES.items():
+        t0 = time.perf_counter()
+        ctx = start(steps_worker, world, out / f"w{world}", cases)
+        plain = {}
+        try:
+            for _, _, arch, _, kw in cases:
+                key = (arch, tuple(sorted(kw.items())))
+                if key not in plain:
+                    plain[key] = run_steps(None, arch, "", **kw)[0]
+        finally:
+            join(ctx, 1800)
+        for name, shape, arch, strategy, kw in cases:
+            meta, _ = load_case(out / f"w{world}", name)
+            want = plain[(arch, tuple(sorted(kw.items())))]
+            worst = 0.0
+            for got, ref in zip(meta["metrics"], want):
+                for k in ("loss", "ce", "aux", "grad_norm"):
+                    if k in ref:
+                        lim = GRAD_NORM_RTOL if k == "grad_norm" else METRIC_RTOL
+                        worst = max(worst, abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30) / lim)
+            ok = worst <= 1.0 and len(meta["metrics"]) == len(want)
+            bad += not ok
+            print(f"{'ok  ' if ok else 'FAIL'} {name} {shape} {strategy}: losses "
+                  f"{[round(m['loss'], 6) for m in meta['metrics']]} against plain "
+                  f"{[round(m['loss'], 6) for m in want]}; worst difference {worst:.3f} of "
+                  f"its bar; flash calls {meta['flash']}", flush=True)
+        print(f"{world} ranks: {len(cases)} cases in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return bad
+
+
+if __name__ == "__main__":
+    # The sharded training steps that the step tests hold to the JAX
+    # reference, held here to the plain port instead (torch only):
+    #     PYTHONPATH=src python tests/_torch_sharding.py [OUT_DIR]
+    # Exits 1 where a case differs from the plain steps beyond the bars.
+    import sys
+    import tempfile
+
+    torch.set_num_threads(1)
+    print(f"torch {torch.__version__}", flush=True)
+    n_bad = check_against_plain(Path(sys.argv[1] if len(sys.argv) > 1 else
+                                     tempfile.mkdtemp(prefix="sharding_plain_check_")))
+    print("all cases match" if not n_bad else f"{n_bad} cases differ")
+    sys.exit(1 if n_bad else 0)

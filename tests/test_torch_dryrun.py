@@ -16,8 +16,15 @@
   carry exactly the gradient bytes.
 * ``run_combo`` of each family's reduced config for a train, a prefill and
   a decode shape on a fake (2, 2) mesh under its tuned profile: status
-  "ok", counts positive, ``useful_flops_ratio`` <= 1 and
-  ``run_useful_ratio`` no more than it, the FLOPs by op adding up.
+  "ok", counts positive, ``useful_flops_ratio`` <= 1 (for a prefill
+  ``run_useful_ratio`` <= 1: ``model_flops`` counts the vocab projection
+  of every prompt token, the step projects each sequence's last) and
+  ``run_useful_ratio`` no more than ``useful_flops_ratio``, the FLOPs by op
+  adding up; a prefill's and a decode's 4 ranks' FLOPs equal, within 1 %,
+  to those of the same step traced unsharded on a fake one-rank mesh,
+  plus the products of the weights that the rules leave replicated over
+  "model" (:data:`REPLICATED`) once more, as each rank runs them on its
+  batch shard: no rank repeats another's work.
 
 The spawned processes (2 and 4 ``gloo`` ranks, two fake-group processes)
 start together when the module's first test needs them.
@@ -33,7 +40,10 @@ from pathlib import Path
 import pytest
 import torch
 
-from _torch_sharding import COMM_CASES, comm_worker, fake_worker, join, start
+from _torch_sharding import (
+    COMM_CASES, comm_worker, fake_worker, join, start, weight_matrices, weight_product_flops,
+)
+from repro_torch.configs import get_config
 from repro_torch.launch import dryrun, hlo
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,6 +52,9 @@ FAMILIES = {"dense": "llama32_1b", "ssm": "mamba2_130m", "moe": "olmoe_1b_7b",
             "audio": "seamless_m4t_large_v2"}
 SHAPES = {"train": ("train_s", 32, 4, "train"), "prefill": ("prefill_s", 32, 4, "prefill"),
           "decode": ("decode_s", 32, 4, "decode")}
+#: the weights that the rules leave replicated over the (2, 2) mesh's
+#: "model" axis, by family (the hybrid's SSM B and C projections)
+REPLICATED = {"hybrid": ("w_B", "w_C")}
 
 
 @pytest.fixture(scope="module")
@@ -177,9 +190,20 @@ def test_reduced_run_combo(spawned, family, kind):
     assert r["status"] == "ok", r.get("error")
     assert r["cost"]["flops"] > 0 and r["cost"]["bytes_accessed"] > 0
     assert r["memory"]["peak_bytes"] > 0 and r["memory"]["argument_bytes"] > 0
-    assert 0 < r["roofline"]["useful_flops_ratio"] <= 1
+    # the ratio of what the step runs (the same ratio but for a prefill)
+    ratio = "run_useful_ratio" if kind == "prefill" else "useful_flops_ratio"
+    assert 0 < r["roofline"][ratio] <= 1
     assert 0 < r["roofline"]["run_useful_ratio"] <= r["roofline"]["useful_flops_ratio"]
     assert sum(r["flops_by_op"].values()) == r["cost"]["flops"]
     assert r["roofline"]["chips"] == 4
+    if kind != "train":  # a train step: tests/test_torch_sharding_products.py
+        assert "unsharded_error" not in r, r["unsharded_error"]
+        whole = sum(n for _, _, n in r["unsharded"])
+        repl = weight_product_flops(r["unsharded"], weight_matrices(
+            get_config(FAMILIES[family], reduced=True), REPLICATED.get(family, ())))
+        assert bool(repl) == (family in REPLICATED)
+        want = whole + repl  # the replicated products run on both "model" ranks
+        got = 4 * r["cost"]["flops"]
+        assert abs(got - want) <= 0.01 * want, f"4 ranks x FLOPs {got:.4e} against {want:.4e}"
     if kind == "train":  # every strategy but dp reduces something; dp all-reduces its grads
         assert r["collectives"]["total"] > 0
