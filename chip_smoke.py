@@ -346,8 +346,9 @@ Phases (any failed check raises, so the exit code is non-zero):
     (``dp``: DTensor parameters, moments and batches, all replicated) and
     under ``tp`` through ``make_train_step`` (every head, ffn and vocab
     dim ``Shard`` over the size-1 "model" dim, so ``local_map`` and the
-    redistributions run): both runs' losses bit-identical to the plain
-    run's (every collective over one rank is the identity), exactly 16 x
+    redistributions run, the loss on the vocab-parallel path): both runs'
+    losses bit-identical to the plain run's (every collective over one
+    rank is the identity, and so is every reduction of the loss), exactly 16 x
     8 flash launches in each; step ms (median of steps 3-8), peak memory,
     and one profiled step's device ms, NCCL kernels and idle share of the
     three;
@@ -356,7 +357,8 @@ Phases (any failed check raises, so the exit code is non-zero):
     ``make_prefill_step`` and ``make_serve_step`` (batch 8, prompt 512, 8
     tokens, bf16): plain, then on DTensor parameters under ``tp`` with the
     prefill's cache placed by ``place_cache`` and decoded with
-    ``decode_constrain``: tokens identical, 16 flash launches each (the
+    ``decode_constrain`` (the softmax as partial reductions over the
+    sequence shards): tokens identical, 16 flash launches each (the
     prefill's); (b) after the card phases, in this process (meta shards on
     fake process groups, no card work): ``launch/dryrun.py``'s trace of
     phase 25's training step, phase 20's prefill and one decode step on a
@@ -371,7 +373,10 @@ Phases (any failed check raises, so the exit code is non-zero):
     project), the largest ops by FLOPs printed; no rank repeats work of
     another (the 256 ranks' FLOPs at most 1.01 times the unsharded
     step's), the useful ratios and collective bytes printed beside those
-    of the port before its products were pinned (:data:`UNPINNED`).
+    of the port before its products were pinned (:data:`UNPINNED`) and,
+    for ``train_4k``, before its loss was partitioned (:data:`GATHERED`);
+    no all-gather of ``train_4k`` reaches a rank's (B, S, V) float32
+    logits.
 
 Phases run in the order of their numbers, but for 31, 32, 49 and 50 (a, b),
 which run after 29, 48 and 51 (with 52 (a)), which run after phase 25's
@@ -1738,6 +1743,12 @@ MEASURED: dict = {}
 #: not measured by this script, printed as the "before" of its "after"):
 #: useful ratio and collective bytes a rank
 UNPINNED = {"train_4k": (0.1194, 1.7955e11), "prefill_32k": (0.1428, 2.8320e10)}
+#: phase 52 (b)'s ``train_4k`` collective bytes a rank with the products
+#: pinned but the loss's logits gathered whole over "model" for it (this
+#: phase's count on an H100's host and ``python -m
+#: repro_torch.launch.dryrun`` under torch 2.13 alike; printed as the
+#: "before" of its "after")
+GATHERED = {"train_4k": 2.853635e10}
 #: the paper batch of phase 4 under the random placement (phase 29), its
 #: jobs cut from 32 to 16 a lane on both sides so that phases 8-11 fit the
 #: time limit
@@ -2215,11 +2226,14 @@ def _dryrun_phase() -> None:
     last token) <= 1, and no redundant work on the (32, 8) mesh: its 256
     ranks' FLOPs at most 1.01 times the unsharded step's (every product of
     a weight split over "model" runs on each rank's shard; llama's weights
-    all divide the 8-way axis); the ratios are findings."""
+    all divide the 8-way axis); and for ``train_4k`` no all-gather as large
+    as a rank's (B, S, V) float32 logits (the loss runs on each rank's
+    vocab columns); the ratios and bytes are findings."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
+    from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models.config import INPUT_SHAPES, InputShape
@@ -2249,6 +2263,7 @@ def _dryrun_phase() -> None:
     finally:
         dist.destroy_process_group()
     mesh = make_production_mesh()
+    data_ranks = mesh.size(mesh.mesh_dim_names.index("data"))
     try:
         for name in UNPINNED:
             runs[f"llama32_1b|{name}|single|tuned"] = trace(INPUT_SHAPES[name], mesh, tuned)
@@ -2291,6 +2306,18 @@ def _dryrun_phase() -> None:
              f"{r['collectives']['total']:.6e} B a rank (recorded before: {coll0:.4e})")
         _require(ratio <= 1.01, f"phase 52 (b): no rank repeats another's work in "
                                 f"llama32_1b|{name} (256 ranks' FLOPs <= 1.01 x unsharded)")
+        if name in GATHERED:
+            shape = INPUT_SHAPES[name]
+            logits = (shape.global_batch // data_ranks * shape.seq_len
+                      * get_config("llama3.2-1b").padded_vocab * 4)
+            gather = r["largest_collectives"].get("all-gather", 0.0)
+            _log(f"dry-run llama32_1b|{name}: collectives {r['collectives']['total']:.6e} B a "
+                 f"rank with the loss on each rank's vocab columns, against "
+                 f"{GATHERED[name]:.6e} with its logits gathered for it; the largest all-gather "
+                 f"{gather:.6e} B, the rank's (B, S, V) float32 logits {logits:.6e} B; "
+                 f"by kind {r['collectives']['op_counts']}")
+            _require(gather < logits, f"phase 52 (b): no all-gather of llama32_1b|{name} "
+                                      "reaches the logits' size")
     tr = runs["train, phase 25"]
     rf = tr["roofline"]
     _log(f"dry-run against the card (train, phase 25's step): compute_s {rf['compute_s']:.6f} s "

@@ -27,11 +27,15 @@ from repro_torch.models.config import INPUT_SHAPES
 
 # The reference's three pairs: arctic's training step (memory-dominant),
 # the VLM's decode (collective-bound through the cache's resharding), and
-# jamba's training step (its gradient all-reduce payload).
+# jamba's training step (its gradient all-reduce payload); and the port's
+# two whose collectives the loss and the MoE dispatch set: llama's and
+# olmoe's training steps.
 PAIRS = {
     "arctic_train": ("arctic_480b", "train_4k"),
     "vlm_decode": ("llama32_vision_11b", "decode_32k"),
     "jamba_train": ("jamba_v01_52b", "train_4k"),
+    "llama_train": ("llama32_1b", "train_4k"),
+    "olmoe_train": ("olmoe_1b_7b", "train_4k"),
 }
 
 # Variants: name -> Profile fields (the Profile carries every knob).

@@ -171,6 +171,7 @@ def _trace_and_analyze(trace) -> Dict[str, Any]:
     collectives of one rank, and its FLOPs by op."""
     res = {"cost": hlo_mod.normalize_cost(trace), "memory": hlo_mod.memory_stats(trace),
            "collectives": hlo_mod.collective_bytes(trace),
+           "largest_collectives": hlo_mod.largest_collectives(trace),
            "flops_by_op": hlo_mod.flops_by_op(trace)}
     gc.collect()
     return res

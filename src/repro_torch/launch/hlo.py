@@ -18,7 +18,11 @@ counted, so :meth:`StepTrace.arguments` refuses fakes.
   the output shapes of the HLO's collectives) by the reference's kind
   names, ``total`` and ``op_counts``; ``by_axis`` splits the bytes by the
   mesh dim of each collective's group, so that the roofline prices the
-  NVLink-domain "model" axis apart.
+  NVLink-domain "model" axis apart.  A group is that mesh dim's when it
+  holds the same ranks, whatever its name: a backend may run a collective
+  on another group object of the same ranks (the default group for a
+  mesh dim that spans the world, a flattened group of one real dim).
+  :func:`largest_collectives` gives each kind's largest single payload.
 * :func:`normalize_cost`: ``flops`` from ``torch.utils.flop_counter``'s
   formulas (the port's kernels register theirs; :func:`flops_by_op`
   splits them by op and input shapes), ``bytes_accessed``, the
@@ -123,10 +127,15 @@ class StepTrace(TorchDispatchMode):
         self.bytes_accessed = 0
         self.transcendentals = 0
         self.collectives: list = []  # (kind, bytes, mesh dim name or "other")
-        self._groups: Dict[str, str] = {}
+        self._groups: Dict[str, str] = {}  # group name -> mesh dim name or "other"
+        self._dim_ranks: list = []  # (mesh dim name, its group's ranks)
         if mesh is not None:
+            import torch.distributed as dist
+
             for i, name in enumerate(mesh.mesh_dim_names):
-                self._groups[mesh.get_group(i).group_name] = name
+                group = mesh.get_group(i)
+                self._groups[group.group_name] = name
+                self._dim_ranks.append((name, frozenset(dist.get_process_group_ranks(group))))
         self._args: Dict[int, int] = {}
         self._donated: set = set()
         self._new: Dict[int, int] = {}
@@ -175,10 +184,10 @@ class StepTrace(TorchDispatchMode):
             out = func(*args, **kwargs)
             kind = _KINDS.get(packet.__name__)
             if kind is not None:
-                group = next((a for a in list(args) + list(kwargs.values())
-                              if isinstance(a, str) and a in self._groups), None)
+                group = kwargs.get("group_name", next(
+                    (a for a in reversed(args) if isinstance(a, str)), None))
                 self.collectives.append((kind, sum(_nbytes(t) for t in _tensors(out)),
-                                         self._groups.get(group, "other")))
+                                         self._axis(group)))
             self._track(out)
             return out
         if packet not in flop_registry and func.namespace == "aten":
@@ -203,6 +212,22 @@ class StepTrace(TorchDispatchMode):
                                     + sum(_nbytes(t) for t in _tensors(out)))
         self._track(out)
         return out
+
+    def _axis(self, group: Optional[str]) -> str:
+        """The mesh dim whose group holds the same ranks as the group named
+        ``group``, or "other"."""
+        if group not in self._groups:
+            axis = "other"
+            try:
+                import torch.distributed as dist
+                from torch.distributed.distributed_c10d import _resolve_process_group
+
+                ranks = frozenset(dist.get_process_group_ranks(_resolve_process_group(group)))
+                axis = next((n for n, r in self._dim_ranks if r == ranks), "other")
+            except (KeyError, RuntimeError, ValueError, TypeError):
+                pass  # not a group this process knows
+            self._groups[group] = axis
+        return self._groups[group]
 
     def _track(self, out) -> None:
         for t in _tensors(out):
@@ -234,6 +259,16 @@ def collective_bytes(trace: StepTrace) -> Dict[str, Any]:
     result["op_counts"] = dict(counts)
     result["by_axis"] = {k: float(v) for k, v in axes.items()}
     return result
+
+
+def largest_collectives(trace: StepTrace) -> Dict[str, float]:
+    """Each collective kind's largest single payload on one rank, bytes:
+    what shows a tensor moved whole (the logits, the MoE's slots) where a
+    sum of many small ones would not."""
+    out: Dict[str, float] = {}
+    for kind, nbytes, _ in trace.collectives:
+        out[kind] = max(out.get(kind, 0.0), float(nbytes))
+    return out
 
 
 def normalize_cost(trace: StepTrace) -> Dict[str, float]:

@@ -37,10 +37,12 @@ the heads (wk and wv replicated where "model" does not divide the kv
 heads), wo row-parallel.
 
 Decode (:func:`decode_attention`, :func:`decode_cross_attention`) is plain
-PyTorch, as in the reference, which has no kernel for it.  Self attention
-writes the new key and value into the cache slot in place: the reference
-donates the cache to its jitted step (``donate_argnums``), so no caller
-keeps the old cache.  Cross attention reads the keys and values that
+PyTorch, as in the reference, which has no kernel for it.  Under a mesh
+it runs on each rank's heads too, or, with ``decode_constrain``, on each
+rank's sequence shard of the cache, its softmax as partial reductions
+(:func:`_seq_sharded_decode`).  Self attention writes the new key and
+value into the cache slot in place: the reference donates the cache to
+its jitted step (``donate_argnums``), so no caller keeps the old cache.  Cross attention reads the keys and values that
 :func:`precompute_cross_kv` made once at prefill and writes nothing.
 """
 
@@ -56,7 +58,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_train
 from repro_torch.models.common import ParamSpec, apply_rope
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import act_placements, batch_spec_axes, sharded_product
+from repro_torch.sharding.rules import (
+    act_placements, all_reduce_shards, batch_spec_axes, shard_extent, sharded_product,
+)
 
 NEG_INF = -2.0**30  # large-but-finite; avoids NaN from all-masked rows
 
@@ -250,11 +254,7 @@ def _write_slot(cache_t: torch.Tensor, slot: torch.Tensor, new: torch.Tensor) ->
     new = new if list(new.placements) == want else new.redistribute(mesh, want)
     new, local = new.to_local(), cache_t._local_tensor
     slot = slot.to_local() if isinstance(slot, DTensor) else slot
-    size, start = cache_t.shape[1], 0
-    for i, p in enumerate(pl):  # this rank's first slot: shards split in mesh-dim order
-        if p.is_shard(1):
-            size //= mesh.size(i)
-            start += mesh.get_coordinate()[i] * size
+    start, size = shard_extent(cache_t.shape[1], mesh, pl, 1)
     idx = slot - start
     valid = ((idx >= 0) & (idx < size)).view(1, 1, 1, 1)
     idx = idx.clamp(0, size - 1)
@@ -292,12 +292,12 @@ def decode_attention(
     writes its shard of the slot (:func:`_write_slot`).  ``constrain`` is
     the reference's flash-decode sharding: after the update the keys and
     values are read sequence-sharded over "model" (the batch over the mesh
-    dims that ``sharding.batch_spec_axes`` gives it), q is replicated over "model" and the logits are
-    sharded on the key dim, so that the products run on each rank's
-    slots; DTensor then gathers the logits (B, H, 1, W) for the softmax,
-    not the cache.  Plain tensors ignore it, as the reference's constraint
-    does nothing on one device."""
-    h, kvh, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim_
+    dims that ``sharding.batch_spec_axes`` gives it) and q is replicated
+    over "model", and each rank attends over its own slots, the softmax
+    as partial reductions over the sequence shards
+    (:func:`_seq_sharded_decode`): neither the cache nor the (B, H, 1, W)
+    logits are gathered.  Plain tensors ignore it, as the reference's
+    constraint does nothing on one device."""
     window = cache["k"].shape[1]
 
     q = sharded_product("bsd,dhk->bshk", x1, params["wq"])
@@ -315,11 +315,7 @@ def decode_attention(
         ck = _decode_placements(ck, dp, 1)
         cv = _decode_placements(cv, dp, 1)
         q = _decode_placements(q, dp, None)
-        kk = _repeat_kv(ck, h // kvh)  # (B, W, H, hd)
-        vv = _repeat_kv(cv, h // kvh)
-        logits = torch.einsum("bshk,bthk->bhst", q, kk).to(torch.float32)
-        logits = _decode_placements(logits / math.sqrt(hd), dp, 3)
-        out = _masked_softmax_pv(logits, vv, pos, window, x1.dtype)
+        out = _seq_sharded_decode(q, ck, cv, pos)
     elif isinstance(q, DTensor):
         out = _per_rank_decode(q, ck, cv, pos)
     else:
@@ -339,6 +335,48 @@ def _masked_softmax_pv(logits, vv, pos, window: int, dtype):
         logits = logits.masked_fill(~valid[None, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(dtype)
     return torch.einsum("bhst,bthk->bshk", probs, vv)
+
+
+def _seq_sharded_decode(q, ck, cv, pos):
+    """Flash-decode, as the reference's comment describes its constrained
+    decode: q (B, 1, H, hd) replicated over "model", the keys and values
+    (B, W, KV, hd) split on W over "model" (the batch over its mesh dims
+    on all three), each rank in a ``local_map`` on its own slots: float32
+    logits, its unwritten slots masked (slot indices are global, so
+    offset by the shard's start), a local max all-reduced, ``exp`` and a
+    local sum all-reduced, the probabilities in the activation dtype times
+    its values, and the (B, 1, H, hd) parts all-reduced
+    (``sharding.rules.all_reduce_shards``).  On one shard every reduction
+    is the identity.  The decode steps that use it run under
+    ``torch.no_grad``: the normaliser's gradient would need the other
+    ranks' terms."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    pq, pkv = list(q.placements), list(ck.placements)
+    pp = [Replicate()] * mesh.ndim if isinstance(pos, DTensor) else None
+    window = ck.shape[1]
+    lo = shard_extent(window, mesh, pkv, 1)[0]
+    h, kvh, hd = q.shape[2], ck.shape[2], q.shape[3]
+
+    def reduce(t, op):
+        return all_reduce_shards(t, op, mesh, pkv, 1)
+
+    def local(q, ck, cv, pos):
+        kk = _repeat_kv(ck, h // kvh)  # (B, W_loc, H, hd)
+        vv = _repeat_kv(cv, h // kvh)
+        logits = torch.einsum("bshk,bthk->bhst", q, kk).to(torch.float32)
+        logits = logits / math.sqrt(hd)
+        slots = torch.arange(lo, lo + ck.shape[1], device=ck.device)
+        valid = (slots[None, :] <= pos) | (pos >= window)
+        logits = logits.masked_fill(~valid[None, None], NEG_INF)
+        p = torch.exp(logits - reduce(logits.amax(-1, keepdim=True), "max"))
+        probs = (p / reduce(p.sum(-1, keepdim=True), "sum")).to(q.dtype)
+        return reduce(torch.einsum("bhst,bthk->bshk", probs, vv), "sum")
+
+    return local_map(local, out_placements=pq, in_placements=(pq, pkv, pkv, pp),
+                     device_mesh=mesh, redistribute_inputs=True)(q, ck, cv, pos)
 
 
 def _decode_core(q, ck, cv, pos=None):

@@ -14,6 +14,7 @@ import threading
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import prng
 from repro_torch.device import resolve_device
@@ -158,50 +159,94 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def gather_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """``t`` whole along ``dim``: a DTensor sharded there is all-gathered
-    over those mesh dims (its other placements kept); anything else is
-    returned as it is.  The loss reads the vocab whole (its ``logsumexp``
-    would gather it too, and DTensor's masked ``gather`` over a sharded
-    vocab fails on a (B, S, 1) index)."""
-    from torch.distributed.tensor import DTensor, Replicate
-
-    if not isinstance(t, DTensor):
-        return t
-    dim %= t.dim()
-    pl = [Replicate() if p.is_shard(dim) else p for p in t.placements]
-    return t if pl == list(t.placements) else t.redistribute(t.device_mesh, pl)
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The loss's per-position terms, as in the reference: logits (B, S, V)
+    in float32, ``nll = (logsumexp - gold) * valid`` (B, S) and the mask
+    ``valid`` (labels >= vocab_size or < 0 are masked, the padded-vocab
+    convention; the padded columns count in the ``logsumexp``).  On
+    DTensors vocab-parallel (:func:`vocab_parallel_nll`): no rank reads
+    another's columns."""
+    logits = logits.to(torch.float32)
+    valid = (labels >= 0) & (labels < vocab_size)
+    if isinstance(logits, DTensor):
+        return vocab_parallel_nll(logits, labels, vocab_size), valid
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return (lse - gold) * valid, valid
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        vocab_size: int) -> torch.Tensor:
-    """Mean CE over valid labels in float32; labels >= vocab_size or < 0
-    are masked (the padded-vocab convention), as in the reference."""
-    logits = gather_dim(logits.to(torch.float32), -1)
-    valid = (labels >= 0) & (labels < vocab_size)
-    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = take_last(logits, safe)
-    nll = (lse - gold) * valid
+    """Mean CE over valid labels in float32 (:func:`token_nll`)."""
+    nll, valid = token_nll(logits, labels, vocab_size)
     return nll.sum() / torch.clamp(valid.sum(), min=1)
 
 
-def take_last(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``t[..., idx]`` per position: ``gather`` along the last dim of ``t``
-    (B, S, V) at ``idx`` (B, S).  On DTensors (``t`` whole along its last
-    dim, :func:`gather_dim`) each rank gathers its own rows in a
-    ``local_map``, the batch as ``t`` has it and the rest whole: DTensor's strategy may shard ``t``'s last dim for the
-    gather and give a masked partial, whose reduction fails on a 3-d
-    tensor in torch 2.13."""
-    from torch.distributed.tensor import DTensor
+class _ShardNLL(torch.autograd.Function):
+    """:func:`token_nll` on one rank's vocab columns ``[lo, lo + V_loc)``
+    of float32 logits (B, S, V_loc); ``reduce(t, op)`` all-reduces a
+    per-position tensor over the ranks that split the vocab.
 
-    if not isinstance(t, DTensor):
-        return torch.gather(t, -1, idx[..., None])[..., 0]
+    Forward: each shard's ``logsumexp``, combined as ``m + log(sum_r
+    exp(lse_r - m))`` with ``m = max_r lse_r``; the gold logit read where
+    the label falls in the shard, 0 elsewhere, summed.  On one shard
+    ``exp(0) = 1`` and ``log(1) = 0``, so ``lse`` is the shard's to the bit.
+    Backward, local: the two terms autograd forms for ``logsumexp`` and
+    ``gather`` (``g * exp(x - lse)`` and ``-g`` scattered into zeros at the
+    gold column, on the shard that holds it), added as autograd adds
+    them, so one shard gives the plain ops' gradient to the bit."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab_size, lo, reduce):
+        valid = (labels >= 0) & (labels < vocab_size)
+        safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        m = reduce(lse, "max")
+        lse = m + torch.log(reduce(torch.exp(lse - m), "sum"))
+        idx = safe - lo
+        mine = (idx >= 0) & (idx < logits.shape[-1])
+        idx = torch.where(mine, idx, torch.zeros_like(idx))
+        gold = reduce(torch.gather(logits, -1, idx[..., None])[..., 0].masked_fill(~mine, 0.0),
+                      "sum")
+        ctx.save_for_backward(logits, lse, idx, mine, valid)
+        return (lse - gold) * valid
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, mine, valid = ctx.saved_tensors
+        g = g * valid
+        d_lse = g[..., None] * (logits - lse[..., None]).exp()
+        d_gold = torch.zeros_like(logits).scatter_add_(-1, idx[..., None],
+                                                       (-g).masked_fill(~mine, 0.0)[..., None])
+        return d_lse + d_gold, None, None, None, None
+
+
+def vocab_parallel_nll(logits, labels, vocab_size: int):
+    """:func:`token_nll`'s ``nll`` of DTensor logits (B, S, V), float32,
+    and labels (B, S), per rank in a ``local_map``: the logits as they are
+    split on the batch and the vocab (anything else gathered), the labels
+    split on the batch alike, and each rank's ``logsumexp`` and gold logit
+    all-reduced over the mesh dims that split the vocab
+    (``sharding.rules.all_reduce_shards``): three all-reduces of (B, S)
+    floats (a max and two sums), where a gather of the vocab would move
+    the logits.  The gradient stays on each rank's columns; nothing is
+    reduced for it."""
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding.rules import all_reduce_shards, shard_extent
 
-    pl = [Shard(0) if p == Shard(0) else Replicate() for p in t.placements]
-    return local_map(lambda a, i: torch.gather(a, -1, i[..., None])[..., 0],
-                     out_placements=pl, in_placements=(pl, pl), device_mesh=t.device_mesh,
-                     redistribute_inputs=True)(t, idx)
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    pl = [p if p in (Shard(0), Shard(last)) else Replicate() for p in logits.placements]
+    pb = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+    lo = shard_extent(logits.shape[-1], mesh, pl, last)[0]
+
+    def reduce(t, op):
+        return all_reduce_shards(t, op, mesh, pl, last)
+
+    return local_map(lambda x, y: _ShardNLL.apply(x, y, vocab_size, lo, reduce),
+                     out_placements=pb, in_placements=(pl, pb), in_grad_placements=(pl, pb),
+                     device_mesh=mesh, redistribute_inputs=True)(logits, labels)

@@ -10,11 +10,14 @@ and the results are gathered back weighted by the renormalised gates.  The
 reference computes all of it outside Pallas, so the port does it in plain
 PyTorch.  Nothing in it waits for the host (no ``.item()``, no boolean
 indexing), so a decode step around it can be captured in a CUDA graph.
-Under a mesh the dispatch runs through DTensor (its cumsum and scatter on
-whole operands, ROADMAP item 10) and the slots are cut to each rank's
-experts before the expert products.  The MLP's, the router's and the
-experts' products run on each rank's shard of their weights
-(``sharding.rules.sharded_product``).
+Under a mesh the router's product runs on each rank's shard of its
+weight (``sharding.rules.sharded_product``), and the rest on each rank's
+own experts and batch rows in a ``local_map`` (:func:`_moe_per_rank`):
+the same per-sequence slots, only the choices routed to the rank's
+experts scattered into its slots, its experts' products, its choices
+gathered back, and one all-reduce of the (B, S, D) result over "model",
+as GSPMD partitions the reference's layer.  The MLP's products run on
+each rank's shard of their weights (``sharded_product``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import act_placements, sharded_product
+from repro_torch.sharding.rules import all_reduce_shards, sharded_product
 
 
 def mlp_schema(cfg: ModelConfig, d_ff: int) -> Dict[str, ParamSpec]:
@@ -108,21 +111,112 @@ def route(x: torch.Tensor, router: torch.Tensor, k: int):
     return logits, probs, gates, idx
 
 
+def choices(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """idx (B,S,K) -> the one-hot choices (B,S*K,E) int32, token-major."""
+    flat = idx.reshape(idx.shape[0], -1)
+    return (flat[..., None] == torch.arange(n_experts, device=idx.device)).to(torch.int32)
+
+
 def dispatch_slots(idx: torch.Tensor, n_experts: int, capacity: int):
     """Where each (token, choice) goes, per sequence.  idx: (B,S,K) ->
     (one-hot choices (B,S*K,E) int32, overflow mask (B,S*K), slot (B,S*K)
     int64 in [0, E*C], E*C being the drop row).  A choice's position in its
     expert counts the choices before it in the sequence (token-major, then
     choice order)."""
-    b = idx.shape[0]
-    flat = idx.reshape(b, -1)
-    experts = torch.arange(n_experts, device=idx.device)
-    sel = (flat[..., None] == experts).to(torch.int32)
+    flat = idx.reshape(idx.shape[0], -1)
+    sel = choices(idx, n_experts)
     cum = torch.cumsum(sel, dim=1, dtype=torch.int32) - sel
     pos = (sel * cum).sum(-1)
     overflow = pos >= capacity
     dest = (flat * capacity + pos).masked_fill(overflow, n_experts * capacity)
     return sel, overflow, dest
+
+
+def _experts(x, params, gates, overflow, dest, act: str, n_experts: int, capacity: int):
+    """The tokens x (B,S,D) scattered into ``n_experts`` x ``capacity``
+    slots by ``dest`` (B,S*K) (only the drop row at E*C takes several: an
+    accumulating scatter, as the reference's .add, cut off), the experts
+    as three batched products, and the results gathered back weighted by
+    ``gates`` (B,S,K), an overflowed choice (and any choice sent to the
+    drop row) reading zeros: y (B,S,D)."""
+    b, s, d = x.shape
+    k = gates.shape[-1]
+    e, c = n_experts, capacity
+    x_rep = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
+    slot = dest[..., None].expand(b, s * k, d)
+    disp = torch.zeros((b, e * c + 1, d), dtype=x.dtype, device=x.device)
+    disp = disp.scatter_add(1, slot, x_rep)[:, : e * c].reshape(b, e, c, d)
+
+    def up(name):
+        return torch.einsum("becd,edf->becf", disp, params[name])
+
+    if "w_gate" in params:
+        h = _act(up("w_gate"), act) * up("w_up")
+    else:
+        h = _act(up("w_up"), act)
+    out = torch.einsum("becf,efd->becd", h, params["w_down"])
+
+    out_flat = torch.cat([out.reshape(b, e * c, d),
+                          torch.zeros((b, 1, d), dtype=out.dtype, device=out.device)], dim=1)
+    y_tok = torch.gather(out_flat, 1, slot)
+    w = gates.reshape(b, s * k).masked_fill(overflow, 0.0).to(x.dtype)
+    return (y_tok * w[..., None]).reshape(b, s, k, d).sum(dim=2)
+
+
+_EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
+def _moe_per_rank(x, params, gates, idx, cfg: ModelConfig, capacity: int):
+    """:func:`_experts` on DTensors, per rank in a ``local_map``, as GSPMD
+    partitions the reference's dispatch from the experts' sharding.  Each
+    rank takes its batch rows (as ``x`` splits them) with every token of
+    them, computes the same per-sequence slots (capacity is per sequence,
+    so no rank needs another's rows), and runs its shard of the expert
+    weights: where "model" splits the experts, only the choices routed to
+    its experts enter its (B, E_loc*C + 1, D) slots, the others going to
+    the drop row; where it splits their ffn dim instead, every expert on
+    its ffn columns.  Either way its y is a part of the sum, all-reduced
+    once over "model" (``sharding.rules.all_reduce_shards``), and the
+    grads of ``x`` and ``gates`` are the ranks' parts (``Partial``).
+    The slots, their scatter and their gather never become DTensors, so
+    no collective moves them, forward or backward."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    e = cfg.n_experts
+    names = [n for n in _EXPERT_WEIGHTS if n in params]
+    w0 = params[names[0]]
+    mesh = w0.device_mesh
+    dims = mesh.mesh_dim_names
+    pm = w0.placements[dims.index("model")] if "model" in dims else Replicate()
+    split = pm.is_shard()
+    px, gx = [], []
+    for n, p in zip(dims, x.placements):
+        if n == "model" and split:  # every rank reads the rows whole
+            px.append(Replicate())
+            gx.append(Partial())
+        else:
+            px.append(Shard(0) if p == Shard(0) else Replicate())
+            gx.append(px[-1])
+    pws = [[p if n == "model" else Replicate() for n, p in zip(dims, params[w].placements)]
+           for w in names]
+    # a weight's grad from a rank's own batch rows is a part of the sum
+    gws = [[Partial() if q == Shard(0) else p for p, q in zip(pw, px)] for pw in pws]
+    e_loc = e // mesh.size(dims.index("model")) if split and pm.dim == 0 else e
+    e0 = mesh.get_local_rank("model") * e_loc if e_loc != e else 0
+    pout = [Shard(0) if p == Shard(0) else Replicate() for p in px]
+
+    def local(x, gates, idx, *ws):
+        _, overflow, dest = dispatch_slots(idx, e, capacity)
+        if e_loc != e:  # this rank's experts' slots; the others' choices to the drop row
+            mine = (dest >= e0 * capacity) & (dest < (e0 + e_loc) * capacity)
+            dest = torch.where(mine, dest - e0 * capacity, e_loc * capacity)
+        y = _experts(x, dict(zip(names, ws)), gates, overflow, dest, cfg.act, e_loc, capacity)
+        return all_reduce_shards(y, "sum", mesh, pws[0])
+
+    return local_map(local, out_placements=pout, in_placements=(px, px, px, *pws),
+                     in_grad_placements=(gx, gx, px, *gws), device_mesh=mesh,
+                     redistribute_inputs=True)(x, gates, idx, *(params[w] for w in names))
 
 
 def moe(x: torch.Tensor, params: Dict[str, torch.Tensor],
@@ -136,35 +230,12 @@ def moe(x: torch.Tensor, params: Dict[str, torch.Tensor],
     c = expert_capacity(cfg, s)
 
     logits, probs, gates, idx = route(x, params["router"], k)
-    sel, overflow, dest = dispatch_slots(idx, e, c)
-
-    # scatter the tokens into (E, C) slots; only the drop row takes several
-    # (an accumulating scatter, as the reference's .add), and it is cut off
-    x_rep = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
-    slot = dest[..., None].expand(b, s * k, d)
-    disp = torch.zeros((b, e * c + 1, d), dtype=x.dtype, device=x.device)
-    disp = disp.scatter_add(1, slot, x_rep)[:, : e * c].reshape(b, e, c, d)
-    if isinstance(disp, DTensor):
-        # DTensor gathers the cumsum's and the scatter's operands whole
-        # (replicated over "model"); the slots are cut to each rank's
-        # experts, a slice, so the expert products run on local experts
-        disp = disp.redistribute(disp.device_mesh, act_placements(x, disp.shape, 1))
-
-    def up(name):  # each rank's experts on their own slots
-        return sharded_product("becd,edf->becf", disp, params[name])
-
-    if "w_gate" in params:
-        h = _act(up("w_gate"), cfg.act) * up("w_up")
+    if isinstance(x, DTensor):
+        y = _moe_per_rank(x, params, gates, idx, cfg, c)
+        sel = choices(idx, e)
     else:
-        h = _act(up("w_up"), cfg.act)
-    out = sharded_product("becf,efd->becd", h, params["w_down"])
-
-    # gather back, weighted by the gates; dropped choices read the zero row
-    out_flat = torch.cat([out.reshape(b, e * c, d),
-                          torch.zeros((b, 1, d), dtype=out.dtype, device=out.device)], dim=1)
-    y_tok = torch.gather(out_flat, 1, slot)
-    w = gates.reshape(b, s * k).masked_fill(overflow, 0.0).to(x.dtype)
-    y = (y_tok * w[..., None]).reshape(b, s, k, d).sum(dim=2)
+        sel, overflow, dest = dispatch_slots(idx, e, c)
+        y = _experts(x, params, gates, overflow, dest, cfg.act, e, c)
 
     # load balance, E * sum_e mean_prob_e * frac_routed_e (Switch, eq. 4),
     # and the router z-loss

@@ -15,7 +15,8 @@ need, as plain functions of nested dicts of tensors:
   mesh) it gathers fsdp's weight shards per block, looks the embedding up
   vocab-parallel, runs every product on each rank's shard of its weight
   (``sharding.rules.sharded_product``; the vocab projection
-  column-parallel) and reads the loss's vocab whole;
+  column-parallel) and takes the loss on each rank's vocab columns
+  (``common.vocab_parallel_nll``);
 * ``prefill_fn`` — prompt pass producing last-token logits + the cache;
 * ``decode_fn`` — one-token serve step, updating the cache in place; both
   run on DTensor parameters too (a cache placed by
@@ -66,8 +67,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
-    ParamSpec, Schema, apply_rope, cross_entropy_loss, gather_dim, in_no_batch_einsum, init_params,
-    logical_axes, rms_norm, take_last, tree_map,
+    ParamSpec, Schema, apply_rope, cross_entropy_loss, in_no_batch_einsum, init_params,
+    logical_axes, rms_norm, token_nll, tree_map,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.rules import batch_spec_axes, gather_batch_dims, sharded_product
@@ -233,10 +234,10 @@ class RunFlags:
     reference's ``with_sharding_constraint(x, P(act_dp, None, None))``;
     ``decode_constrain`` keeps the decode KV cache sharded on its sequence
     over "model" (the batch over its mesh dims) through the update,
-    replicates q over "model" and shards the logits on the key dim (the
-    reference's flash-decode constraints; where its softmax runs
-    as partial reductions over the sequence shards, DTensor gathers the
-    (B, H, 1, W) logits for it, never the cache).  The reference's
+    replicates q over "model" and runs the softmax as partial reductions
+    over the sequence shards (the reference's flash-decode constraints;
+    ``attention._seq_sharded_decode``): neither the cache nor the
+    (B, H, 1, W) logits are gathered.  The reference's
     ``scan_unroll`` has no counterpart: the port has no ``lax.scan``
     (its blocks are a Python loop) and its counters see every block, so
     there is no scan body to correct for.  Nor have the reference's
@@ -594,12 +595,8 @@ class LM:
         return nll / torch.clamp(n, min=1)
 
     def _chunk_nll(self, xc, embed, lc):
-        logits = gather_dim(sharded_product("bsd,vd->bsv", xc, embed).to(torch.float32), -1)
-        valid = (lc >= 0) & (lc < self.cfg.vocab_size)
-        safe = torch.where(valid, lc, torch.zeros_like(lc)).long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = take_last(logits, safe)
-        return ((lse - gold) * valid).sum(), valid.sum()
+        nll, valid = token_nll(sharded_product("bsd,vd->bsv", xc, embed), lc, self.cfg.vocab_size)
+        return nll.sum(), valid.sum()
 
     # -- caches ---------------------------------------------------------------
     def kv_window(self, max_seq: int) -> int:

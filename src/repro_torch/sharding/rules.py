@@ -26,7 +26,11 @@ cuts a rank's shard out of a full array with no communication, and
 :func:`distribute` places a full tensor that every rank holds alike.
 The rest are the port's helpers for running on DTensors: every product
 of an activation and a weight as GSPMD partitions it from the weight's
-sharding (:func:`sharded_product`), the placements
+sharding (:func:`sharded_product`), a reduction over the shards of an
+operand inside a ``local_map`` (:func:`all_reduce_shards`; the
+vocab-parallel loss, the per-rank MoE combine and the sequence-parallel
+decode softmax) and the global offset of a rank's shard
+(:func:`shard_extent`), the placements
 of an activation beside the batch (:func:`act_placements`), fsdp's
 gather of a weight (:func:`gather_batch_dims`), redistribution to a
 reference's placements (:func:`like`), the whole of a DTensor
@@ -509,6 +513,71 @@ def sharded_product(eq: str, x, w, via: str = "einsum"):
     if any(p.is_partial() for p in pout):
         out = out.redistribute(mesh, [Replicate() if p.is_partial() else p for p in pout])
     return out
+
+
+def shard_extent(size: int, mesh, placements_, dim: int) -> Tuple[int, int]:
+    """(first index, length) of this rank's shard of a dim of ``size``
+    that ``placements_`` split on ``mesh``: DTensor's split, mesh dims in
+    order, each a ``torch.chunk`` (the last shards shorter where the mesh
+    dim does not divide)."""
+    coord = mesh.get_coordinate()
+    start = 0
+    for i, p in enumerate(placements_):
+        if p.is_shard(dim):
+            step = -(-size // mesh.size(i))
+            start += coord[i] * step
+            size = max(0, min(step, size - coord[i] * step))
+    return start, size
+
+
+class _SumShards(torch.autograd.Function):
+    """:func:`all_reduce_shards`' sum: the all-reduce forward, the gradient
+    passed through."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        return _all_reduce(t, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _all_reduce(t, op: str, mesh, dims):
+    from torch.distributed._functional_collectives import AsyncCollectiveTensor, all_reduce
+
+    for i in dims:
+        t = all_reduce(t, op, (mesh, i))
+        if isinstance(t, AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+def all_reduce_shards(t, op: str, mesh, placements_, dim: Optional[int] = None):
+    """Inside a ``local_map``: ``t``, this rank's part of a reduction over
+    an operand that ``placements_`` place on ``mesh`` (its dim ``dim``, or
+    any dim where None), all-reduced with ``op`` ("sum" or "max") over the
+    mesh dims that split that dim: a local ``logsumexp`` or sum made
+    global.  Over a mesh dim where the operand is whole, or of size 1, it
+    does nothing, so on one shard it is the identity, to the bit.
+
+    "max" carries no gradient (the shift of a softmax or a ``logsumexp``,
+    whose gradient is zero).  "sum" passes its gradient through: it is for
+    a result that leaves the ``local_map`` replicated over those dims,
+    whose gradient each rank then receives whole, and each part's gradient
+    is that whole; the inputs that made the parts declare theirs
+    ``Partial`` there.  A sum that the rank's own code reads on (a
+    softmax's normaliser) would need the other ranks' gradient terms too:
+    there it is exact only where nothing is differentiated (decode)."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"unknown op {op!r}; expected 'sum' or 'max'")
+    dims = [i for i, p in enumerate(placements_)
+            if p.is_shard() and (dim is None or p.is_shard(dim)) and mesh.size(i) > 1]
+    if not dims:
+        return t
+    if op == "max":
+        return _all_reduce(t.detach(), "max", mesh, dims)
+    return _SumShards.apply(t, mesh, dims)
 
 
 def gather_batch_dims(w):

@@ -693,6 +693,249 @@ def fake_worker(rank, world, init_file, out_dir, combos, part: int = 0):
         json.dump(out, f)
 
 
+# ---- the sharded step's reductions (test_torch_sharding_reductions.py) ----
+
+#: the loss cases: logits (B, S, V_padded) and labels (B, S) with -1 and
+#: values >= the vocab among them
+LOSS_B, LOSS_S, LOSS_VOCAB, LOSS_VPAD = 4, 8, 60, 64
+#: the MoE cases: batch x seq of the layer's input, the capacity factor
+#: that makes it drop choices
+MOE_B, MOE_S, MOE_CF = 4, 32, 0.25
+#: the constrained decode: greedy tokens past the ring's wrap (window =
+#: prompt + 4 slots)
+DECODE_STEPS = 8
+
+
+def loss_inputs(seed: int = 0):
+    """float32 logits (B, S, V_padded), int64 labels (B, S) in [-1, V + 6)."""
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((LOSS_B, LOSS_S, LOSS_VPAD)) * 3).astype(np.float32)
+    labels = rng.integers(-1, LOSS_VOCAB + 6, (LOSS_B, LOSS_S)).astype(np.int64)
+    labels[0, :3] = (-1, LOSS_VOCAB, LOSS_VOCAB - 1)  # masked, masked, the vocab's last
+    return logits, labels
+
+
+def moe_setup(n_experts=None):
+    """The reduced olmoe's config with :data:`MOE_CF` (and ``n_experts``
+    where given), float32 weights of its MoE layer, the input x (B, S, D)
+    and the output's cotangent, from numpy's ``default_rng(0)``."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.ffn import moe_schema
+
+    cfg = get_config("olmoe-1b-7b", reduced=True)
+    cfg = dataclasses.replace(cfg, capacity_factor=MOE_CF, n_experts=n_experts or cfg.n_experts)
+    rng = np.random.default_rng(0)
+    params = {}
+    for k, spec in sorted(moe_schema(cfg).items()):
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        params[k] = (rng.standard_normal(spec.shape) * spec.scale
+                     / math.sqrt(fan_in)).astype(np.float32)
+    x = rng.standard_normal((MOE_B, MOE_S, cfg.d_model)).astype(np.float32)
+    gy = rng.standard_normal((MOE_B, MOE_S, cfg.d_model)).astype(np.float32)
+    return cfg, params, x, gy
+
+
+def _loss_case(mesh):
+    """The loss of :func:`loss_inputs` with the logits' batch split over
+    "data" and the vocab over "model": (loss, logits grad) as numpy."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models.common import cross_entropy_loss
+    from repro_torch.sharding.rules import place
+
+    logits, labels = loss_inputs()
+    names = mesh.mesh_dim_names
+    pl = [Shard(2) if n == "model" else Shard(0) for n in names]
+    pb = [Replicate() if n == "model" else Shard(0) for n in names]
+    x = place(torch.from_numpy(logits), mesh, pl).requires_grad_()
+    loss = cross_entropy_loss(x, place(torch.from_numpy(labels), mesh, pb), LOSS_VOCAB)
+    loss.backward()
+    return loss.detach().full_tensor().numpy(), x.grad.full_tensor().numpy()
+
+
+def _moe_case(mesh, n_experts):
+    """:func:`repro_torch.models.ffn.moe` on :func:`moe_setup`'s inputs
+    placed by the tp rules (the batch over "data"): y, aux, the routing ids
+    and the grads of x and of each weight of ``(y * gy).sum() + aux``."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.ffn import moe, moe_schema, route
+    from repro_torch.sharding.rules import (
+        ShardingStrategy, distribute, embeds_sharding, mesh_context, param_shardings,
+    )
+
+    cfg, params, x, gy = moe_setup(n_experts)
+    axes = {k: s.axes for k, s in moe_schema(cfg).items()}
+    p_t = {k: torch.from_numpy(v) for k, v in params.items()}
+    sh = param_shardings(axes, p_t, mesh, ShardingStrategy("tp"))
+    p_dt = tree_map(lambda t, s: distribute(t, s).requires_grad_(), p_t, sh)
+    x_dt = distribute(torch.from_numpy(x), embeds_sharding(mesh, MOE_B)).requires_grad_()
+    with mesh_context(p_dt):
+        y, aux = moe(x_dt, p_dt, cfg)
+        ids = route(x_dt, p_dt["router"], cfg.experts_per_token)[3]
+        ((y * torch.from_numpy(gy)).sum() + aux).backward()
+    out = {"y": y.full_tensor(), "aux": aux.full_tensor(), "ids": ids.full_tensor(),
+           "g_x": x_dt.grad.full_tensor()}
+    out.update({f"g_{k}": v.grad.full_tensor() for k, v in p_dt.items()})
+    return {k: v.detach().numpy() for k, v in out.items()}
+
+
+def greedy_decode(mesh=None):
+    """The reduced llama (:func:`serve_params`) prefills the serving
+    prompt, its cache window :data:`SERVE_S` + 4 slots, and decodes
+    :data:`DECODE_STEPS` greedy tokens through ``make_serve_step``, past
+    the ring's wrap: plain, or on ``mesh`` under ``tp`` with the cache
+    placed sequence-sharded (``place_cache(mode="seq")``) and
+    ``decode_constrain``.  Returns (tokens (B, steps), logits of each
+    step) as numpy."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import LM, RunFlags
+    from repro_torch.sharding.rules import (
+        ShardingStrategy, distribute, full, param_shardings, place_cache, token_sharding,
+    )
+
+    cfg = get_config("llama3.2-1b", reduced=True)
+    lm = LM(cfg)
+    params = serve_params(cfg)
+    prompt, _, _ = serve_inputs(cfg)
+    tok = torch.from_numpy(prompt)
+    if mesh is not None:
+        params = tree_map(distribute, params, param_shardings(
+            lm.logical_axes(), params, mesh, ShardingStrategy("tp")))
+        tok = distribute(tok, token_sharding(mesh, SERVE_B))
+    flags = RunFlags(remat="none", q_chunk=SERVE_S, decode_constrain=mesh is not None)
+    logits, cache = make_prefill_step(lm, SERVE_S + 4, flags)(params, {"tokens": tok})
+    if mesh is not None:
+        cache = place_cache(cache, mesh, SERVE_B, cfg, mode="seq")
+    step = make_serve_step(lm, flags)
+    tokens, out = [], []
+    for _ in range(DECODE_STEPS):
+        nxt = torch.argmax(full(logits), dim=-1)[:, None].to(torch.int32)
+        tokens.append(nxt[:, 0].numpy())
+        if mesh is not None:
+            nxt = distribute(nxt, token_sharding(mesh, SERVE_B))
+        logits, cache = step(params, cache, nxt)
+        out.append(full(logits).numpy())
+    return np.stack(tokens, axis=1), out
+
+
+def reductions_worker(rank, world, init_file, out_dir, cases):
+    """Each case (name, kind, mesh shape, arg) on a ``gloo`` group of
+    ``world`` ranks; rank 0 writes ``<name>.npz``.  Kinds: "loss"
+    (:func:`_loss_case`; on a one-rank mesh also the plain port's loss and
+    grad), "moe" (:func:`_moe_case`, ``arg`` the experts or None), "decode"
+    (:func:`greedy_decode`)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    init_group(rank, world, init_file)
+    try:
+        for name, kind, shape, arg in cases:
+            mesh = make_host_mesh(*shape, device="cpu")
+            if kind == "loss":
+                loss, grad = _loss_case(mesh)
+                out = {"loss": loss, "grad": grad}
+                if world == 1:
+                    from repro_torch.models.common import cross_entropy_loss
+
+                    logits, labels = loss_inputs()
+                    x = torch.from_numpy(logits).requires_grad_()
+                    plain = cross_entropy_loss(x, torch.from_numpy(labels), LOSS_VOCAB)
+                    plain.backward()
+                    out.update(plain_loss=plain.detach().numpy(), plain_grad=x.grad.numpy())
+            elif kind == "moe":
+                out = _moe_case(mesh, arg)
+            else:
+                tokens, logits = greedy_decode(mesh)
+                out = {"tokens": tokens, **{f"l{i}": v for i, v in enumerate(logits)}}
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"{name}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+#: the reductions test's rank cases by world size: (name, kind, mesh
+#: shape, arg) for :func:`reductions_worker`
+REDUCTION_CASES = {1: [("loss_1x1", "loss", (1, 1), None)],
+                   2: [("loss_1x2", "loss", (1, 2), None), ("moe_1x2", "moe", (1, 2), None),
+                       ("decode_1x2", "decode", (1, 2), None)],
+                   4: [("loss_2x2", "loss", (2, 2), None), ("loss_1x4", "loss", (1, 4), None),
+                       ("moe_2x2", "moe", (2, 2), None), ("moe_1x4_ffn", "moe", (1, 4), 2)]}
+#: the structural cases of the reductions test: (name, arch, InputShape
+#: fields), each under its tuned profile (llama's decode constrained), on
+#: a fake :data:`TRACE_MESH`
+REDUCTION_TRACES = (("llama_train", "llama32_1b", ("train_p", 64, 8, "train")),
+                    ("olmoe_train", "olmoe_1b_7b", ("train_p", 64, 8, "train")),
+                    ("llama_decode", "llama32_1b", ("decode_p", 256, 8, "decode")))
+TRACE_MESH = (2, 4)
+
+
+def gathered_bytes(name: str, arch: str, fields) -> dict:
+    """The per-rank bytes of the tensors a :data:`REDUCTION_TRACES` case's
+    reductions would gather whole, on :data:`TRACE_MESH`: the float32
+    (B, S, V) logits of a train step and, for olmoe, its (B, E*C, D)
+    slots in the activations' bf16; the float32 (B, H, 1, W) logits of the
+    decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ffn import expert_capacity
+
+    cfg = get_config(arch, reduced=True)
+    seq, batch = fields[1], fields[2] // TRACE_MESH[0]
+    if name.endswith("decode"):
+        return {"decode logits": batch * cfg.q_heads_padded * seq * 4}
+    out = {"logits": batch * seq * cfg.padded_vocab * 4}
+    if cfg.family == "moe":
+        out["slots"] = batch * cfg.n_experts * expert_capacity(cfg, seq) * cfg.d_model * 2
+    return out
+
+
+def reduction_trace_worker(rank, world, init_file, out_dir, mesh_shape):
+    """:data:`REDUCTION_TRACES` traced as rank 0 of a fake group on the
+    ("data", "model") mesh ``mesh_shape`` and unsharded on a fake one-rank
+    mesh (``dryrun._build_and_trace``, reduced configs, tuned profiles);
+    writes ``reduction_traces.json``: per case the sharded trace's
+    collectives (kind, bytes, mesh dim) and both traces' FLOPs rows."""
+    import math
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import InputShape
+
+    torch.set_num_threads(1)
+    out = {}
+    for key, shape in (("sharded", tuple(mesh_shape)), ("whole", (1, 1))):
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(shape))
+        try:
+            mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+            for name, arch, fields in REDUCTION_TRACES:
+                rec = out.setdefault(name, {})
+                ishape = InputShape(*fields)
+                profile = dryrun.TUNED_PROFILES[arch]
+                try:
+                    tr = dryrun._build_and_trace(get_config(arch, reduced=True), ishape, mesh,
+                                                 profile, dryrun.run_flags(profile, ishape))
+                except Exception:  # reported by the case's test
+                    rec["error"] = f"{key}: {traceback.format_exc()[-3000:]}"
+                    continue
+                rec[key] = flops_rows(tr)
+                if key == "sharded":
+                    rec["collectives"] = [list(c) for c in tr.collectives]
+        finally:
+            dist.destroy_process_group()
+    with open(os.path.join(out_dir, "reduction_traces.json"), "w") as f:
+        json.dump(out, f)
+
+
 # ---- the sharded steps held to the plain port, for a host without JAX ----
 
 _FAMILIES = {"dense": "llama3.2-1b", "ssm": "mamba2-130m", "moe": "olmoe-1b-7b",
@@ -758,17 +1001,115 @@ def check_against_plain(out: Path) -> int:
     return bad
 
 
+def _plain_reductions() -> dict:
+    """The plain port's results for :data:`REDUCTION_CASES`: the loss and
+    its logits grad, the MoE's outputs and grads (per expert count), the
+    greedy decode's tokens and logits."""
+    from repro_torch.models.common import cross_entropy_loss
+    from repro_torch.models.ffn import moe, route
+
+    logits, labels = loss_inputs()
+    x = torch.from_numpy(logits).requires_grad_()
+    loss = cross_entropy_loss(x, torch.from_numpy(labels), LOSS_VOCAB)
+    loss.backward()
+    out = {"loss": {"loss": loss.detach().numpy(), "grad": x.grad.numpy()}}
+    for n in (None, 2):
+        cfg, params, xx, gy = moe_setup(n)
+        p = {k: torch.from_numpy(v).requires_grad_() for k, v in params.items()}
+        xt = torch.from_numpy(xx).requires_grad_()
+        y, aux = moe(xt, p, cfg)
+        ((y * torch.from_numpy(gy)).sum() + aux).backward()
+        out[f"moe_{n}"] = {"y": y.detach().numpy(), "aux": aux.detach().numpy(),
+                           "ids": route(xt, p["router"], cfg.experts_per_token)[3].numpy(),
+                           "g_x": xt.grad.numpy(),
+                           **{f"g_{k}": v.grad.numpy() for k, v in p.items()}}
+    tokens, steps = greedy_decode()
+    out["decode"] = {"tokens": tokens, **{f"l{i}": v for i, v in enumerate(steps)}}
+    return out
+
+
+def check_reductions(out: Path) -> int:
+    """:data:`REDUCTION_CASES` on 1, 2 and 4 spawned ``gloo`` ranks and
+    :data:`REDUCTION_TRACES` in a fake-group process, while this process
+    computes the plain port's results: the reductions test's cases with
+    the plain port in the reference's place, at its bars (the loss and its
+    grad at 1e-6, one rank to the bit; the MoE's ids identical, y and
+    grads at ``rtol=1e-4`` and 1e-5 of the scale, aux at ``rtol=1e-5``;
+    the decode's tokens identical, its logits at 1e-5), and no trace's
+    all-gather reaching :func:`gathered_bytes`.  Prints each case's worst
+    difference and each trace's collective bytes; returns the number of
+    failed checks."""
+    ctxs = [start(reductions_worker, w, out, c) for w, c in REDUCTION_CASES.items()]
+    ctxs.append(start(reduction_trace_worker, 1, out, TRACE_MESH))
+    try:
+        plain = _plain_reductions()
+    finally:
+        for ctx in ctxs:
+            join(ctx, 900)
+    bad = 0
+
+    def check(ok, what):
+        nonlocal bad
+        bad += not ok
+        print(f"{'ok  ' if ok else 'FAIL'} {what}", flush=True)
+
+    def close(got, want, what, rtol, atol):
+        scale = max(float(np.max(np.abs(want))), 1e-30)
+        check(np.allclose(got, want, rtol=rtol, atol=atol * scale),
+              f"{what}: max |diff| / scale {float(np.max(np.abs(got - want))) / scale:.3e}")
+
+    for name, kind, shape, arg in (c for cs in REDUCTION_CASES.values() for c in cs):
+        with np.load(out / f"{name}.npz") as z:
+            got = {k: z[k] for k in z.files}
+        if kind == "loss":
+            want = plain["loss"]
+            close(got["loss"], want["loss"], f"{name} loss", 1e-6, 1e-6)
+            close(got["grad"], want["grad"], f"{name} grad", 1e-6, 1e-6)
+            if "plain_loss" in got:
+                check(got["loss"].tobytes() == got["plain_loss"].tobytes()
+                      and got["grad"].tobytes() == got["plain_grad"].tobytes(),
+                      f"{name}: the plain port's loss and grad to the bit")
+        elif kind == "moe":
+            want = plain[f"moe_{arg}"]
+            check(np.array_equal(got["ids"], want["ids"]), f"{name}: routing ids identical")
+            for k in want:
+                if k != "ids":
+                    close(got[k], want[k], f"{name} {k}", 1e-5 if k == "aux" else 1e-4,
+                          0.0 if k == "aux" else 1e-5)
+        else:
+            want = plain["decode"]
+            check(np.array_equal(got["tokens"], want["tokens"]),
+                  f"{name}: greedy tokens identical {got['tokens'][0].tolist()}")
+            for i in range(DECODE_STEPS):
+                close(got[f"l{i}"], want[f"l{i}"], f"{name} step {i}", 1e-5, 1e-5)
+    with open(out / "reduction_traces.json") as f:
+        traces = json.load(f)
+    for name, arch, fields in REDUCTION_TRACES:
+        rec = traces[name]
+        if "error" in rec:
+            check(False, f"trace {name}: {rec['error']}")
+            continue
+        gathers = [b for kind, b, _ in rec["collectives"] if kind == "all-gather"]
+        bars = gathered_bytes(name, arch, fields)
+        check(max(gathers, default=0) < min(bars.values()),
+              f"trace {name}: {sum(b for _, b, _ in rec['collectives'])} collective bytes a "
+              f"rank, the largest all-gather {max(gathers, default=0)} B against {bars}")
+    return bad
+
+
 if __name__ == "__main__":
-    # The sharded training steps that the step tests hold to the JAX
-    # reference, held here to the plain port instead (torch only):
+    # What the step and reductions tests hold to the JAX reference, held
+    # here to the plain port instead (torch only):
     #     PYTHONPATH=src python tests/_torch_sharding.py [OUT_DIR]
-    # Exits 1 where a case differs from the plain steps beyond the bars.
+    # Exits 1 where a case differs from the plain port beyond the bars.
     import sys
     import tempfile
 
     torch.set_num_threads(1)
     print(f"torch {torch.__version__}", flush=True)
-    n_bad = check_against_plain(Path(sys.argv[1] if len(sys.argv) > 1 else
-                                     tempfile.mkdtemp(prefix="sharding_plain_check_")))
+    root = Path(sys.argv[1] if len(sys.argv) > 1 else
+                tempfile.mkdtemp(prefix="sharding_plain_check_")).resolve()
+    n_bad = check_reductions(root / "reductions")
+    n_bad += check_against_plain(root)
     print("all cases match" if not n_bad else f"{n_bad} cases differ")
     sys.exit(1 if n_bad else 0)
